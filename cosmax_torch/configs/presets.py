@@ -1,0 +1,203 @@
+"""Preset registry (counterpart of ``cosmax/configs/presets.py``).
+
+Ported so far: ``bao.desi`` and the three BAO + CMB + SN joints
+(``bao.desi_cmb_pantheon``, ``bao.desi_cmb_union3`` and the flagship
+``bao.desi_cmb_des5y``), on the parity path. Each preset reproduces the
+reference script's parameter order, bounds, grids, r_d treatment and
+radiation constants. The model is an argument: for 'lcdm' w0 is dropped
+from the sampled vector, for 'w0wacdm' a wa parameter (-3, 2) follows w0.
+
+Build-time constants are f64 numpy, turned into tensors once per preset
+on the chosen device and dtype.
+"""
+
+from dataclasses import dataclass, replace
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from cosmax_torch.data.loaders import load_bao, load_sn, use_synthetic_sys
+from cosmax_torch.device import resolve
+from cosmax_torch.likelihoods import bao as bao_mod
+from cosmax_torch.likelihoods import cmb as cmb_mod
+from cosmax_torch.likelihoods import sn as sn_mod
+from cosmax_torch.likelihoods.base import ParamSpec, make_chi2_breakdown, make_log_prob
+from cosmax_torch.samplers.ensemble import default_moves
+
+WA_BOUNDS = (-3.0, 2.0)
+
+
+@dataclass(frozen=True)
+class FitSpec:
+    """A fully specified fit: sampled parameters, likelihood terms, and
+    the reference sampler configuration, with constants on ``device``."""
+
+    name: str
+    model: str
+    spec: ParamSpec
+    terms: tuple
+    derive: Callable
+    device: torch.device
+    dtype: torch.dtype
+    n_walkers: int = 150
+    n_steps: int = 2200
+    burn_in: int = 200
+    moves: tuple = None
+    seed: Optional[int] = None
+    note: str = ""
+    data_size: int = 0
+
+    def log_prob(self):
+        return make_log_prob(self.spec, self.terms, self.derive)
+
+    def chi2_breakdown(self):
+        return make_chi2_breakdown(self.spec, self.terms, self.derive)
+
+    @property
+    def dof(self) -> int:
+        return self.data_size - self.spec.dim
+
+
+def _adjust_params(params: Sequence[tuple], model: str):
+    out = [p for p in params if not (p[0] == "w0" and model == "lcdm")]
+    if model == "w0wacdm":
+        idx = next((i for i, p in enumerate(out) if p[0] == "w0"), None)
+        if idx is not None:
+            out.insert(idx + 1, ("wa", *WA_BOUNDS))
+    return out
+
+
+def _spec(params) -> ParamSpec:
+    names = tuple(p[0] for p in params)
+    bounds = np.array([[p[1], p[2]] for p in params], dtype=np.float64)
+    return ParamSpec(names=names, bounds=bounds)
+
+
+def _h_to_H0(p):
+    return dict(p, H0=100.0 * p["h"])
+
+
+def _radiation(orh2: float):
+    """Or = (Omega_r h^2) / h^2 for the radiation-aware E(z)."""
+
+    def derive(p):
+        return dict(p, Or=orh2 / (p["H0"] / 100.0) ** 2)
+
+    return derive
+
+
+PRESETS = {}
+PRESET_NOTES = {}
+
+
+def _register(name, note):
+    def wrap(build_fn):
+        PRESETS[name] = build_fn
+        PRESET_NOTES[name] = note
+        return build_fn
+
+    return wrap
+
+
+def list_presets():
+    return sorted(PRESETS)
+
+
+def get_preset(
+    name: str,
+    model: str = "wzcdm",
+    fast: bool = False,
+    synthetic_sys: bool = False,
+    device="cuda",
+    dtype=None,
+) -> FitSpec:
+    """Build a preset on ``device`` (float32 unless ``dtype`` says f64,
+    which only the CPU takes). ``synthetic_sys=True`` adds the synthetic
+    systematic covariance to SN datasets whose published one is absent
+    (dense 1829^2 factor for DES-SN5YR; chi^2 not comparable to
+    published values)."""
+    if fast:
+        raise NotImplementedError(
+            "fast=True needs the emulator build and bundle/fast mode "
+            "(ROADMAP.md queue 1, items 4-5), not ported yet"
+        )
+    if name not in PRESETS:
+        raise KeyError(
+            f"unknown or unported preset {name!r}; ported: {', '.join(list_presets())}"
+        )
+    device, dtype = resolve(device, dtype)
+    with use_synthetic_sys(synthetic_sys):
+        fit = PRESETS[name](model, device, dtype)
+    if fit.moves is None:
+        fit = replace(fit, moves=default_moves())
+    return fit
+
+
+@_register("bao.desi", "bao/desi.py: rd=147.09 fixed, 300-pt dynamic trapezoids")
+def _bao_desi(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    params = _adjust_params([("h", 0.5, 0.8), ("Om", 0.1, 0.7), ("w0", -2, 0)], model)
+    terms = (
+        bao_mod.build_bao_term(
+            ds, model, bao_mod.rd_fixed(147.09), device, dtype,
+            grid=("dyn_trapz", 300),
+        ),
+    )
+    return FitSpec(
+        "bao.desi", model, _spec(params), terms, _h_to_H0, device, dtype,
+        data_size=ds.n, note=PRESET_NOTES["bao.desi"],
+    )
+
+
+def _bao_cmb_sn(name, sn_name, compression, mag, w0_hi, note, use_z_hel=True):
+    @_register(name, note)
+    def build(model, device, dtype):
+        ds = load_bao("desi_dr2")
+        sn_ds = load_sn(sn_name)
+        comp = cmb_mod.COMPRESSIONS[compression]
+        params = _adjust_params(
+            [
+                ("rd", 120, 160),
+                ("H0", 60, 75),
+                ("Om", 0.1, 0.6),
+                ("Obh2", 0.019, 0.025),
+                ("w0", -2, w0_hi),
+                (mag, *((-0.7, 0.7) if mag == "dM" else (-20, -19))),
+            ],
+            model,
+        )
+        terms = (
+            bao_mod.build_bao_term(
+                ds, model, bao_mod.rd_param("rd"), device, dtype,
+                grid=("dyn_trapz", 250),
+            ),
+            cmb_mod.build_cmb_term(compression, model, device, dtype),
+            sn_mod.build_sn_term(
+                sn_ds, model, mag, h0="H0", device=device, dtype=dtype,
+                use_z_hel=use_z_hel, name="sn",
+            ),
+        )
+        n_sn = getattr(sn_ds, "effective_sample_size", sn_ds.n)
+        return FitSpec(
+            name, model, _spec(params), terms, _radiation(comp.omega_r_h2()),
+            device, dtype,
+            seed=42 if name == "bao.desi_cmb_union3" else None,
+            data_size=ds.n + 3 + n_sn, note=note,
+        )
+
+    return build
+
+
+_bao_cmb_sn(
+    "bao.desi_cmb_pantheon", "pantheon_plus", "chen", "M", 0.0,
+    "bao/desi_cmb_pantheon.py: chen compression",
+)
+_bao_cmb_sn(
+    "bao.desi_cmb_union3", "union3", "desi", "dM", 0.5,
+    "bao/desi_cmb_union3.py: desi compression, seed 42", use_z_hel=False,
+)
+_bao_cmb_sn(
+    "bao.desi_cmb_des5y", "des5y", "desi", "dM", 0.0,
+    "bao/desi_cmb_des5y.py: the flagship three-probe joint",
+)

@@ -1,0 +1,10 @@
+"""Dataset loaders over the shared npz store."""
+
+from cosmax_torch.data.loaders import (
+    CovDataset,
+    load_bao,
+    load_sn,
+    use_synthetic_sys,
+)
+
+__all__ = ["CovDataset", "load_bao", "load_sn", "use_synthetic_sys"]

@@ -1,0 +1,63 @@
+"""Recombination fitting formulae and the sound horizon (counterpart of
+``cosmax/models/recombination.py``).
+
+The fitting formulae are elementwise in (wb, wm) and take [W] tensors.
+``sound_horizon`` and ``comoving_distance_to`` are fixed-order
+Gauss-Legendre integrals whose upper limit z* is itself per walker: the
+nodes get a trailing axis, [W] -> [W, order], and the parameters are
+expanded to match.
+"""
+
+import torch
+
+from cosmax_torch.constants import C_KM_S, O_GAMMA_H2
+from cosmax_torch.models.background import e_of_z, expand_params
+from cosmax_torch.ops.quadrature import gl_nodes_01
+
+
+def z_star(wb, wm):
+    """Redshift of photon decoupling, arXiv:2106.00428 eq A4."""
+    return (391.672 * wm ** (-0.372296) + 937.422 * wb ** (-0.97966)) / (
+        wm ** (-0.0192951) * wb ** (-0.93681)
+    ) + wm ** (-0.731631)
+
+
+def z_star_hu(wb, wm):
+    """Hu & Sugiyama 1996 eq 1."""
+    g1 = 0.0783 * wb**-0.238 / (1.0 + 39.5 * wb**0.763)
+    g2 = 0.560 / (1.0 + 21.1 * wb**1.81)
+    return 1048.0 * (1.0 + 0.00124 * wb**-0.738) * (1.0 + g1 * wm**g2)
+
+
+def _nodes(z, order):
+    t, w = gl_nodes_01(order)
+    t = torch.as_tensor(t, dtype=z.dtype, device=z.device)
+    w = torch.as_tensor(w, dtype=z.dtype, device=z.device)
+    return t, w
+
+
+def sound_horizon(z, params, model, h0, wb, order: int = 128, o_gamma_h2=O_GAMMA_H2):
+    """r_s(z) = int_0^{a(z)} c da / (a^2 H(1/a-1) sqrt(3 (1+Rb a))) [Mpc]
+    by GL in the scale factor; ``params`` must carry 'Or'. z, h0, wb are
+    [W] tensors (or 0-d) -> [W]."""
+    t, w = _nodes(z, order)
+    rb = (3.0 * wb / (4.0 * o_gamma_h2))[..., None]
+    a_end = (1.0 / (1.0 + z))[..., None]
+    a = a_end * t
+    wq = a_end * w
+    ez = e_of_z(1.0 / a - 1.0, expand_params(params, 1), model)
+    integ = C_KM_S / (a**2 * ez * torch.sqrt(3.0 * (1.0 + rb * a)))
+    return torch.sum(integ * wq, dim=-1) / h0
+
+
+def comoving_distance_to(z, params, model, h0, order: int = 64):
+    """D_C(z) = int_{ln a*}^{0} c du / (a H(1/a-1)) [Mpc] by GL in ln a;
+    z, h0 [W] -> [W]."""
+    t, w = _nodes(z, order)
+    u0 = torch.log(1.0 / (1.0 + z))[..., None]  # ln a*
+    u = u0 * (1.0 - t)
+    a = torch.exp(u)
+    wq = -u0 * w
+    ez = e_of_z(1.0 / a - 1.0, expand_params(params, 1), model)
+    integ = C_KM_S / (a * ez)
+    return torch.sum(integ * wq, dim=-1) / h0
