@@ -8,7 +8,8 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the whitened-chi^2 CUDA kernel from ``cosmax_torch/csrc``;
+2. build both CUDA kernels from ``cosmax_torch/csrc`` (one nvcc each, in
+   parallel) and print each ptxas report;
 3. the kernel against its plain PyTorch version at the flagship shape
    (65,536 walkers x N = 1829) and at ragged shapes, rtol 5e-5, with a
    NaN row kept to its own row; kernel and plain times (CUDA events,
@@ -21,7 +22,15 @@ raising on failure (non-zero exit):
    evals/s and a profiler breakdown;
 6. the CLI, ``cosmax_torch.fit.main``, 150 walkers x 20 steps on the
    flagship: finite chain, acceptance in (0, 1), and the kernel's launch
-   count over that run.
+   count over that run;
+7. the fast flagship (``fast=True``, the same dense synthetic SN
+   covariance): the fused log-prob kernel against its plain version at
+   65,536, 262,144, 70 and 1 walkers within 1e-4 of max|logp| (seeded
+   out-of-box and NaN rows -inf in both), 64 walkers against the port's
+   f64 CPU fast path, kernel and plain times (CUDA events, median of 20),
+   a profile of one call, and the kernel launched by ``fit.log_prob()``;
+8. the CLI with ``--fast``, 150 walkers x 20 steps: finite chain,
+   acceptance in (0, 1), at least two fused launches per step.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -36,10 +45,19 @@ import time
 
 REPLACES = "cosmax/ops/pallas/chi2.py:52"
 SOURCE = "cosmax_torch/csrc/whitened_chi2.cu"
+FUSED_REPLACES = "cosmax/ops/pallas/megakernel.py:99"
+FUSED_SOURCE = "cosmax_torch/csrc/fused_log_prob.cu"
 RTOL_KERNEL = 5e-5  # as tests/test_pallas_ops.py for the TPU kernel
 ANCHOR_CHI2, ANCHOR_ATOL = 10.2753, 2e-3
 LOGP_RTOL = 1e-4  # f32 card vs f64 CPU, relative to max|logp|
+# fused kernel vs its plain version, both f32 on the card: different
+# summation orders, relative to max|logp|
+FUSED_RTOL = 1e-4
 BENCH_WALKERS, N_SN = 65536, 1829
+BIG_WALKERS = 262144  # the flagship size of bench.py
+# the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s and
+# HBM3 bytes/s
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def _card() -> str:
@@ -50,7 +68,10 @@ def _card() -> str:
     return out[0].strip()
 
 
-def _median_ms(fn, reps=20, warmup=3):
+def _median_ms(fn, reps=20, warmup=3, inner=1):
+    """Median over ``reps`` samples of the time of one call, each sample
+    taken by CUDA events around ``inner`` back-to-back calls (so that a
+    short kernel is timed with the host enqueueing ahead of the card)."""
     import torch
 
     for _ in range(warmup):
@@ -61,12 +82,20 @@ def _median_ms(fn, reps=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     times.sort()
     return times[len(times) // 2]
+
+
+def _reset_counts():
+    """Zero the launch count of every kernel wrapper."""
+    from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
+
+    fused_log_prob.LAUNCHES = whitened_chi2.LAUNCHES = 0
 
 
 def _spd_linv(rng, n):
@@ -116,7 +145,13 @@ def phase_kernel(card):
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events); "
                   f"kernel {flop / 2 / ms / 1e9:.2f} TFLOP/s on the triangle "
                   f"({flop / ms / 1e9:.2f} dense-equivalent)")
-            result = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms)
+            # useful work on the triangle: N(N+1)/2 MACs per walker
+            bound_s = max(w * n * (n + 1) / PEAK_F32_FLOPS,
+                          4.0 * (w * n + n * n + w) / PEAK_BYTES)
+            # the plain version is itself one cuBLAS product with its
+            # square-and-sum: it is the library time too
+            result = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                          bound_ms=1e3 * bound_s, bound_by="operations", library_ms=plain_ms)
     return result
 
 
@@ -134,8 +169,9 @@ def phase_anchor():
           f"(anchor {ANCHOR_CHI2}, f32 on the card)")
 
 
-def _profile(fn):
-    """Device time by kernel over one call, from torch.profiler."""
+def _profile(fn, calls=1):
+    """Device time by kernel over ``calls`` back-to-back calls, from
+    torch.profiler, and the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,7 +179,8 @@ def _profile(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # kernel events only: operator events carry their kernels' time too
@@ -154,6 +191,16 @@ def _profile(fn):
     ]
     rows.sort(reverse=True)
     return wall_ms, rows
+
+
+def _flagship_walkers(fit, n, seed=0):
+    """Walkers near the box centre, as bench.py draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+    mid, span = 0.5 * (lo + hi), 0.05 * (hi - lo)
+    return (mid + span * rng.standard_normal((n, fit.spec.dim))).astype(np.float32)
 
 
 def phase_flagship(card):
@@ -171,16 +218,13 @@ def phase_flagship(card):
     if bool((linv.tril(-1) == 0).all()) or tuple(linv.shape) != (N_SN, N_SN):
         raise AssertionError("flagship SN whitening is not a dense 1829^2 factor")
     log_prob = fit.log_prob()
-    rng = np.random.default_rng(0)
-    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
-    mid, span = 0.5 * (lo + hi), 0.05 * (hi - lo)
-    walkers = (mid + span * rng.standard_normal((BENCH_WALKERS, fit.spec.dim))).astype(np.float32)
+    walkers = _flagship_walkers(fit, BENCH_WALKERS)
     theta = torch.as_tensor(walkers, device="cuda")
 
-    before = kmod.LAUNCHES
+    _reset_counts()
     lp = log_prob(theta)
     torch.cuda.synchronize()
-    launched = kmod.LAUNCHES - before
+    launched = kmod.LAUNCHES
     if not bool(torch.isfinite(lp).all()):
         raise AssertionError(f"{int((~torch.isfinite(lp)).sum())} non-finite log-probs")
     if launched < 2:
@@ -231,20 +275,154 @@ def phase_flagship(card):
             print(f"phase 5:   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
     else:
         print("phase 5: torch.profiler recorded no device time (not measured)")
+    return ref
 
 
-def phase_cli(card):
+def phase_fast(card, parity_ref):
+    """Phase 7: the fused log-prob kernel on the fast flagship."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    t0 = time.perf_counter()
+    fit = get_preset("bao.desi_cmb_des5y", "wzcdm", fast=True, synthetic_sys=True, device="cuda")
+    log_prob = fit.log_prob()
+    build_s = time.perf_counter() - t0
+    packed = fl.pack(fit)  # the buffer log_prob packed, for the plain version
+    h = packed.hdr
+    print(f"phase 7: fast flagship bao.desi_cmb_des5y/wzcdm (synthetic dense 1829^2 SN) built "
+          f"and packed in {build_s:.2f}s: Tucker ranks ({h['H_R1']}, {h['H_R2']}), "
+          f"R_all {2 * h['H_NPAIRS']}, {h['H_NFORMS']} forms, {h['H_SIZE']} constants")
+
+    # the kernel against its plain version; seeded bad rows are -inf in both
+    for w in (BENCH_WALKERS, BIG_WALKERS, 70, 1):
+        walkers = _flagship_walkers(fit, w, seed=w)
+        if w >= 4:
+            walkers[1, 2] = 0.95  # Om beyond its bound (0.1, 0.6)
+            walkers[2, 0] = np.nan
+        theta = torch.as_tensor(walkers, device="cuda")
+        got = fl.fused_log_prob(packed, theta)
+        want = fl.fused_log_prob_reference(packed, theta)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got)) or bool((got[~fin] != -torch.inf).any()):
+            raise AssertionError(f"fused kernel and plain version disagree on -inf rows at W={w}")
+        if w >= 4 and (bool(fin[1]) or bool(fin[2]) or int((~fin).sum()) != 2):
+            raise AssertionError(f"bad rows not exactly the -inf rows at W={w}")
+        err = float((got[fin] - want[fin]).abs().max())
+        scale = float(want[fin].abs().max())
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"fused kernel vs plain at W={w}: {err:.3e} > 1e-4 of {scale:.3e}")
+        print(f"phase 7: fused kernel vs plain at W={w}: max abs err {err:.3e} "
+              f"({err / scale:.3e} of max|logp|); -inf rows agree")
+        if w == BENCH_WALKERS:
+            max_abs_err = err
+
+    # every other branch of the kernel: each ported fast preset and model
+    for name in ("bao.desi", "bao.desi_cmb_des5y", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon"):
+        worst = 0.0
+        for model in ("lcdm", "wcdm", "wzcdm"):
+            other = get_preset(name, model, fast=True, device="cuda")
+            p = fl.pack(other)
+            theta = torch.as_tensor(_flagship_walkers(other, 4096, seed=7), device="cuda")
+            got, want = fl.fused_log_prob(p, theta), fl.fused_log_prob_reference(p, theta)
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max()) / float(want[fin].abs().max())
+            if not torch.equal(fin, torch.isfinite(got)) or not err <= FUSED_RTOL:
+                raise AssertionError(f"fused kernel vs plain on {name}/{model}: {err:.3e}")
+            worst = max(worst, err)
+        print(f"phase 7: fused kernel vs plain on {name} (lcdm, wcdm, wzcdm) at W=4096: "
+              f"worst {worst:.3e} of max|logp|")
+
+    # 64 walkers against the port's f64 CPU fast path and parity path
+    walkers = _flagship_walkers(fit, 64)
+    lp32 = log_prob(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+    ref = get_preset("bao.desi_cmb_des5y", "wzcdm", fast=True, synthetic_sys=True,
+                     device="cpu", dtype=torch.float64)
+    th64 = torch.as_tensor(walkers.astype(np.float64))
+    lp_fast = ref.log_prob()(th64).numpy()
+    lp_par = parity_ref.log_prob()(th64).numpy()
+    gap_fast = float(np.max(np.abs(lp32 - lp_fast)) / np.max(np.abs(lp_fast)))
+    gap_par = float(np.max(np.abs(lp32 - lp_par)) / np.max(np.abs(lp_par)))
+    if not gap_fast <= LOGP_RTOL:
+        raise AssertionError(f"fused kernel vs f64 CPU fast path: {gap_fast:.3e} of max|logp|")
+    print(f"phase 7: fused kernel (f32 card) vs f64 CPU on 64 walkers: fast path "
+          f"{gap_fast:.3e} of max|logp|, parity path {gap_par:.3e} of max|logp| "
+          f"(the emulator's truncation and quadrature differences)")
+
+    # the main path: fit.log_prob() on the card, counted
+    theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device="cuda")
+    _reset_counts()
+    lp = log_prob(theta)
+    torch.cuda.synchronize()
+    launched = fl.LAUNCHES
+    if launched < 1 or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"fast log_prob: {launched} fused launches, "
+                             f"{int((~torch.isfinite(lp)).sum())} non-finite values")
+    print(f"phase 7: fit.log_prob() on {BENCH_WALKERS} walkers all finite, "
+          f"{launched} fused kernel launch per call")
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        lp = log_prob(theta)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    print(f"phase 7: fast flagship log_prob end to end: {BENCH_WALKERS / dt:.1f} evals/s "
+          f"({1e3 * dt:.4f} ms per {BENCH_WALKERS}-walker call, host clock, mean of {reps}) "
+          f"on {card}")
+
+    timing = {}
+    for w in (BENCH_WALKERS, BIG_WALKERS):
+        theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
+        ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
+        plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
+        ops, nbytes = fl.work_per_walker(packed)
+        bound_ms = 1e3 * max(w * ops / PEAK_F32_FLOPS,
+                             (w * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES)
+        print(f"phase 7: fused_log_prob at W={w} on {card}: kernel {ms:.4f} ms "
+              f"({w / ms * 1e3:.1f} evals/s), plain {plain_ms:.4f} ms "
+              f"({w / plain_ms * 1e3:.1f} evals/s) (median of 20 samples of 20 calls, "
+              f"CUDA events); "
+              f"bound {bound_ms:.4f} ms ({ops} f32 ops and {nbytes} bytes per walker)")
+        timing[w] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+    theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device="cuda")
+    calls = 20
+    wall_ms, rows = _profile(lambda: log_prob(theta), calls=calls)
+    dev_ms = sum(r[0] for r in rows)
+    if dev_ms > 0:
+        kernel = [r for r in rows if "fused_log_prob" in r[1]]
+        kernel_ms, n_rec = sum(r[0] for r in kernel), sum(r[2] for r in kernel)
+        print(f"phase 7: profile of {calls} back-to-back fast calls on {card}: wall "
+              f"{wall_ms / calls:.4f} ms per call, device busy {100 * dev_ms / wall_ms:.1f}% "
+              f"of the window, fused_log_prob {kernel_ms / max(n_rec, 1):.4f} ms per launch "
+              f"over the {n_rec} launches recorded ({100 * kernel_ms / dev_ms:.1f}% of "
+              f"device time)")
+        for ms, name, count in rows[:4]:
+            print(f"phase 7:   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+    else:
+        print("phase 7: torch.profiler recorded no device time (not measured)")
+    return dict(max_abs_err=max_abs_err, **timing[BENCH_WALKERS], bound_by="operations",
+                library_ms=None)
+
+
+def phase_cli(card, fast=False):
+    """Phase 6 (parity) or 8 (--fast): the CLI on the flagship."""
     import numpy as np
 
     from cosmax_torch import fit as fit_cli
-    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
+    from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
 
+    kmod = fused_log_prob if fast else whitened_chi2
+    label = "phase 8" if fast else "phase 6"
     n_steps = 20
     with tempfile.TemporaryDirectory() as out:
         argv = ["--preset", "bao.desi_cmb_des5y", "--model", "wzcdm",
                 "--walkers", "150", "--steps", str(n_steps), "--seed", "0",
-                "--no-plots", "--out", out]
-        kmod.LAUNCHES = 0
+                "--no-plots", *(["--fast"] if fast else []), "--out", out]
+        _reset_counts()
         t0 = time.perf_counter()
         rc = fit_cli.main(argv)
         wall = time.perf_counter() - t0
@@ -257,10 +435,10 @@ def phase_cli(card):
         raise AssertionError(f"CLI run failed: rc {rc}, chain {chain.shape}")
     if not 0.0 < acc < 1.0:
         raise AssertionError(f"acceptance fraction {acc} not in (0, 1)")
-    if launches < 2 * n_steps * 2:
+    if launches < 2 * n_steps * (1 if fast else 2):
         raise AssertionError(f"CLI run launched the kernel only {launches} times")
-    print(f"phase 6: cosmax_torch.fit {' '.join(argv[:-1])} <tmp>: wall {wall:.2f}s "
-          f"on {card}, acceptance {acc:.3f}, {launches} kernel launches")
+    print(f"{label}: cosmax_torch.fit {' '.join(argv[:-1])} <tmp>: wall {wall:.2f}s "
+          f"on {card}, acceptance {acc:.3f}, {launches} {kmod.__name__.split('.')[-1]} launches")
     return launches
 
 
@@ -275,22 +453,29 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
 
     from cosmax_torch.device import disable_tf32
-    from cosmax_torch.ops.kernels.build import load_kernel
+    from cosmax_torch.ops.kernels.build import load_kernels
 
     disable_tf32()
-    built = load_kernel("whitened_chi2")
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "Used" in ln]
-    print(f"phase 2: built {SOURCE} in {built.seconds:.2f}s; {'; '.join(ptxas)}")
+    t0 = time.perf_counter()
+    built = load_kernels(["whitened_chi2", "fused_log_prob"])
+    print(f"phase 2: built both kernels in {time.perf_counter() - t0:.2f}s (in parallel)")
+    for src, b in zip((SOURCE, FUSED_SOURCE), built):
+        ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
+        print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
 
     timing = phase_kernel(card)
     phase_anchor()
-    phase_flagship(card)
+    parity_ref = phase_flagship(card)
     launches = phase_cli(card)
+    fused = phase_fast(card, parity_ref)
+    fused_launches = phase_cli(card, fast=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "whitened_chi2", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, **timing,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": launches, **timing},
+        {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
+         "replaces": FUSED_REPLACES, "launches": fused_launches, **fused},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

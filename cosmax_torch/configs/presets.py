@@ -2,13 +2,16 @@
 
 Ported so far: ``bao.desi`` and the three BAO + CMB + SN joints
 (``bao.desi_cmb_pantheon``, ``bao.desi_cmb_union3`` and the flagship
-``bao.desi_cmb_des5y``), on the parity path. Each preset reproduces the
+``bao.desi_cmb_des5y``), on the parity path and, for lcdm, wcdm and
+wzcdm, on the fast path (``fast=True``). Each preset reproduces the
 reference script's parameter order, bounds, grids, r_d treatment and
 radiation constants. The model is an argument: for 'lcdm' w0 is dropped
 from the sampled vector, for 'w0wacdm' a wa parameter (-3, 2) follows w0.
 
 Build-time constants are f64 numpy, turned into tensors once per preset
-on the chosen device and dtype.
+on the chosen device and dtype. A fast preset's ``log_prob`` is the
+fused log-prob (``ops/kernels/fused_log_prob.py``): one CUDA kernel
+launch per call on the card.
 """
 
 from dataclasses import dataclass, replace
@@ -23,6 +26,8 @@ from cosmax_torch.likelihoods import bao as bao_mod
 from cosmax_torch.likelihoods import cmb as cmb_mod
 from cosmax_torch.likelihoods import sn as sn_mod
 from cosmax_torch.likelihoods.base import ParamSpec, make_chi2_breakdown, make_log_prob
+from cosmax_torch.likelihoods.fastmode import use_fast_mode
+from cosmax_torch.models.linear_chi2 import set_scope_domains
 from cosmax_torch.samplers.ensemble import default_moves
 
 WA_BOUNDS = (-3.0, 2.0)
@@ -47,8 +52,17 @@ class FitSpec:
     seed: Optional[int] = None
     note: str = ""
     data_size: int = 0
+    fast: bool = False
 
     def log_prob(self):
+        """``theta [W, D] -> logp [W]``. A fast preset packs its constants
+        once here and evaluates the fused log-prob; the parity path sums
+        the per-term torch functions."""
+        if self.fast:
+            from cosmax_torch.ops.kernels.fused_log_prob import fused_log_prob, pack
+
+            packed = pack(self)
+            return lambda theta: fused_log_prob(packed, theta)
         return make_log_prob(self.spec, self.terms, self.derive)
 
     def chi2_breakdown(self):
@@ -74,17 +88,23 @@ def _spec(params) -> ParamSpec:
     return ParamSpec(names=names, bounds=bounds)
 
 
-def _h_to_H0(p):
-    return dict(p, H0=100.0 * p["h"])
+@dataclass(frozen=True)
+class Derive:
+    """The derived parameters of a preset: H0 = h0_scale * p[h0_from]
+    (unless H0 is sampled itself) and, when ``orh2`` is set, the
+    radiation Or = orh2 / h^2 of the radiation-aware E(z). Its fields are
+    what the fused kernel's packer reads."""
 
+    h0_from: str = "H0"
+    h0_scale: float = 1.0
+    orh2: Optional[float] = None
 
-def _radiation(orh2: float):
-    """Or = (Omega_r h^2) / h^2 for the radiation-aware E(z)."""
-
-    def derive(p):
-        return dict(p, Or=orh2 / (p["H0"] / 100.0) ** 2)
-
-    return derive
+    def __call__(self, p):
+        if self.h0_from != "H0":
+            p = dict(p, H0=self.h0_scale * p[self.h0_from])
+        if self.orh2 is not None:
+            p = dict(p, Or=self.orh2 / (p["H0"] / 100.0) ** 2)
+        return p
 
 
 PRESETS = {}
@@ -113,22 +133,29 @@ def get_preset(
     dtype=None,
 ) -> FitSpec:
     """Build a preset on ``device`` (float32 unless ``dtype`` says f64,
-    which only the CPU takes). ``synthetic_sys=True`` adds the synthetic
+    which only the CPU takes). ``fast=True`` builds the emulated fast
+    path: the preset's BAO and SN terms share one emulator bundle over
+    its own prior box. ``synthetic_sys=True`` adds the synthetic
     systematic covariance to SN datasets whose published one is absent
     (dense 1829^2 factor for DES-SN5YR; chi^2 not comparable to
     published values)."""
-    if fast:
-        raise NotImplementedError(
-            "fast=True needs the emulator build and bundle/fast mode "
-            "(ROADMAP.md queue 1, items 4-5), not ported yet"
-        )
     if name not in PRESETS:
         raise KeyError(
             f"unknown or unported preset {name!r}; ported: {', '.join(list_presets())}"
         )
+    if fast and model == "w0wacdm":
+        raise NotImplementedError(
+            "fast=True for w0wacdm needs the split emulator grid and the "
+            "tensor-train program, not ported yet (ROADMAP.md queue 1, item 9)"
+        )
     device, dtype = resolve(device, dtype)
-    with use_synthetic_sys(synthetic_sys):
+    with use_synthetic_sys(synthetic_sys), use_fast_mode(fast):
         fit = PRESETS[name](model, device, dtype)
+        if fast:
+            # narrow the preset's bundle (not built yet: finalize runs at
+            # scope exit) to its own prior box
+            set_scope_domains({nm: tuple(b) for nm, b in zip(fit.spec.names, fit.spec.bounds)})
+    fit = replace(fit, fast=fast)
     if fit.moves is None:
         fit = replace(fit, moves=default_moves())
     return fit
@@ -145,7 +172,7 @@ def _bao_desi(model, device, dtype):
         ),
     )
     return FitSpec(
-        "bao.desi", model, _spec(params), terms, _h_to_H0, device, dtype,
+        "bao.desi", model, _spec(params), terms, Derive("h", 100.0), device, dtype,
         data_size=ds.n, note=PRESET_NOTES["bao.desi"],
     )
 
@@ -180,7 +207,7 @@ def _bao_cmb_sn(name, sn_name, compression, mag, w0_hi, note, use_z_hel=True):
         )
         n_sn = getattr(sn_ds, "effective_sample_size", sn_ds.n)
         return FitSpec(
-            name, model, _spec(params), terms, _radiation(comp.omega_r_h2()),
+            name, model, _spec(params), terms, Derive(orh2=comp.omega_r_h2()),
             device, dtype,
             seed=42 if name == "bao.desi_cmb_union3" else None,
             data_size=ds.n + 3 + n_sn, note=note,

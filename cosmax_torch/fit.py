@@ -5,6 +5,7 @@ Examples::
     python -m cosmax_torch.fit --preset bao.desi --model lcdm --device cuda
     python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model wzcdm \
         --steps 2200 --walkers 150 --seed 42 --out results/flagship --no-plots
+    python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model wzcdm --fast
     python -m cosmax_torch.fit --list
 
 Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).
@@ -46,7 +47,7 @@ def main(argv=None):
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--fast", action="store_true",
-                   help="emulated fast path (not ported yet)")
+                   help="emulated fast path: the fused log-prob kernel on the card")
     p.add_argument("--x64", action="store_true",
                    help="float64 parity mode (CPU only)")
     p.add_argument("--synthetic-sys", action="store_true",
@@ -68,8 +69,6 @@ def main(argv=None):
         raise NotImplementedError("--sampler hmc " + _NOT_PORTED.format(11))
     if args.checkpoint:
         raise NotImplementedError("--checkpoint " + _NOT_PORTED.format(11))
-    if args.fast:
-        raise NotImplementedError("--fast " + _NOT_PORTED.format("4-5"))
     if args.out and not args.no_plots:
         raise NotImplementedError(
             "plots under --out " + _NOT_PORTED.format(13) + "; pass --no-plots"
@@ -83,8 +82,8 @@ def main(argv=None):
     from cosmax_torch.samplers.ensemble import default_moves, stretch_only, uniform_init
 
     dtype = torch.float64 if args.x64 else None
-    fit = get_preset(args.preset, args.model, synthetic_sys=args.synthetic_sys,
-                     device=args.device, dtype=dtype)
+    fit = get_preset(args.preset, args.model, fast=args.fast,
+                     synthetic_sys=args.synthetic_sys, device=args.device, dtype=dtype)
     n_walkers = args.walkers if args.walkers is not None else fit.n_walkers
     n_steps = args.steps if args.steps is not None else fit.n_steps
     burn_in = args.burn_in if args.burn_in is not None else fit.burn_in
@@ -119,7 +118,8 @@ def main(argv=None):
         torch.cuda.get_device_name(fit.device) if fit.device.type == "cuda" else "cpu"
     )
     print(f"# {n_walkers} walkers x {n_steps} steps (burn-in {burn_in}), "
-          f"seed {seed}, device: {fit.device} ({device_name}), dtype {fit.dtype}")
+          f"seed {seed}, device: {fit.device} ({device_name}), dtype {fit.dtype}"
+          f"{', fast path' if fit.fast else ''}")
 
     sampler = EnsembleSampler(fit.log_prob(), n_walkers, fit.spec.dim, moves=moves)
     gen = torch.Generator(device=fit.device)

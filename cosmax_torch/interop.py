@@ -1,10 +1,11 @@
 """State carried across from the JAX package as numpy arrays.
 
 This repository has no model weights: what the port takes over from
-``cosmax`` is the sampler state (so a chain can continue in the port)
-and the build-time constants of a likelihood term (so both packages
-compute from identical inputs). Both arrive as numpy, never as jax
-arrays, so this module needs no jax.
+``cosmax`` is the sampler state (so a chain can continue in the port),
+the build-time constants of a likelihood term, and a fast preset's
+emulator bundle (so both packages compute from identical inputs, whatever
+rank each SVD picks). All arrive as numpy, never as jax arrays, so this
+module needs no jax.
 """
 
 import numpy as np
@@ -52,3 +53,42 @@ def chain_state_from_numpy(walkers, log_probs, step, seed, device):
             f"{tuple(walkers.shape)} and {tuple(log_probs.shape)}"
         )
     return ChainState(walkers, log_probs, int(step), int(seed))
+
+
+def bundle_from_numpy(bundle, kind, halves, windows):
+    """Install a finalized emulator program built elsewhere into the
+    port's ``bundle`` (a ``models.linear_chi2._Bundle``, e.g. the
+    ``meta["linear_chi2"].bundle`` of a fast preset's terms).
+
+    ``kind``: the grid kind ("native"). ``halves``: per half a dict with
+    ``axes`` (list of [n_i] node arrays), ``bw`` [n] and ``rep``, either
+    ("tucker", [U_i [n_i, r_i]], core) or ("exact", table). ``windows``:
+    {tag: per half ``(slots, B_t [R_t, K], scale)``} with one ``(sl_a,
+    sl_d, a_ref)`` slot per curve, matched to the bundle's registrations
+    by tag (e.g. "bao-wzcdm"). Every term of the bundle then evaluates on
+    these constants; its quadratic forms are rebuilt from the new
+    windows.
+    """
+    f64 = lambda a: np.array(a, dtype=np.float64)  # copies off jax buffers
+    new_halves = []
+    for h in halves:
+        rep = h["rep"]
+        rep = (
+            ("tucker", [f64(u) for u in rep[1]], f64(rep[2])) if rep[0] == "tucker"
+            else ("exact", f64(rep[1]))
+        )
+        new_halves.append(dict(rep=rep, axes=[f64(ax) for ax in h["axes"]], bw=f64(h["bw"])))
+    by_tag = {key[0]: key for key in bundle.regs}
+    if sorted(by_tag) != sorted(windows):
+        raise ValueError(f"windows for {sorted(windows)}; the bundle registers {sorted(by_tag)}")
+    per_reg = {}
+    for tag, per_half in windows.items():
+        per_reg[by_tag[tag]] = [
+            (
+                tuple((sl_a, sl_d, f64(a_ref)) for sl_a, sl_d, a_ref in slots),
+                f64(b_t),
+                float(scale),
+            )
+            for slots, b_t, scale in per_half
+        ]
+    bundle.install((kind, new_halves), per_reg)

@@ -6,8 +6,15 @@ whitened at build time; chi^2 goes through ``chi2_from_whitener`` (the
 CUDA kernel on the card).
 
 r_d treatments: ``rd_fn(p) -> Mpc`` with ``rd_fixed`` or ``rd_param``.
+
+The ``('emu',)`` grid (the fast path, and the grid of every BAO term
+built in fast mode) uses that each observable is homogeneous of degree
+1 in c/H0: the whitened theory vector is beta(p) * t_hat(theta) with
+beta = (c/H0)/r_d(p), and t_hat a smooth function of the dark-energy
+parameters that ``models.linear_chi2`` tabulates at build time.
 """
 
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
@@ -17,6 +24,7 @@ from cosmax_torch.constants import C_KM_S
 from cosmax_torch.data.loaders import QTY_DH, QTY_DM, QTY_DV, CovDataset
 from cosmax_torch.interop import constants_from_numpy
 from cosmax_torch.likelihoods.base import Term
+from cosmax_torch.likelihoods.fastmode import fast_mode
 from cosmax_torch.models.distances import (
     comoving_distance_trapz,
     hubble_distance,
@@ -27,12 +35,32 @@ from cosmax_torch.ops.linalg import chi2_from_whitener
 from cosmax_torch.ops.quadrature import trapz_grid_weights
 
 
-def rd_fixed(value: float = 147.09) -> Callable:
-    return lambda p: value
+@dataclass(frozen=True)
+class RdFixed:
+    """A fixed r_d in Mpc."""
+
+    value: float
+
+    def __call__(self, p):
+        return self.value
 
 
-def rd_param(name: str = "rd") -> Callable:
-    return lambda p: p[name]
+@dataclass(frozen=True)
+class RdParam:
+    """r_d read from the sampled parameter ``name``."""
+
+    name: str
+
+    def __call__(self, p):
+        return p[self.name]
+
+
+def rd_fixed(value: float = 147.09) -> RdFixed:
+    return RdFixed(value)
+
+
+def rd_param(name: str = "rd") -> RdParam:
+    return RdParam(name)
 
 
 def build_bao_term(
@@ -45,16 +73,25 @@ def build_bao_term(
     name: str = "bao",
 ) -> Term:
     """grid: ('dyn_trapz', n_base) or ('fixed_trapz', n) — the parity
-    paths matching the reference's per-script trapezoids — or
-    ('gl', order), GL per data point."""
-    if grid[0] == "emu":
-        raise NotImplementedError(
-            "BAO grid ('emu',) needs the emulator build and bundle/fast mode "
-            "(ROADMAP.md queue 1, items 4-5), not ported yet"
-        )
+    paths matching the reference's per-script trapezoids —, ('gl',
+    order), GL per data point, or ('emu',), the emulated fast path
+    (always taken in fast mode)."""
+    if fast_mode():
+        grid = ("emu",)
     z = np.asarray(dataset.z, dtype=np.float64)
     qty = np.asarray(dataset.quantity)
     values = np.asarray(dataset.values, dtype=np.float64)
+    meta = dict(
+        n=dataset.n,
+        legend=dataset.legend,
+        plot_kind="bao",
+        z=z,
+        values=values,
+        errors=np.sqrt(np.diag(dataset.cov)),
+        quantity=qty,
+    )
+    if grid[0] == "emu":
+        return _build_emulated_bao(dataset, model, rd_fn, device, dtype, name, meta)
     arrays = dict(
         z=z,
         values=values,
@@ -105,17 +142,45 @@ def build_bao_term(
         return chi2_from_whitener(c["linv"], c["values"] - theory)
 
     return Term(
-        name=name,
-        chi2=chi2,
-        elems_per_walker=elems,
-        meta=dict(
-            n=dataset.n,
-            legend=dataset.legend,
-            plot_kind="bao",
-            z=z,
-            values=values,
-            errors=np.sqrt(np.diag(dataset.cov)),
-            quantity=qty,
-            constants=c,
-        ),
+        name=name, chi2=chi2, elems_per_walker=elems, meta=dict(meta, constants=c),
     )
+
+
+def _build_emulated_bao(dataset, model, rd_fn, device, dtype, name, meta):
+    """chi^2 of the ('emu',) grid: t_hat at H0 = c, r_d = 1 (dh_hat =
+    1/E, dm_hat = int dz/E by 16-node build panels, dv_hat their
+    cube-root mix), whitened, tabulated by ``make_linear_chi2`` with
+    beta = c/(H0 r_d) and beta_ref = c/(70 * 147.09)."""
+    from cosmax_torch.models.background import e_of_z, expand_params
+    from cosmax_torch.models.linear_chi2 import _hash_arrays, make_linear_chi2
+
+    z, qty, values = meta["z"], meta["quantity"], meta["values"]
+    linv = dataset.linv
+    z_unique, z_inverse = np.unique(z, return_inverse=True)
+    masks = np.stack([(qty == q).astype(np.float64) for q in (QTY_DH, QTY_DM, QTY_DV)])
+
+    def curve_fn(flat, to_params):
+        prefix = make_prefix_comoving_integral(z_unique, model, "cpu", torch.float64, order=16)
+        p = to_params(torch.as_tensor(flat, dtype=torch.float64))
+        zt = torch.as_tensor(z)
+        dhh = (1.0 / e_of_z(zt, expand_params(p, 1), model)).numpy()
+        dmh = prefix(p).numpy()[:, z_inverse]
+        dvh = np.cbrt(z * dmh * dmh * dhh)
+        t_hat = masks[0] * dhh + masks[1] * dmh + masks[2] * dvh
+        return t_hat @ np.asarray(linv).T
+
+    u0 = np.asarray(linv, np.float64) @ values
+    chi2 = make_linear_chi2(
+        model,
+        curve_fn,
+        tag=f"bao-{model}",
+        key_extra=_hash_arrays(z, values, qty.astype(np.float64), linv),
+        u0_c=u0,
+        u0_sq=float(u0 @ u0),
+        device=device,
+        dtype=dtype,
+        beta_fn=lambda p: C_KM_S / (p["H0"] * rd_fn(p)),
+        beta_ref=C_KM_S / (70.0 * 147.09),
+    )
+    # rd_fn is an RdFixed or RdParam for the fused kernel's packer
+    return Term(name=name, chi2=chi2, meta=dict(meta, linear_chi2=chi2, rd=rd_fn))

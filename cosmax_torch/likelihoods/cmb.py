@@ -163,5 +163,9 @@ def build_cmb_term(
         name=name or f"cmb_{compression}",
         chi2=chi2,
         elems_per_walker=48,
-        meta=dict(n=3, legend=f"CMB compression ({compression})", compression=comp),
+        meta=dict(
+            n=3, legend=f"CMB compression ({compression})", compression=comp, model=model,
+            # GL orders of r_s and D_C, for the fused kernel's packer
+            orders=(order, order) if order is not None else (48, 24),
+        ),
     )

@@ -1,0 +1,311 @@
+"""Build-time Chebyshev emulator machinery (counterpart of
+``cosmax/models/emu_core.py``).
+
+The build half is f64 numpy, ported nearly verbatim: Chebyshev nodes and
+barycentric weights, the content-addressed on-disk table cache, the
+truncated-SVD rank factorisation and the Tucker compression with its
+composed end-to-end verification. Node tables are evaluated by the
+port's own torch code in float64 on the CPU, whatever the runtime
+device and dtype: an f32 solve leaves rounding noise above the
+truncation tolerance of the small radiation-delta tables, and the rank
+selection would then chase noise (the reference's ``f64_build``
+rationale).
+
+The runtime half is torch, batched over walkers: ``bary_vector`` and
+``coeff_contract``, for the ``exact`` and ``tucker`` representations.
+The tensor-train representation, which only grids with three or more
+axes take (w0wacdm), is not ported yet (ROADMAP.md queue 1, item 9), nor
+``delta_subspace``, which only the fs8 emulator uses (item 8).
+"""
+
+import hashlib
+import os
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# generous default domains covering every preset's prior box
+DOMAINS = {
+    "Om": (0.03, 0.75),
+    "w0": (-3.2, 0.6),
+    "wa": (-3.5, 2.6),
+}
+
+# Radiation linearisation point of the chi^2 emulators: Or = orh2 / h^2
+# tops out around 1.7e-4 over every preset's H0 box, so a secant through
+# (0, OR_REF) brackets the realistic range.
+OR_REF = 2e-4
+
+MODEL_PARAMS = {
+    "lcdm": ("Om",),
+    "wcdm": ("Om", "w0"),
+    "wzcdm": ("Om", "w0"),
+    "w0wacdm": ("Om", "w0", "wa"),
+}
+
+TT_NOT_PORTED = (
+    "the tensor-train representation of grids with three or more axes "
+    "(w0wacdm) is not ported yet (ROADMAP.md queue 1, item 9)"
+)
+
+
+def cheb_nodes(n, lo, hi):
+    """Chebyshev-Gauss-Lobatto nodes on [lo, hi], ascending, f64."""
+    t = np.cos(np.pi * np.arange(n) / (n - 1))[::-1]
+    return 0.5 * (lo + hi) + 0.5 * (hi - lo) * t
+
+
+def bary_weights(n):
+    w = np.ones(n)
+    w[1::2] = -1.0
+    w[0] *= 0.5
+    w[-1] *= 0.5
+    return w
+
+
+def flatten_grid(axes):
+    grids = np.meshgrid(*axes, indexing="ij")
+    return np.stack([g.ravel() for g in grids], axis=1)
+
+
+def bary_vector(x: torch.Tensor, nodes: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """Barycentric interpolation weights at walker points ``x`` [W] on
+    ``nodes`` [n] -> [W, n]; a point within 1e-14 of a node gets the
+    one-hot row of that node."""
+    diff = x[:, None] - nodes
+    near = diff.abs() < 1e-14
+    safe = torch.where(near, torch.ones_like(diff), diff)
+    num = bw / safe
+    w = num / num.sum(dim=-1, keepdim=True)
+    return torch.where(near.any(dim=-1, keepdim=True), near.to(w.dtype), w)
+
+
+def bary_vector_np(x, nodes):
+    """f64 numpy barycentric weight vector (build-time reference-point
+    evaluation)."""
+    bw = bary_weights(len(nodes))
+    diff = np.asarray(x, np.float64) - nodes
+    if np.any(diff == 0.0):
+        return (diff == 0.0).astype(np.float64)
+    num = bw / diff
+    return num / num.sum()
+
+
+# ---------------------------------------------------------------------------
+# content-addressed on-disk table cache
+
+_PKG = Path(__file__).resolve().parents[1]
+
+# The port's numeric-code files whose behaviour the node tables depend
+# on. Their bytes are folded into every disk-cache key, so any edit to
+# them invalidates cached tables. Later slices add theirs.
+SOLVER_SOURCES = (
+    "models/background.py",
+    "models/distances.py",
+    "ops/quadrature.py",
+    "likelihoods/bao.py",
+    "likelihoods/sn.py",
+    "models/emu_core.py",
+    "models/linear_chi2.py",
+)
+_SOURCE_HASH = None
+
+# Environment variable naming the table-cache directory; "", "0" or
+# "off" disable the cache. The default lies in the checkout's ignored
+# build directory, apart from the JAX package's cache.
+TABLE_CACHE_ENV = "COSMAX_TORCH_TABLE_CACHE"
+DEFAULT_TABLE_CACHE = _PKG.parent / "build" / "cosmax_torch_tables"
+
+
+def solver_source_hash():
+    global _SOURCE_HASH
+    if _SOURCE_HASH is None:
+        h = hashlib.sha256()
+        for rel in SOLVER_SOURCES:
+            h.update((_PKG / rel).read_bytes())
+        _SOURCE_HASH = h.hexdigest()
+    return _SOURCE_HASH
+
+
+def table_cache_path(kind, key):
+    """On-disk location of a build table, or None when the cache is off.
+
+    A table is a pure function of its key and the solver sources, so it
+    is shared by the tests, the CLI and ``chip_smoke.py``.
+    """
+    root = os.environ.get(TABLE_CACHE_ENV, str(DEFAULT_TABLE_CACHE))
+    if root in ("", "0", "off"):
+        return None
+    h = hashlib.sha256()
+    h.update(solver_source_hash().encode())
+    h.update(kind.encode())
+    h.update(repr(key).encode())
+    try:
+        os.makedirs(root, exist_ok=True)
+    except OSError:
+        return None
+    return os.path.join(root, h.hexdigest() + ".npy")
+
+
+def table_cached(kind, key, build):
+    """Run ``build()`` through the on-disk table cache."""
+    path = table_cache_path(kind, key)
+    if path is not None and os.path.exists(path):
+        try:
+            return np.load(path)
+        except (OSError, ValueError):
+            pass  # torn or corrupt file: rebuild and overwrite
+    out = build()
+    if path is not None:
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".npy.tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.save(f, out)
+            os.replace(tmp, path)  # atomic against concurrent writers
+        except OSError:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rank factorisation
+
+
+def svd_rank_factor(stacked, tol):
+    """Truncated f64 SVD of a stacked [M, K] table at absolute
+    elementwise tolerance ``tol`` -> (A [M, R], B [R, K]); B has
+    orthonormal rows."""
+    u, s, vt = np.linalg.svd(stacked, full_matrices=False)
+    noise = s <= 2e-8 * s[0]
+    rank = int(np.argmax(noise)) if noise.any() else s.size
+    rank = max(rank, 1)
+    while (
+        rank < s.size
+        and np.max(np.abs((u[:, :rank] * s[:rank]) @ vt[:rank] - stacked)) > tol
+    ):
+        rank += 1
+    return u[:, :rank] * s[:rank], vt[:rank]
+
+
+# ---------------------------------------------------------------------------
+# coefficient-table compression with composed end-to-end verification
+
+
+def composed_err(rec, proj64, ref64):
+    """Max elementwise error of a reconstructed coefficient table in the
+    caller's data space: |rec @ proj - ref|."""
+    return np.max(np.abs(rec.reshape(-1, rec.shape[-1]) @ proj64 - ref64))
+
+
+def tucker(table, node_shape, tol, proj, ref):
+    """HOSVD-compress ``table`` [*node_shape, R] along the parameter axes
+    (reference ``emu_core.tucker``): per-axis ranks start at each mode
+    unfolding's spectral noise floor and grow, largest discarded
+    singular value first, until the Tucker reconstruction expanded
+    through the caller's basis ``proj`` [R, N] matches the caller's
+    data-space table ``ref`` [M, N] to ``tol`` elementwise. Returns
+    ``(factors [n_i, r_i] list, core)``, or ``(None, table)`` when
+    compression would not pay."""
+    k = len(node_shape)
+    tab64 = np.asarray(table, np.float64)
+    proj64 = np.asarray(proj, np.float64)
+    ref64 = np.asarray(ref, np.float64)
+
+    svds = []
+    for ax in range(k):
+        mat = np.moveaxis(tab64, ax, 0).reshape(node_shape[ax], -1)
+        u, s, _ = np.linalg.svd(mat, full_matrices=False)
+        noise = s <= 1e-7 * s[0]
+        r = int(np.argmax(noise)) if noise.any() else s.size
+        svds.append((u, s, max(r, 1)))
+
+    def reconstruct(ranks):
+        core = tab64
+        for ax in range(k):
+            u = svds[ax][0][:, : ranks[ax]]
+            core = np.moveaxis(np.tensordot(u.T, np.moveaxis(core, ax, 0), axes=1), 0, ax)
+        rec = core
+        for ax in range(k):
+            u = svds[ax][0][:, : ranks[ax]]
+            rec = np.moveaxis(np.tensordot(u, np.moveaxis(rec, ax, 0), axes=1), 0, ax)
+        return core, rec
+
+    ranks = [r for _, _, r in svds]
+    while True:
+        core, rec = reconstruct(ranks)
+        if composed_err(rec, proj64, ref64) <= tol:
+            break
+        growable = [ax for ax in range(k) if ranks[ax] < node_shape[ax]]
+        if not growable:
+            break
+        ax = max(
+            growable,
+            key=lambda a: svds[a][1][ranks[a]] if ranks[a] < svds[a][1].size else -np.inf,
+        )
+        ranks[ax] += 1
+
+    if np.prod(ranks) * 2 > np.prod(node_shape):
+        return None, tab64
+    return [svds[ax][0][:, : ranks[ax]] for ax in range(k)], core
+
+
+def tt(table, node_shape, tol, proj, ref):
+    """Tensor-train compression of grids with three or more axes."""
+    raise NotImplementedError(TT_NOT_PORTED)
+
+
+def seq_contract_flops(shape):
+    """Flops of sequentially contracting leading axes off ``shape``."""
+    return sum(2 * int(np.prod(shape[i:])) for i in range(len(shape) - 1))
+
+
+def eval_flops(rep):
+    """Exact per-eval flop count of :func:`coeff_contract` on a tagged rep."""
+    if rep[0] == "exact":
+        return seq_contract_flops(rep[1].shape)
+    if rep[0] == "tucker":
+        _, factors, core = rep
+        return sum(2 * u.shape[0] * u.shape[1] for u in factors) + seq_contract_flops(core.shape)
+    raise NotImplementedError(TT_NOT_PORTED)
+
+
+def compress(table, node_shape, tol, proj, ref):
+    """The verified representation of the coefficient table: Tucker, or
+    the exact table when Tucker would not pay. Returns a tagged rep
+    (f64 numpy) consumed by :func:`coeff_contract`. Grids with three or
+    more axes would also try a tensor train (``tt``), which is not ported."""
+    if len(node_shape) >= 3:
+        tt(table, node_shape, tol, proj, ref)
+    factors, core = tucker(table, node_shape, tol, proj, ref)
+    if factors is None:
+        return ("exact", core)
+    return ("tucker", factors, core)
+
+
+def coeff_contract(weights, rep):
+    """Contract per-axis barycentric weights ([W, n_i] each) against a
+    tagged representation whose arrays are tensors -> [W, R]."""
+    kind = rep[0]
+    if kind == "exact":
+        out = rep[1]
+        for i, w in enumerate(weights):
+            # first axis: [W, n] x [n, ...]; later axes: batched over W
+            out = (
+                torch.tensordot(w, out, dims=([1], [0])) if i == 0
+                else torch.einsum("wn,wn...->w...", w, out)
+            )
+        return out
+    if kind == "tucker":
+        _, factors, core = rep
+        out = None
+        for w, u in zip(weights, factors):
+            wp = w @ u  # [W, r_i]
+            out = (
+                torch.tensordot(wp, core, dims=([1], [0])) if out is None
+                else torch.einsum("wr,wr...->w...", wp, out)
+            )
+        return out
+    raise NotImplementedError(TT_NOT_PORTED)

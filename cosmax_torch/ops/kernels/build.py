@@ -10,7 +10,7 @@ The library lands in ``<repo>/build/cosmax_torch_kernels/`` (listed in
 ``.gitignore``) under a name that carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library is never
 loaded. Concurrent builds write to private temporary files and rename
-them into place.
+them into place; ``load_kernels`` starts one ``nvcc`` per source at once.
 """
 
 import ctypes
@@ -60,32 +60,47 @@ def _nvcc() -> str:
 
 def load_kernel(name: str) -> BuiltKernel:
     """Compile ``csrc/<name>.cu`` if needed and return its loaded library."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
+    return load_kernels([name])[0]
+
+
+def load_kernels(names) -> list:
+    """Compile every ``csrc/<name>.cu`` that needs it, one ``nvcc``
+    process per source, all started together, and return the loaded
+    libraries in the order of ``names``. ``seconds`` is each build's own
+    wall time."""
+    jobs = {}
+    try:
+        for name in names:
+            if name in _LOADED or name in jobs:
+                continue
+            src = CSRC / f"{name}.cu"
+            digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+            out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+            if out.exists():
+                _LOADED[name] = BuiltKernel(ctypes.CDLL(str(out)), out, 0.0, "")
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
+            jobs[name] = (src, out, tmp, proc, time.perf_counter())
+        for name, (src, out, tmp, proc, t0) in jobs.items():
+            stdout, stderr = proc.communicate()
+            seconds = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
+                    f"nvcc failed for {src} (exit {proc.returncode}):\n{stdout}\n{stderr}"
                 )
             os.replace(tmp, out)
-        finally:
+            _LOADED[name] = BuiltKernel(ctypes.CDLL(str(out)), out, seconds, stderr)
+    finally:
+        for src, out, tmp, proc, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        seconds, log = time.perf_counter() - t0, proc.stderr
-    built = BuiltKernel(ctypes.CDLL(str(out)), out, seconds, log)
-    _LOADED[name] = built
-    return built
+    return [_LOADED[name] for name in names]

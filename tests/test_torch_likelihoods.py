@@ -172,15 +172,17 @@ def test_other_joint_presets_f64(name):
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_preset("bao.desi", "lcdm", fast=True, device="cpu")
+        get_preset("bao.desi", "w0wacdm", fast=True, device="cpu")
     with pytest.raises(KeyError, match="ported"):
         get_preset("cc.cc", "lcdm", device="cpu")
     from cosmax_torch.data import load_bao
     from cosmax_torch.likelihoods import bao, sn
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bao.build_bao_term(load_bao(), "lcdm", bao.rd_fixed(), "cpu", grid=("emu",))
+        bao.build_bao_term(load_bao(), "w0wacdm", bao.rd_fixed(), "cpu", grid=("emu",))
     from cosmax_torch.data import load_sn
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sn.build_sn_term(load_sn("union3"), "lcdm", "dM", device="cpu", method="compressed")
+    with pytest.raises(TypeError, match="device"):
+        sn.build_sn_term(load_sn("union3"), "lcdm", "dM", 70.0)  # no CPU default

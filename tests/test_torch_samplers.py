@@ -141,7 +141,9 @@ def test_cli_short_fit(tmp_path, capsys):
     assert set(summary["chi2"]) == {"bao", "cmb_desi", "sn"}
 
 
-@pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"], ["--fast"], ["--out", "x"]])
+# --fast is ported for lcdm, wcdm and wzcdm; w0wacdm still raises
+@pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"],
+                                  ["--fast", "--model", "w0wacdm"], ["--out", "x"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfit_cli.main(["--preset", "bao.desi", "--device", "cpu", *flag])
