@@ -30,7 +30,25 @@ raising on failure (non-zero exit):
    f64 CPU fast path, kernel and plain times (CUDA events, median of 20),
    a profile of one call, and the kernel launched by ``fit.log_prob()``;
 8. the CLI with ``--fast``, 150 walkers x 20 steps: finite chain,
-   acceptance in (0, 1), at least two fused launches per step.
+   acceptance in (0, 1), at least two fused launches per step;
+9. the fast multiprobe joint (``joint.multiprobe``/wzcdm, ``fast=True``,
+   the dense synthetic SN covariance): its build, ranks and constants;
+   the fused kernel against its plain version at 131,072, 70 and 1
+   walkers within 1e-4 of max|logp| (a seeded out-of-box ``s`` and a NaN
+   row -inf in both), on all 12 configurations of ``joint.multiprobe``,
+   ``fs8.fs8``, ``cc.cc_union3`` and ``cc.cc_des5y`` at 4,096 walkers,
+   64 walkers against the port's f64 CPU fast path (and the gap to its
+   parity path), kernel and plain times at 131,072 walkers with the
+   bound, and ``fit.log_prob()`` end to end with its launch count;
+10. the parity multiprobe joint on the card (the growth ODE's RK4 loop,
+   the CC and fs8 chi^2 through the chi^2 kernel): 4,096 walkers all
+   finite, 64 walkers against the f64 CPU parity path, the time per call;
+11. the CLI with ``--fast`` on the multiprobe joint, 256 walkers x 20
+   steps: a finite (256, 11) chain, acceptance in (0, 1), at least two
+   fused launches per step.
+
+Phase 3 also holds the chi^2 kernel against its plain version at
+(4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +73,9 @@ LOGP_RTOL = 1e-4  # f32 card vs f64 CPU, relative to max|logp|
 FUSED_RTOL = 1e-4
 BENCH_WALKERS, N_SN = 65536, 1829
 BIG_WALKERS = 262144  # the flagship size of bench.py
+MP_WALKERS = 131072  # the multiprobe size of bench.py
+MP_PARITY_WALKERS = 4096
+NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s and
 # HBM3 bytes/s
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -118,7 +139,7 @@ def phase_kernel(card):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     result = {}
-    for w, n in [(BENCH_WALKERS, N_SN), (19, 37), (70, 13), (150, N_SN)]:
+    for w, n in [(BENCH_WALKERS, N_SN), (19, 37), (70, 13), (150, N_SN), (4096, 33), (4096, 66)]:
         linv = torch.as_tensor(_spd_linv(rng, n), device="cuda").float()
         delta = torch.randn((w, n), generator=gen, device="cuda")
         got = whitened_chi2(linv, delta)
@@ -294,7 +315,7 @@ def phase_fast(card, parity_ref):
     h = packed.hdr
     print(f"phase 7: fast flagship bao.desi_cmb_des5y/wzcdm (synthetic dense 1829^2 SN) built "
           f"and packed in {build_s:.2f}s: Tucker ranks ({h['H_R1']}, {h['H_R2']}), "
-          f"R_all {2 * h['H_NPAIRS']}, {h['H_NFORMS']} forms, {h['H_SIZE']} constants")
+          f"R_all {h['H_RALL']}, {h['H_NFORMS']} forms, {h['H_SIZE']} constants")
 
     # the kernel against its plain version; seeded bad rows are -inf in both
     for w in (BENCH_WALKERS, BIG_WALKERS, 70, 1):
@@ -302,17 +323,9 @@ def phase_fast(card, parity_ref):
         if w >= 4:
             walkers[1, 2] = 0.95  # Om beyond its bound (0.1, 0.6)
             walkers[2, 0] = np.nan
-        theta = torch.as_tensor(walkers, device="cuda")
-        got = fl.fused_log_prob(packed, theta)
-        want = fl.fused_log_prob_reference(packed, theta)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(want)
-        if not torch.equal(fin, torch.isfinite(got)) or bool((got[~fin] != -torch.inf).any()):
-            raise AssertionError(f"fused kernel and plain version disagree on -inf rows at W={w}")
+        err, scale, fin = _fused_vs_plain(fl, packed, torch.as_tensor(walkers, device="cuda"))
         if w >= 4 and (bool(fin[1]) or bool(fin[2]) or int((~fin).sum()) != 2):
             raise AssertionError(f"bad rows not exactly the -inf rows at W={w}")
-        err = float((got[fin] - want[fin]).abs().max())
-        scale = float(want[fin].abs().max())
         if not err <= FUSED_RTOL * scale:
             raise AssertionError(f"fused kernel vs plain at W={w}: {err:.3e} > 1e-4 of {scale:.3e}")
         print(f"phase 7: fused kernel vs plain at W={w}: max abs err {err:.3e} "
@@ -327,12 +340,10 @@ def phase_fast(card, parity_ref):
             other = get_preset(name, model, fast=True, device="cuda")
             p = fl.pack(other)
             theta = torch.as_tensor(_flagship_walkers(other, 4096, seed=7), device="cuda")
-            got, want = fl.fused_log_prob(p, theta), fl.fused_log_prob_reference(p, theta)
-            fin = torch.isfinite(want)
-            err = float((got[fin] - want[fin]).abs().max()) / float(want[fin].abs().max())
-            if not torch.equal(fin, torch.isfinite(got)) or not err <= FUSED_RTOL:
-                raise AssertionError(f"fused kernel vs plain on {name}/{model}: {err:.3e}")
-            worst = max(worst, err)
+            err, scale, _ = _fused_vs_plain(fl, p, theta)
+            if not err <= FUSED_RTOL * scale:
+                raise AssertionError(f"fused kernel vs plain on {name}/{model}: {err / scale:.3e}")
+            worst = max(worst, err / scale)
         print(f"phase 7: fused kernel vs plain on {name} (lcdm, wcdm, wzcdm) at W=4096: "
               f"worst {worst:.3e} of max|logp|")
 
@@ -408,19 +419,18 @@ def phase_fast(card, parity_ref):
                 library_ms=None)
 
 
-def phase_cli(card, fast=False):
-    """Phase 6 (parity) or 8 (--fast): the CLI on the flagship."""
+def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast=False):
+    """Phase 6 (parity), 8 and 11 (--fast): the CLI, wzcdm, 20 steps."""
     import numpy as np
 
     from cosmax_torch import fit as fit_cli
     from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
 
     kmod = fused_log_prob if fast else whitened_chi2
-    label = "phase 8" if fast else "phase 6"
     n_steps = 20
     with tempfile.TemporaryDirectory() as out:
-        argv = ["--preset", "bao.desi_cmb_des5y", "--model", "wzcdm",
-                "--walkers", "150", "--steps", str(n_steps), "--seed", "0",
+        argv = ["--preset", preset, "--model", "wzcdm",
+                "--walkers", str(walkers), "--steps", str(n_steps), "--seed", "0",
                 "--no-plots", *(["--fast"] if fast else []), "--out", out]
         _reset_counts()
         t0 = time.perf_counter()
@@ -431,15 +441,165 @@ def phase_cli(card, fast=False):
         with open(os.path.join(out, "summary.json")) as f:
             summary = json.load(f)
     acc = summary["acceptance_fraction"]
-    if rc != 0 or not np.all(np.isfinite(chain)) or chain.shape[1:] != (150, 6):
+    if rc != 0 or not np.all(np.isfinite(chain)) or chain.shape[1:] != (walkers, dim):
         raise AssertionError(f"CLI run failed: rc {rc}, chain {chain.shape}")
     if not 0.0 < acc < 1.0:
         raise AssertionError(f"acceptance fraction {acc} not in (0, 1)")
     if launches < 2 * n_steps * (1 if fast else 2):
         raise AssertionError(f"CLI run launched the kernel only {launches} times")
     print(f"{label}: cosmax_torch.fit {' '.join(argv[:-1])} <tmp>: wall {wall:.2f}s "
-          f"on {card}, acceptance {acc:.3f}, {launches} {kmod.__name__.split('.')[-1]} launches")
+          f"on {card}, acceptance {acc:.3f}, {launches} {kmod.__name__.split('.')[-1]} launches "
+          f"({launches / n_steps:.1f} per step)")
     return launches
+
+
+def _fused_vs_plain(fl, packed, theta):
+    """(max abs err, max|logp|) of the fused kernel against its plain
+    version on the same walkers; raises unless their -inf rows agree."""
+    import torch
+
+    got = fl.fused_log_prob(packed, theta)
+    want = fl.fused_log_prob_reference(packed, theta)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or bool((got[~fin] != -torch.inf).any()):
+        raise AssertionError("fused kernel and plain version disagree on -inf rows")
+    return float((got[fin] - want[fin]).abs().max()), float(want[fin].abs().max()), fin
+
+
+def phase_multiprobe_fast(card):
+    """Phase 9: the fused kernel on the fast multiprobe joint."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    t0 = time.perf_counter()
+    fit = get_preset("joint.multiprobe", "wzcdm", fast=True, synthetic_sys=True, device="cuda")
+    log_prob = fit.log_prob()
+    build_s = time.perf_counter() - t0
+    packed = fl.pack(fit)
+    h = packed.hdr
+    kinds = ", ".join(f"{t.name}:{fl.KINDS[f['F_KIND']]}" for t, f in
+                      zip([t for t in fit.terms if "compression" not in t.meta], packed.forms))
+    print(f"phase 9: fast joint.multiprobe/wzcdm (synthetic dense 1829^2 SN) built and packed "
+          f"in {build_s:.2f}s: Tucker ranks ({h['H_R1']}, {h['H_R2']}), R_all {h['H_RALL']} "
+          f"({h['H_NQ']} quads), {h['H_NFORMS']} forms ({kinds}), {h['H_SIZE']} constants")
+
+    i_s = fit.spec.names.index("s")
+    for w in (MP_WALKERS, 70, 1):
+        walkers = _flagship_walkers(fit, w, seed=w)
+        if w >= 4:
+            walkers[1, i_s] = 1.7  # the quasar scatter beyond its bound (0, 1.5)
+            walkers[2, 0] = np.nan
+        err, scale, fin = _fused_vs_plain(fl, packed, torch.as_tensor(walkers, device="cuda"))
+        if w >= 4 and (bool(fin[1]) or bool(fin[2]) or int((~fin).sum()) != 2):
+            raise AssertionError(f"bad rows not exactly the -inf rows at W={w}")
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"fused kernel vs plain at W={w}: {err:.3e} > 1e-4 of {scale:.3e}")
+        print(f"phase 9: fused kernel vs plain at W={w}: max abs err {err:.3e} "
+              f"({err / scale:.3e} of max|logp|); -inf rows agree")
+        if w == MP_WALKERS:
+            max_abs_err = err
+
+    for name in NEW_FAST:
+        worst = 0.0
+        for model in ("lcdm", "wcdm", "wzcdm"):
+            other = get_preset(name, model, fast=True, device="cuda")
+            p = fl.pack(other)
+            theta = torch.as_tensor(_flagship_walkers(other, 4096, seed=7), device="cuda")
+            err, scale, _ = _fused_vs_plain(fl, p, theta)
+            if not err <= FUSED_RTOL * scale:
+                raise AssertionError(f"fused kernel vs plain on {name}/{model}: {err / scale:.3e}")
+            worst = max(worst, err / scale)
+        print(f"phase 9: fused kernel vs plain on {name} (lcdm, wcdm, wzcdm) at W=4096: "
+              f"worst {worst:.3e} of max|logp|")
+
+    walkers = _flagship_walkers(fit, 64)
+    lp32 = log_prob(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+    th64 = torch.as_tensor(walkers.astype(np.float64))
+    ref_fast = get_preset("joint.multiprobe", "wzcdm", fast=True, synthetic_sys=True,
+                          device="cpu", dtype=torch.float64)
+    ref_par = get_preset("joint.multiprobe", "wzcdm", synthetic_sys=True,
+                         device="cpu", dtype=torch.float64)
+    lp_fast = ref_fast.log_prob()(th64).numpy()
+    lp_par = ref_par.log_prob()(th64).numpy()
+    gap_fast = float(np.max(np.abs(lp32 - lp_fast)) / np.max(np.abs(lp_fast)))
+    gap_par = float(np.max(np.abs(lp32 - lp_par)) / np.max(np.abs(lp_par)))
+    if not gap_fast <= LOGP_RTOL:
+        raise AssertionError(f"fused kernel vs f64 CPU fast path: {gap_fast:.3e} of max|logp|")
+    print(f"phase 9: fused kernel (f32 card) vs f64 CPU on 64 walkers: fast path "
+          f"{gap_fast:.3e} of max|logp|, parity path {gap_par:.3e} of max|logp|")
+
+    theta = torch.as_tensor(_flagship_walkers(fit, MP_WALKERS), device="cuda")
+    ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
+    plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
+    ops, nbytes = fl.work_per_walker(packed)
+    bound_ms = 1e3 * max(MP_WALKERS * ops / PEAK_F32_FLOPS,
+                         (MP_WALKERS * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES)
+    print(f"phase 9: fused_log_prob multiprobe at W={MP_WALKERS} on {card}: kernel {ms:.4f} ms "
+          f"({MP_WALKERS / ms * 1e3:.1f} evals/s), plain {plain_ms:.4f} ms (median of 20 "
+          f"samples of 20 calls, CUDA events); bound {bound_ms:.4f} ms ({ops} f32 ops and "
+          f"{nbytes} bytes per walker)")
+
+    _reset_counts()
+    lp = log_prob(theta)
+    torch.cuda.synchronize()
+    launched = fl.LAUNCHES
+    if launched < 1 or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"fast multiprobe log_prob: {launched} fused launches, "
+                             f"{int((~torch.isfinite(lp)).sum())} non-finite values")
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        lp = log_prob(theta)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    print(f"phase 9: fit.log_prob() on {MP_WALKERS} walkers all finite, {launched} fused "
+          f"kernel launch per call; end to end {MP_WALKERS / dt:.1f} evals/s "
+          f"({1e3 * dt:.4f} ms per call, host clock, mean of {reps}) on {card}")
+    return ref_par, dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         log_prob_launches=launched)
+
+
+def phase_multiprobe_parity(card, ref_par):
+    """Phase 10: the parity multiprobe joint on the card."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
+
+    t0 = time.perf_counter()
+    fit = get_preset("joint.multiprobe", "wzcdm", synthetic_sys=True, device="cuda")
+    log_prob = fit.log_prob()
+    build_s = time.perf_counter() - t0
+    theta = torch.as_tensor(_flagship_walkers(fit, MP_PARITY_WALKERS), device="cuda")
+    _reset_counts()
+    lp = log_prob(theta)
+    torch.cuda.synchronize()
+    launched = kmod.LAUNCHES
+    t0 = time.perf_counter()
+    log_prob(theta)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"{int((~torch.isfinite(lp)).sum())} non-finite parity log-probs")
+    if launched < 4:  # BAO, SN, CC and fs8 each whiten through the kernel
+        raise AssertionError(f"parity multiprobe launched whitened_chi2 {launched} times")
+
+    walkers = _flagship_walkers(fit, 64)
+    lp32 = log_prob(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+    lp64 = ref_par.log_prob()(torch.as_tensor(walkers.astype(np.float64))).numpy()
+    rel = float(np.max(np.abs(lp32 - lp64)) / np.max(np.abs(lp64)))
+    if not rel <= LOGP_RTOL:
+        raise AssertionError(f"parity multiprobe f32 card vs f64 CPU: {rel:.3e} of max|logp|")
+    print(f"phase 10: parity joint.multiprobe/wzcdm (synthetic dense 1829^2 SN) built in "
+          f"{build_s:.2f}s; log_prob on {MP_PARITY_WALKERS} walkers all finite; {call_s:.3f}s a "
+          f"call (host clock, the second call, RK4 loop included) on {card}, {launched} whitened_chi2 "
+          f"launches per call; f32 card vs f64 CPU on 64 walkers: {rel:.3e} of max|logp|")
+    return launched
 
 
 def main():
@@ -466,15 +626,20 @@ def main():
     timing = phase_kernel(card)
     phase_anchor()
     parity_ref = phase_flagship(card)
-    launches = phase_cli(card)
+    launches = phase_cli(card, "phase 6")
     fused = phase_fast(card, parity_ref)
-    fused_launches = phase_cli(card, fast=True)
+    fused_launches = phase_cli(card, "phase 8", fast=True)
+    mp_ref, mp_fused = phase_multiprobe_fast(card)
+    mp_parity_launches = phase_multiprobe_parity(card, mp_ref)
+    mp_cli_launches = phase_cli(card, "phase 11", "joint.multiprobe", 256, 11, fast=True)
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches, **timing},
+         "replaces": REPLACES, "launches": launches, **timing,
+         "multiprobe_parity_launches": mp_parity_launches},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
-         "replaces": FUSED_REPLACES, "launches": fused_launches, **fused},
+         "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
+         "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches)},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,46 +6,61 @@
 // which replays the traced log-prob of a walker block inside one
 // pallas_call with every constant resident in VMEM. This kernel is not a
 // replayer: it is the bundled fast log-prob written out by hand. Per walker:
-//   1. H0 and Or from theta (Or = orh2 / h^2, or 0 without radiation);
+//   1. H0 and Or from theta (Or = orh2 / h^2, or 0 without radiation; a
+//      fit may sample no H0 at all, then nothing reads it);
 //   2. barycentric weights on each Chebyshev axis (a one-hot within 1e-14
 //      of a node), folded straight into the Tucker factor projections
 //      wp_i = U_i^T w_i: a second pass recomputes bw/diff, so the node
 //      weights are never stored;
-//   3. the core contraction a[R] = sum_jk wp1[j] wp2[k] core[j, k, :];
-//   4. each linear-chi^2 form over its (base, Or-delta) column pairs:
-//      e = beta s (a + Or/OR_REF a_d) - ba_ref, chi2 = c_ref - 2 e.v_ref
-//      + e.e, plus g.S g - 2 g.q_ref + 2 e.P g where the form has nuisance
-//      columns (cosmax/models/linear_chi2.py:547-567);
-//   5. the compressed CMB: z* (Aizpuru A4, or Hu & Sugiyama), r_s by GL in
+//   3. the emulated terms, one form at a time. Each form owns a window of
+//      the core's columns, whole quads (float4) in an order the packer
+//      chose; the window is contracted a[q] = sum_jk wp1[j] wp2[k]
+//      core[q, j, k] one quad at a time and reduced at once, so only the
+//      form's running sums stay live, never the whole a[R_all]:
+//      * linear (BAO, SN, CC): quads of two (base, Or-delta) pairs,
+//        e = beta s (a + Or/OR_REF a_d) - ba_ref, chi2 = c_ref - 2 e.v_ref
+//        + e.e, plus g.S g - 2 g.q_ref + 2 e.P g where the form has
+//        nuisance columns (cosmax/models/linear_chi2.py:547-567); beta is
+//        1, c / (H0 r_d) or H0;
+//      * lift (quasars): dmu[K] += a_i (scale B_t)[i, :] pair by pair,
+//        then d = (mu - mu_ref) - dmu - dM, chi2 = sum d^2 / (sigma^2 +
+//        s^2), log_norm = -1/2 sum ln(sigma^2 + s^2);
+//      * amp_pair (fs8): quads (u, du, v, dv) of one rank index, r = scale
+//        ((u + t du) - amp (v + t dv)), chi2 = |r|^2
+//        (cosmax/models/linear_chi2.py:679-689);
+//      then a form's rescaling f: chi2 * f^-2 or f^2, log_norm += const +
+//      coef ln f;
+//   4. the compressed CMB: z* (Aizpuru A4, or Hu & Sugiyama), r_s by GL in
 //      a and D_C by GL in ln a with the radiation-aware E(z), the three
 //      observables and the 3 x 3 whitened chi^2;
-//   6. -chi2/2, or -inf outside the strict interior of the f32 bounds or
-//      where the sum is not finite.
+//   5. -chi2/2 + log_norm, or -inf outside the strict interior of the f32
+//      bounds or where the sum is not finite.
 // The constants come packed by cosmax_torch/ops/kernels/fused_log_prob.py
 // (pack): a header of sizes and offsets (the H_* slots below, the same in
-// both files) and a few thousand floats, 14 KB for the flagship.
+// both files), 14 KB for the flagship, 45 KB for the multiprobe joint in
+// wzcdm and 80 KB in wcdm.
 //
-// What bounds it on the card: per walker about 8.5k f32 operations for the
-// flagship (6.5k in the contraction and the factor projections, 2k in the
-// CMB quadratures, ~150 logf/expf/powf/sqrtf), against 28 bytes of HBM
-// traffic (theta in, logp out). At 65,536 walkers that is ~8 us of FP32
-// work at 67 TFLOP/s and ~0.5 us of HBM: the kernel is bound by
-// operations (FFMA issue, the shared-memory loads that feed it, and the
-// accurate transcendental sequences), never by memory.
+// What bounds it on the card: per walker about 9.7k f32 operations for the
+// flagship and 27k for the multiprobe joint (wzcdm; 20k of them in the
+// core contraction), against 28 or 48 bytes of HBM traffic (theta in, logp
+// out). It is bound by operations (FFMA issue, the shared-memory loads
+// that feed it, and the accurate transcendental sequences), never by
+// memory.
 //
 // What the design does about it:
 // * One thread per walker, 128 threads a block; the block first copies the
 //   constant buffer into shared memory. Every contraction then reads one
 //   shared address across the warp (a broadcast, no bank conflicts), and
-//   the core as float4 (rows padded to 4 columns by the packer).
-// * The coefficient vector a[MAX_RALL] stays in registers: all loops that
-//   index it are unrolled to compile-time bounds with uniform guards. The
-//   packer orders the core's columns as (base, delta) pairs per form so
-//   that the form pass can index a[] at compile time too. The factor
-//   projections go to a per-thread slice of shared memory ([j][thread],
-//   conflict-free), read back by the thread that wrote them.
+//   the core as float4.
+// * Register pressure stays flat in R_all: a form's window is contracted
+//   quad by quad and each quad is consumed at once, so the live state is
+//   wp2[MAX_RANK], the quad, and the form's sums (dmu[MAX_K] for a lift).
+//   Loops over those arrays unroll to compile-time bounds with uniform
+//   guards. wp1 stays in a per-thread slice of shared memory ([j][thread],
+//   conflict-free), read back by the thread that wrote it.
 // * Accurate libm functions and IEEE division and square root (no
-//   --use_fast_math): the CMB term divides theta* by its sigma ~ 2.6e-6.
+//   --use_fast_math): the CMB term divides theta* by its sigma ~ 2.6e-6,
+//   and the quasar term takes 22 logf a walker.
 // * The ragged last block is masked; each thread reads and writes only its
 //   own walker, so a NaN walker stays in its row.
 // Maxima such as MAX_RANK are compile-time; the packer refuses larger fits.
@@ -58,8 +73,9 @@ namespace {
 constexpr int MAX_DIM = 16;
 constexpr int MAX_NODES = 64;
 constexpr int MAX_RANK = 16;
-constexpr int MAX_RALL = 64;
-constexpr int MAX_FORMS = 4;
+constexpr int MAX_RALL = 256;
+constexpr int MAX_FORMS = 8;
+constexpr int MAX_K = 32;
 constexpr int MAX_GL = 64;
 constexpr int MAX_FLOATS = 40960;
 constexpr int THREADS = 128;
@@ -80,7 +96,7 @@ constexpr int H_N2 = 11;
 constexpr int H_R1 = 12;
 constexpr int H_R2 = 13;
 constexpr int H_NQ = 14;
-constexpr int H_NPAIRS = 15;
+constexpr int H_RALL = 15;
 constexpr int H_NFORMS = 16;
 constexpr int H_HAS_CMB = 17;
 constexpr int H_OFF_BOUNDS = 18;
@@ -91,37 +107,53 @@ constexpr int H_OFF_BW2 = 22;
 constexpr int H_OFF_U1 = 23;
 constexpr int H_OFF_U2 = 24;
 constexpr int H_OFF_CORE = 25;
-constexpr int H_OFF_PAIRS = 26;
-constexpr int H_OFF_FORMS = 27;
-constexpr int H_OFF_CMB = 28;
+constexpr int H_OFF_FORMS = 26;
+constexpr int H_OFF_CMB = 27;
 
-// one (base, delta) column pair (PAIR)
-constexpr int PAIR_STRIDE = 8;
-constexpr int P_FORM = 0;
-constexpr int P_BA = 1;
-constexpr int P_V = 2;
-constexpr int P_P0 = 3;
-constexpr int P_P1 = 4;
+// one (base, delta) pair row of a linear form (PAIR)
+constexpr int PAIR_STRIDE = 4;
+constexpr int P_BA = 0;
+constexpr int P_V = 1;
+constexpr int P_P0 = 2;
+constexpr int P_P1 = 3;
 
-// one linear-chi^2 form (FORM)
-constexpr int FORM_STRIDE = 20;
-constexpr int F_SCALE = 0;
-constexpr int F_CREF = 1;
-constexpr int F_BETA = 2;
-constexpr int F_RD_IDX = 3;
-constexpr int F_RD = 4;
-constexpr int F_J = 5;
-constexpr int F_MAG_IDX = 6;
-constexpr int F_OFFSET = 7;
-constexpr int F_H0REF = 8;
-constexpr int F_GREF0 = 9;
-constexpr int F_GREF1 = 10;
-constexpr int F_QREF0 = 11;
-constexpr int F_QREF1 = 12;
-constexpr int F_S00 = 13;
-constexpr int F_S01 = 14;
-constexpr int F_S10 = 15;
-constexpr int F_S11 = 16;
+// one emulated term (FORM)
+constexpr int FORM_STRIDE = 32;
+constexpr int F_KIND = 0;
+constexpr int F_Q0 = 1;
+constexpr int F_NQ = 2;
+constexpr int F_ROWS = 3;
+constexpr int F_SCALE = 4;
+constexpr int F_CREF = 5;
+constexpr int F_BETA = 6;
+constexpr int F_RD_IDX = 7;
+constexpr int F_RD = 8;
+constexpr int F_J = 9;
+constexpr int F_MAG_IDX = 10;
+constexpr int F_OFFSET = 11;
+constexpr int F_H0REF = 12;
+constexpr int F_GREF0 = 13;
+constexpr int F_GREF1 = 14;
+constexpr int F_QREF0 = 15;
+constexpr int F_QREF1 = 16;
+constexpr int F_S00 = 17;
+constexpr int F_S01 = 18;
+constexpr int F_S10 = 19;
+constexpr int F_S11 = 20;
+constexpr int F_F_IDX = 21;
+constexpr int F_POW = 22;
+constexpr int F_LN_CONST = 23;
+constexpr int F_LN_COEF = 24;
+constexpr int F_K = 25;
+constexpr int F_I_AMP = 26;
+constexpr int F_I_OFF = 27;
+constexpr int F_I_S = 28;
+
+// form kinds (KINDS) and betas
+constexpr int KIND_LINEAR = 0;
+constexpr int KIND_LIFT = 1;
+constexpr int BETA_BAO = 1;
+constexpr int BETA_H0 = 2;
 
 // the CMB block (CMB)
 constexpr int C_PRIOR = 0;
@@ -182,6 +214,44 @@ __device__ void project_axis(float x, const float* nodes, const float* bw, const
 #pragma unroll
   for (int j = 0; j < MAX_RANK; ++j)
     if (j < r) wp_out[j * THREADS] = wp[j];
+}
+
+// one quad q of the coefficient vector: sum_j wp1[j] sum_k wp2[k] core[q, j, k]
+// (the core quad-major, [nq][r1][r2] float4s, so that the unrolled k loop
+// reads at compile-time offsets; wp1 at wp1[j * THREADS], wp2 in registers)
+__device__ __forceinline__ float4 contract_quad(const float4* core, int q, int r1, int r2,
+                                                const float* wp1,
+                                                const float (&wp2)[MAX_RANK]) {
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* block = core + q * r1 * r2;
+  for (int j = 0; j < r1; ++j) {
+    const float4* row = block + j * r2;
+    float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < MAX_RANK; ++k) {
+      if (k < r2) {
+        const float4 c = row[k];
+        t.x = fmaf(wp2[k], c.x, t.x);
+        t.y = fmaf(wp2[k], c.y, t.y);
+        t.z = fmaf(wp2[k], c.z, t.z);
+        t.w = fmaf(wp2[k], c.w, t.w);
+      }
+    }
+    const float w1 = wp1[j * THREADS];
+    acc.x = fmaf(w1, t.x, acc.x);
+    acc.y = fmaf(w1, t.y, acc.y);
+    acc.z = fmaf(w1, t.z, acc.z);
+    acc.w = fmaf(w1, t.w, acc.w);
+  }
+  return acc;
+}
+
+// e (e - 2 v + 2 P g) of one (base, delta) pair of a linear form
+__device__ __forceinline__ float pair_term(float bs, float base, float delta, float t,
+                                           float4 row, float ga, float gb) {
+  const float e = bs * fmaf(t, delta, base) - row.x;  // row: (P_BA, P_V, P_P0, P_P1)
+  const float pg = row.z * ga + row.w * gb;
+  return e * (e - 2.0f * row.y + 2.0f * pg);
 }
 
 __device__ float cmb_chi2(const float* c, const float* th, float h0, float om, float o_r,
@@ -270,12 +340,13 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
 
   // 1. derived parameters
   const int model = static_cast<int>(s[H_MODEL]);
-  const float h0 = th[static_cast<int>(s[H_I_H0])] * s[H_H0_SCALE];
+  const int i_h0 = static_cast<int>(s[H_I_H0]);
+  const float h0 = i_h0 >= 0 ? th[i_h0] * s[H_H0_SCALE] : 0.0f;
   const float om = th[static_cast<int>(s[H_I_OM])];
   const int i_w0 = static_cast<int>(s[H_I_W0]);
   const float w0 = i_w0 >= 0 ? th[i_w0] : 0.0f;
   const float hh = h0 / 100.0f;
-  const float o_r = s[H_ORH2] / (hh * hh);  // 0 without radiation
+  const float o_r = s[H_ORH2] != 0.0f ? s[H_ORH2] / (hh * hh) : 0.0f;
 
   // 2. barycentric weights folded into the factor projections
   const int r1 = static_cast<int>(s[H_R1]);
@@ -289,90 +360,104 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
   } else {
     s_wp2[tid] = 1.0f;  // one axis: core [r1, 1, R]
   }
-
-  // 3. core contraction into registers
-  float a[MAX_RALL];
+  float wp2[MAX_RANK];
 #pragma unroll
-  for (int i = 0; i < MAX_RALL; ++i) a[i] = 0.0f;
-  const int nq = static_cast<int>(s[H_NQ]);
+  for (int k = 0; k < MAX_RANK; ++k) wp2[k] = k < r2 ? s_wp2[k * THREADS + tid] : 0.0f;
+
+  // 3. the emulated terms, each contracted and reduced over its own window
   const float4* core = reinterpret_cast<const float4*>(s + static_cast<int>(s[H_OFF_CORE]));
-  for (int j = 0; j < r1; ++j) {
-    const float w1 = s_wp1[j * THREADS + tid];
-    for (int k = 0; k < r2; ++k) {
-      const float cw = w1 * s_wp2[k * THREADS + tid];
-      const float4* row = core + (j * r2 + k) * nq;
-#pragma unroll
-      for (int q = 0; q < MAX_RALL / 4; ++q) {
-        if (q < nq) {
-          const float4 v = row[q];
-          a[4 * q] = fmaf(cw, v.x, a[4 * q]);
-          a[4 * q + 1] = fmaf(cw, v.y, a[4 * q + 1]);
-          a[4 * q + 2] = fmaf(cw, v.z, a[4 * q + 2]);
-          a[4 * q + 3] = fmaf(cw, v.w, a[4 * q + 3]);
-        }
-      }
-    }
-  }
-
-  // 4. the linear-chi^2 forms: per-form constants, then the column pairs
+  const float* wp1 = s_wp1 + tid;
   const int n_forms = static_cast<int>(s[H_NFORMS]);
   const float* forms = s + static_cast<int>(s[H_OFF_FORMS]);
-  float bs[MAX_FORMS], g0[MAX_FORMS], g1[MAX_FORMS];
+  const float t = o_r / OR_REF;
   float chi2 = 0.0f;
-#pragma unroll
-  for (int f = 0; f < MAX_FORMS; ++f) {
-    bs[f] = 0.0f;
-    g0[f] = 0.0f;
-    g1[f] = 0.0f;
-    if (f < n_forms) {
-      const float* F = forms + f * FORM_STRIDE;
+  float log_norm = 0.0f;
+  for (int f = 0; f < n_forms; ++f) {
+    const float* F = forms + f * FORM_STRIDE;
+    const int kind = static_cast<int>(F[F_KIND]);
+    const int q0 = static_cast<int>(F[F_Q0]);
+    const int fnq = static_cast<int>(F[F_NQ]);
+    const float* rows = s + static_cast<int>(F[F_ROWS]);
+    float fchi = 0.0f;
+    if (kind == KIND_LINEAR) {
       float beta = 1.0f;
-      if (F[F_BETA] != 0.0f) {  // BAO: beta = c / (H0 r_d)
+      const int beta_kind = static_cast<int>(F[F_BETA]);
+      if (beta_kind == BETA_BAO) {  // c / (H0 r_d)
         const int rd_idx = static_cast<int>(F[F_RD_IDX]);
         const float rd = rd_idx >= 0 ? th[rd_idx] : F[F_RD];
         beta = C_KM_S / (h0 * rd);
+      } else if (beta_kind == BETA_H0) {
+        beta = h0;
       }
       const int J = static_cast<int>(F[F_J]);
       const float ga =
           J > 0 ? th[static_cast<int>(F[F_MAG_IDX])] - F[F_OFFSET] - F[F_GREF0] : 0.0f;
       const float gb = J > 1 ? -5.0f * log10f(h0 / F[F_H0REF]) - F[F_GREF1] : 0.0f;
-      bs[f] = beta * F[F_SCALE];
-      g0[f] = ga;
-      g1[f] = gb;
-      chi2 += F[F_CREF] + ga * (F[F_S00] * ga + F[F_S01] * gb) +
-              gb * (F[F_S10] * ga + F[F_S11] * gb) - 2.0f * (ga * F[F_QREF0] + gb * F[F_QREF1]);
-    }
-  }
-  const float t = o_r / OR_REF;
-  const int n_pairs = static_cast<int>(s[H_NPAIRS]);
-  const float* pairs = s + static_cast<int>(s[H_OFF_PAIRS]);
+      const float bs = beta * F[F_SCALE];
+      fchi = F[F_CREF] + ga * (F[F_S00] * ga + F[F_S01] * gb) +
+             gb * (F[F_S10] * ga + F[F_S11] * gb) - 2.0f * (ga * F[F_QREF0] + gb * F[F_QREF1]);
+      const float4* prow = reinterpret_cast<const float4*>(rows);
+      for (int q = 0; q < fnq; ++q) {
+        const float4 v = contract_quad(core, q0 + q, r1, r2, wp1, wp2);
+        fchi += pair_term(bs, v.x, v.y, t, prow[2 * q], ga, gb);
+        fchi += pair_term(bs, v.z, v.w, t, prow[2 * q + 1], ga, gb);
+      }
+    } else if (kind == KIND_LIFT) {
+      // rows: d_ref [K], sigma^2 [K], scale B_t [2 fnq][K]
+      const int K = static_cast<int>(F[F_K]);
+      const float* bt = rows + 2 * K;
+      float dmu[MAX_K];
 #pragma unroll
-  for (int p = 0; p < MAX_RALL / 2; ++p) {
-    if (p < n_pairs) {
-      const float* pr = pairs + p * PAIR_STRIDE;
-      const int fid = static_cast<int>(pr[P_FORM]);
-      float b = bs[0], ga = g0[0], gb = g1[0];
+      for (int k = 0; k < MAX_K; ++k) dmu[k] = 0.0f;
+      for (int q = 0; q < fnq; ++q) {
+        const float4 v = contract_quad(core, q0 + q, r1, r2, wp1, wp2);
+        const float a0 = fmaf(t, v.y, v.x);
+        const float a1 = fmaf(t, v.w, v.z);
+        const float* b0 = bt + 2 * q * K;
+        const float* b1 = b0 + K;
 #pragma unroll
-      for (int f = 1; f < MAX_FORMS; ++f) {
-        if (fid == f) {
-          b = bs[f];
-          ga = g0[f];
-          gb = g1[f];
+        for (int k = 0; k < MAX_K; ++k)
+          if (k < K) dmu[k] = fmaf(a1, b1[k], fmaf(a0, b0[k], dmu[k]));
+      }
+      const float sc = th[static_cast<int>(F[F_I_S])];
+      const float s2 = sc * sc;
+      const float off = th[static_cast<int>(F[F_I_OFF])];
+      float log_sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < MAX_K; ++k) {
+        if (k < K) {
+          const float var = rows[K + k] + s2;
+          const float d = rows[k] - dmu[k] - off;
+          fchi += d * d / var;
+          log_sum += logf(var);
         }
       }
-      const float e = b * (a[2 * p] + t * a[2 * p + 1]) - pr[P_BA];
-      const float pg = pr[P_P0] * ga + pr[P_P1] * gb;
-      chi2 += e * (e - 2.0f * pr[P_V] + 2.0f * pg);
+      log_norm -= 0.5f * log_sum;
+    } else {  // amp_pair: quads (u, du, v, dv)
+      const float amp = th[static_cast<int>(F[F_I_AMP])];
+      const float sc = F[F_SCALE];
+      for (int q = 0; q < fnq; ++q) {
+        const float4 v = contract_quad(core, q0 + q, r1, r2, wp1, wp2);
+        const float r = sc * (fmaf(t, v.y, v.x) - amp * fmaf(t, v.w, v.z));
+        fchi = fmaf(r, r, fchi);
+      }
     }
+    const int f_idx = static_cast<int>(F[F_F_IDX]);
+    if (f_idx >= 0) {  // chi2 f^-2 or f^2, log_norm + const + coef ln f
+      const float fv = th[f_idx];
+      fchi *= F[F_POW] < 0.0f ? 1.0f / (fv * fv) : fv * fv;
+      log_norm += F[F_LN_CONST] + F[F_LN_COEF] * logf(fv);
+    }
+    chi2 += fchi;
   }
 
-  // 5. the compressed CMB
+  // 4. the compressed CMB
   if (s[H_HAS_CMB] != 0.0f) {
     chi2 += cmb_chi2(s + static_cast<int>(s[H_OFF_CMB]), th, h0, om, o_r, w0, model);
   }
 
-  // 6. strict-interior bounds and the finite guard
-  const float ll = -0.5f * chi2;
+  // 5. strict-interior bounds and the finite guard
+  const float ll = -0.5f * chi2 + log_norm;
   bool ok = isfinite(ll);
   const float* lo = s + static_cast<int>(s[H_OFF_BOUNDS]);
   for (int d = 0; d < D; ++d) {

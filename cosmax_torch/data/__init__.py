@@ -3,8 +3,14 @@
 from cosmax_torch.data.loaders import (
     CovDataset,
     load_bao,
+    load_cc,
+    load_fs8,
+    load_quasars,
     load_sn,
     use_synthetic_sys,
 )
 
-__all__ = ["CovDataset", "load_bao", "load_sn", "use_synthetic_sys"]
+__all__ = [
+    "CovDataset", "load_bao", "load_cc", "load_fs8", "load_quasars", "load_sn",
+    "use_synthetic_sys",
+]

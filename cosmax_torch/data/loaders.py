@@ -21,7 +21,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from cosmax_torch.ops.linalg import whitening_operator
+from cosmax_torch.ops.linalg import log_det_cov, whitening_operator
 
 _STORE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -87,6 +87,14 @@ class CovDataset:
         if cached is None:
             cached = whitening_operator(self.cov)
             self.extras["_linv"] = cached
+        return cached
+
+    @property
+    def log_det(self) -> float:
+        cached = self.extras.get("_logdet")
+        if cached is None:
+            cached = log_det_cov(self.cov)
+            self.extras["_logdet"] = cached
         return cached
 
     def __getattr__(self, name):
@@ -160,3 +168,65 @@ def load_sn(name: str = "pantheon_plus") -> CovDataset:
     raise KeyError(
         f"SN dataset {name!r} is not ported yet (ported: pantheon_plus, des5y, union3)"
     )
+
+
+def load_cc() -> CovDataset:
+    """Cosmic chronometers with the Moresco systematic covariance:
+    diag(sigma_H^2) plus the IMF and SPS-odd rank-one components built
+    from interpolated percentage errors (reference y2005cc/data.py:14-38)."""
+    b = _bundle("cc")
+    z, H = b["z"], b["H"]
+    imf = np.interp(z, b["comp_z"], b["comp_imf"]) / 100.0
+    spsooo = np.interp(z, b["comp_z"], b["comp_spsooo"]) / 100.0
+    cov = (
+        np.diag(b["sigma_H"] ** 2)
+        + np.outer(H * imf, H * imf)
+        + np.outer(H * spsooo, H * spsooo)
+    )
+    return CovDataset(
+        f"Cosmic Chronometers ({z.size} data points)", H, cov, False,
+        dict(z=z, sigma_H=b["sigma_H"]),
+    )
+
+
+def load_fs8() -> CovDataset:
+    """The fsigma8 compilation (66 points) with its full covariance and
+    each point's fiducial Omega_m (reference y2018fs8/data.py)."""
+    b = _bundle("fs8")
+    return CovDataset(
+        str(b["legend"]), b["fs8"], b["cov"], False,
+        dict(z=b["z"], fs8_err=b["fs8_err"], omega_fid=b["omega_fid"]),
+    )
+
+
+def load_quasars(n_bins: int = 48, sigma_mu_type: str = "sem_errors"):
+    """Lusso+2020 quasars in equally populated redshift bins (reference
+    y2018quasars/data.py:20-90). Returns (legend, z, mu, sigma_mu) f64
+    arrays: the per-bin means of z and mu, and the aggregated error.
+
+    The bins are pandas.qcut's, in numpy: edges at the linearly
+    interpolated quantiles of the sorted redshifts (repeated edges
+    dropped), intervals (lo, hi] with the first closed. Every mode reads
+    the e_DM column, as the reference code does: ``sem_errors`` is
+    sqrt(sum e^2)/n, ``sem_data`` std(e)/sqrt(n), ``rms_errors``
+    sqrt(sum e^2 / n)."""
+    if sigma_mu_type not in ("sem_errors", "sem_data", "rms_errors"):
+        raise ValueError(sigma_mu_type)
+    b = _bundle("quasars")
+    order = np.argsort(b["z"], kind="stable")
+    z, mu, err = b["z"][order], b["dm"][order], b["e_dm"][order]
+    edges = np.unique(np.quantile(z, np.linspace(0.0, 1.0, n_bins + 1)))
+    n_out = edges.size - 1
+    idx = np.clip(np.searchsorted(edges, z, side="left") - 1, 0, n_out - 1)
+    zb, mub, sig = (np.empty(n_out) for _ in range(3))
+    for k in range(n_out):
+        m = idx == k
+        e = err[m]
+        zb[k], mub[k] = np.mean(z[m]), np.mean(mu[m])
+        if sigma_mu_type == "sem_errors":
+            sig[k] = np.sqrt(np.sum(e**2)) / e.size
+        elif sigma_mu_type == "sem_data":
+            sig[k] = np.std(e) / np.sqrt(e.size)
+        else:
+            sig[k] = np.sqrt(np.sum(e**2) / e.size)
+    return f"Quasars - {n_out} bins", zb, mub, sig

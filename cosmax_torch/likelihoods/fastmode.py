@@ -2,7 +2,7 @@
 
 Presets default to the reference-matched parity discretisations. Inside
 ``use_fast_mode()`` the builders swap in the emulated production path:
-the BAO ``('emu',)`` grid and the emulated SN chi^2. Terms built in one
+the BAO ``('emu',)`` grid, the emulated SN, CC, quasar and fs8 terms. Terms built in one
 fast-mode scope share one emulator bundle per (model, grid, device,
 dtype), so the joint's geometry costs one barycentric contraction
 (``models/linear_chi2.py``). ``get_preset(..., fast=True)`` builds the

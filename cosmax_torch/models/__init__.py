@@ -1,1 +1,1 @@
-"""Background cosmology: expansion, distances, recombination."""
+"""Background cosmology: expansion, distances, recombination, growth; the emulators."""

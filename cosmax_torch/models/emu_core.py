@@ -14,8 +14,9 @@ rationale).
 The runtime half is torch, batched over walkers: ``bary_vector`` and
 ``coeff_contract``, for the ``exact`` and ``tucker`` representations.
 The tensor-train representation, which only grids with three or more
-axes take (w0wacdm), is not ported yet (ROADMAP.md queue 1, item 9), nor
-``delta_subspace``, which only the fs8 emulator uses (item 8).
+axes take (w0wacdm), is not ported yet (ROADMAP.md queue 1, item 9).
+``delta_subspace`` is not ported: only the reference's retired fs8
+emulator used it (ROADMAP.md, "Do not port").
 """
 
 import hashlib
@@ -107,6 +108,11 @@ SOLVER_SOURCES = (
     "ops/quadrature.py",
     "likelihoods/bao.py",
     "likelihoods/sn.py",
+    "likelihoods/cc.py",
+    "likelihoods/quasars.py",
+    "likelihoods/fs8.py",
+    "models/growth.py",
+    "ops/ode.py",
     "models/emu_core.py",
     "models/linear_chi2.py",
 )

@@ -32,9 +32,13 @@ contraction once per term; the fused kernel
 The truncations are held to an absolute elementwise contract in each
 term's own scaled units (TOL_SCALE * max|table|).
 
-Not ported yet: the split w0wacdm grid (ROADMAP.md queue 1, item 9) and
-``make_curve_values`` / ``make_amp_pair_chi2`` of the quasar and fs8
-terms (item 8).
+Two more shapes ride the same contraction: ``make_curve_values`` (the
+quasar distance-modulus curve, whose parameter-dependent metric cannot
+be folded into a fixed form) and ``make_amp_pair_chi2`` (the fs8
+data/theory pair, one group with one basis, whose residual coefficient
+is formed before squaring).
+
+Not ported yet: the split w0wacdm grid (ROADMAP.md queue 1, item 9).
 """
 
 import contextvars
@@ -423,10 +427,7 @@ class LinearChi2:
     def half_chi2(self, p, half_index):
         a_all = self.bundle.coeff(p, half_index)  # [W, R_all]
         form, ft = self._form_tensors(half_index)
-        a = a_all[:, form["sl_a"]]
-        orr = p.get("Or")
-        if orr is not None:
-            a = a + _col(orr / OR_REF) * a_all[:, form["sl_d"]]
+        a = _or_axpy(a_all, form["sl_a"], form["sl_d"], p)
         beta = 1.0 if self.beta_fn is None else _col(self.beta_fn(p))
         e = (beta * form["scale"]) * a - ft["ba_ref"]
         out = form["c_ref"] - 2.0 * (e @ ft["v_ref"]) + (e * e).sum(-1)
@@ -489,3 +490,114 @@ def _dispatch_halves(bundle, p, half_fn):
     if kind != "native":
         raise NotImplementedError(_W0WA_NOT_PORTED)
     return half_fn(p, 0)
+
+
+def _or_axpy(a_all, sl_a, sl_d, p):
+    """The coefficient slice with the radiation secant: a + (Or/OR_REF) a_d."""
+    a = a_all[:, sl_a]
+    orr = p.get("Or")
+    if orr is not None:
+        a = a + _col(orr / OR_REF) * a_all[:, sl_d]
+    return a
+
+
+class CurveValues:
+    """Emulated ``values(p) -> [W, K]`` curve values riding the bundle's
+    shared contraction; built by :func:`make_curve_values`.
+    ``form(half_index)`` gives the half's window (the fused kernel's
+    packer reads it)."""
+
+    def __init__(self, bundle, handle):
+        self.bundle = bundle
+        self.handle = handle
+        self._forms = {}
+
+    def form(self, half_index):
+        """``sl_a``, ``sl_d``, ``scale`` and ``b_scaled`` = scale * B_t
+        [R_t, K] (f64 numpy) of the half."""
+        self.bundle.finalized()
+        if self._forms.get("gen") != self.handle.gen:
+            self._forms = {"gen": self.handle.gen}
+        if half_index not in self._forms:
+            slots, b_t, scale = self.handle.per_half[half_index]
+            sl_a, sl_d, _ = slots[0]
+            self._forms[half_index] = dict(sl_a=sl_a, sl_d=sl_d, scale=scale,
+                                           b_scaled=scale * b_t)
+        return self._forms[half_index]
+
+    def half_values(self, p, half_index):
+        form = self.form(half_index)
+        key = ("t", half_index)
+        if key not in self._forms:
+            b = self.bundle
+            self._forms[key] = torch.as_tensor(form["b_scaled"], device=b.device).to(b.dtype)
+        a = _or_axpy(self.bundle.coeff(p, half_index), form["sl_a"], form["sl_d"], p)
+        return a @ self._forms[key]
+
+    def __call__(self, p):
+        return _dispatch_halves(self.bundle, p, self.half_values)
+
+
+def make_curve_values(model, curve_fn, tag, key_extra, device, dtype=torch.float32,
+                      n_nodes=None) -> CurveValues:
+    """Emulated ``fn(p) -> [W, K]`` curve values riding the bundle's single
+    shared contraction.
+
+    For a term whose metric depends on the parameters (the quasars'
+    diagonal sigma_i^2 + s^2, reference quasars/qsr_desi.py:68-80) chi^2
+    is no fixed quadratic form, but its geometry curve is a smooth
+    function of the family's parameters: registered in the bundle, its K
+    values come back per walker from one [R_t, K] lift, and the caller
+    applies the metric. Radiation enters as the Or-secant axpy."""
+    bundle = _get_bundle(model, n_nodes, device, dtype)
+    handle = bundle.register((curve_fn,), tag, key_extra)
+    if not _SCOPES.get():
+        bundle.finalized()
+    return CurveValues(bundle, handle)
+
+
+class AmpPairChi2:
+    """Emulated ``chi2(p) -> [W]`` = |y_u(theta) - p[amp] y_v(theta)|^2;
+    built by :func:`make_amp_pair_chi2`. ``form(half_index)`` gives the
+    half's four slices and the group's scale (the packer reads them)."""
+
+    def __init__(self, bundle, handle, amp_param):
+        self.bundle = bundle
+        self.handle = handle
+        self.amp_param = amp_param
+
+    def form(self, half_index):
+        self.bundle.finalized()
+        slots, _, scale = self.handle.per_half[half_index]
+        (sl_au, sl_du, _), (sl_av, sl_dv, _) = slots
+        return dict(sl_au=sl_au, sl_du=sl_du, sl_av=sl_av, sl_dv=sl_dv, scale=scale)
+
+    def half_chi2(self, p, half_index):
+        a_all = self.bundle.coeff(p, half_index)
+        f = self.form(half_index)
+        a_u = _or_axpy(a_all, f["sl_au"], f["sl_du"], p)
+        a_v = _or_axpy(a_all, f["sl_av"], f["sl_dv"], p)
+        r = f["scale"] * (a_u - _col(p[self.amp_param]) * a_v)
+        return (r * r).sum(-1)
+
+    def __call__(self, p):
+        return _dispatch_halves(self.bundle, p, self.half_chi2)
+
+
+def make_amp_pair_chi2(model, curve_u_fn, curve_v_fn, tag, key_extra, amp_param: str,
+                       device, dtype=torch.float32, n_nodes=None) -> AmpPairChi2:
+    """Emulated ``fn(p) -> |y_u(theta) - p[amp_param] * y_v(theta)|^2``.
+
+    The fs8 residual shape (reference fs8/fs8.py:72-85): a whitened
+    data-side curve y_u minus an amplitude-scaled whitened theory curve
+    y_v, both functions of the geometry only. The two curves register as
+    one group, so the joint SVD gives them one orthonormal basis, and the
+    rank-space residual r = scale ((a_u + t a_du) - amp (a_v + t a_dv)) is
+    formed before squaring: |r|^2 is |y_u - amp y_v|^2 within the group's
+    truncation contract, without the f32 cancellation of expanding the
+    square (each expanded term is ~30x chi^2 at the fs8 posterior bulk)."""
+    bundle = _get_bundle(model, n_nodes, device, dtype)
+    handle = bundle.register((curve_u_fn, curve_v_fn), tag, key_extra)
+    if not _SCOPES.get():
+        bundle.finalized()
+    return AmpPairChi2(bundle, handle, amp_param)

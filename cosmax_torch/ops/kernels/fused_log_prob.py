@@ -9,14 +9,33 @@ answers that). This module holds
 * the **packer** ``pack(fit)``: from a fast ``FitSpec``, the flat
   constant buffer that the kernel copies into shared memory, with a
   header of offsets and sizes (``HEADER``), the bundle's barycentric
-  axes, Tucker factors and core, each linear-chi^2 form, the CMB
-  compression and its Gauss-Legendre rules, the bounds and the derived
-  parameters. It raises for what the kernel does not take;
+  axes, Tucker factors and core, one row of constants per emulated term
+  (``FORM``) with its per-rank rows, the CMB compression and its
+  Gauss-Legendre rules, the bounds and the derived parameters. It raises
+  for what the kernel does not take;
 * the **plain version** ``fused_log_prob_reference(packed, theta)``: the
   same function in plain torch ops over the same buffer;
 * the **wrapper** ``fused_log_prob(packed, theta)``: CPU tensors take the
   plain version, CUDA tensors launch the kernel or raise. There is no
   fallback from the kernel to the plain version.
+
+The emulated terms are three kinds of form over the bundle's shared
+coefficient vector a[R_all]:
+
+* ``linear`` (BAO, SN, CC): the reference-centred quadratic form over
+  (base, Or-delta) column pairs, with beta = c/(H0 r_d) (BAO), H0 (CC)
+  or 1, and the SN nuisance columns;
+* ``lift`` (quasars): the curve values dmu[K] = a^T (scale B_t), then the
+  diagonal metric sigma_i^2 + s^2 and its log-normalisation;
+* ``amp_pair`` (fs8): r = scale ((a_u + t a_du) - amp (a_v + t a_dv))
+  over (u, du, v, dv) column quads, chi^2 = |r|^2.
+
+A form may carry a rescaling parameter f (CC's f_cc, fs8's f_err):
+chi^2 * f^power and log_norm = const + coef * ln f. The packer orders
+the core's columns form by form, each form's window padded with zero
+columns to whole quads (four columns, one float4), so that the kernel
+contracts and reduces one window at a time; the core is stored
+quad-major, [quad, r1, r2, 4].
 
 The buffer is in the fit's dtype: float32 on the card (the f64 build
 constants cast once, as the per-term path casts them), float64 for the
@@ -44,8 +63,9 @@ LAUNCHES = 0
 MAX_DIM = 16  # sampled parameters
 MAX_NODES = 64  # Chebyshev nodes per emulator axis
 MAX_RANK = 16  # Tucker rank per axis
-MAX_RALL = 64  # coefficient columns, padded to a multiple of 4
-MAX_FORMS = 4  # linear-chi^2 terms
+MAX_RALL = 256  # coefficient columns, each form's window padded to quads
+MAX_FORMS = 8  # emulated terms
+MAX_K = 32  # values of a lift form (quasar bins)
 MAX_GL = 64  # nodes of each CMB quadrature
 MAX_FLOATS = 40960  # constant-buffer floats (160 KB of shared memory)
 
@@ -53,21 +73,24 @@ MAX_FLOATS = 40960  # constant-buffer floats (160 KB of shared memory)
 HEADER = dict(
     H_MAGIC=0, H_SIZE=1, H_DIM=2, H_MODEL=3, H_I_OM=4, H_I_W0=5, H_I_H0=6,
     H_H0_SCALE=7, H_ORH2=8, H_NAXES=9, H_N1=10, H_N2=11, H_R1=12, H_R2=13,
-    H_NQ=14, H_NPAIRS=15, H_NFORMS=16, H_HAS_CMB=17, H_OFF_BOUNDS=18,
+    H_NQ=14, H_RALL=15, H_NFORMS=16, H_HAS_CMB=17, H_OFF_BOUNDS=18,
     H_OFF_AX1=19, H_OFF_AX2=20, H_OFF_BW1=21, H_OFF_BW2=22, H_OFF_U1=23,
-    H_OFF_U2=24, H_OFF_CORE=25, H_OFF_PAIRS=26, H_OFF_FORMS=27, H_OFF_CMB=28,
+    H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27,
 )
 HEADER_SIZE = 32
 MAGIC = 20260.0
-# one pair = the (base, Or-delta) coefficient columns of one form index
-PAIR = dict(P_FORM=0, P_BA=1, P_V=2, P_P0=3, P_P1=4)
-PAIR_STRIDE = 8
+# one row of a linear form = the constants of its (base, delta) pair i
+PAIR = dict(P_BA=0, P_V=1, P_P0=2, P_P1=3)
+PAIR_STRIDE = 4
 FORM = dict(
-    F_SCALE=0, F_CREF=1, F_BETA=2, F_RD_IDX=3, F_RD=4, F_J=5, F_MAG_IDX=6,
-    F_OFFSET=7, F_H0REF=8, F_GREF0=9, F_GREF1=10, F_QREF0=11, F_QREF1=12,
-    F_S00=13, F_S01=14, F_S10=15, F_S11=16,
+    F_KIND=0, F_Q0=1, F_NQ=2, F_ROWS=3, F_SCALE=4, F_CREF=5, F_BETA=6,
+    F_RD_IDX=7, F_RD=8, F_J=9, F_MAG_IDX=10, F_OFFSET=11, F_H0REF=12,
+    F_GREF0=13, F_GREF1=14, F_QREF0=15, F_QREF1=16, F_S00=17, F_S01=18,
+    F_S10=19, F_S11=20, F_F_IDX=21, F_POW=22, F_LN_CONST=23, F_LN_COEF=24,
+    F_K=25, F_I_AMP=26, F_I_OFF=27, F_I_S=28,
 )
-FORM_STRIDE = 20
+FORM_STRIDE = 32
+KINDS = ("linear", "lift", "amp_pair")  # F_KIND; F_BETA: 0 one, 1 c / (H0 r_d), 2 H0
 CMB = dict(
     C_PRIOR=0, C_L=3, C_OG4=12, C_OBS=13, C_ZSTAR=14, C_I_OBH2=15, C_NRS=16,
     C_NDC=17, C_NODES=20,
@@ -75,11 +98,13 @@ CMB = dict(
 MODELS = ("lcdm", "wcdm", "wzcdm")
 OBSERVABLES = ("R_lA_wb", "theta_wb_wm", "R_100theta_wb")
 Z_STAR = ("aizpuru", "hu")
+# the integer fields of a form, kept in ``Packed.forms`` for the plain version
+_FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_RD_IDX", "F_J", "F_MAG_IDX",
+              "F_F_IDX", "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
 
-_ITEM_MULTIPROBE = "ROADMAP.md queue 1, item 8; queue 2, #1c"
 _ITEM_W0WA = "ROADMAP.md queue 1, item 9; queue 2, #1b"
 _ITEM_PRESETS = "ROADMAP.md queue 1, item 10"
-_ITEM_KERNEL = "ROADMAP.md queue 2, #1a"
+_ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
 
 
 @dataclass(frozen=True)
@@ -92,7 +117,7 @@ class Packed:
 
     buf: torch.Tensor
     hdr: dict
-    forms: tuple  # per form: F_BETA, F_RD_IDX, F_J, F_MAG_IDX
+    forms: tuple  # per form: the _FORM_INTS fields and n_cols, its columns before padding
     cmb: dict  # C_OBS, C_ZSTAR, C_I_OBH2, C_NRS, C_NDC; empty without a CMB term
 
     @property
@@ -110,13 +135,86 @@ def _index(names, name, what):
     return names.index(name)
 
 
+def _emulated(t):
+    """(kind, the term's emulator object) of an emulated term, or None."""
+    for kind, key in (("linear", "linear_chi2"), ("lift", "curve_values"),
+                      ("amp_pair", "amp_pair")):
+        if key in t.meta:
+            return kind, t.meta[key]
+    return None
+
+
+def _linear_form(t, lc, names, has_h0):
+    """FORM fields and per-pair rows of a linear-chi^2 term."""
+    from cosmax_torch.likelihoods.bao import RdFixed, RdParam
+
+    form = lc.form(0)
+    f = dict(F_SCALE=form["scale"], F_CREF=form["c_ref"], F_BETA=0, F_RD_IDX=-1, F_J=lc.n_w,
+             F_MAG_IDX=-1, F_H0REF=1.0)
+    if "rd" in t.meta:  # BAO: beta = c / (H0 r_d)
+        rd = t.meta["rd"]
+        if isinstance(rd, RdFixed):
+            f.update(F_BETA=1, F_RD=float(rd.value))
+        elif isinstance(rd, RdParam):
+            f.update(F_BETA=1, F_RD_IDX=_index(names, rd.name, "r_d"))
+        else:
+            _refuse(f"the r_d treatment {rd!r}", _ITEM_PRESETS)
+    elif t.meta.get("beta") == "H0":  # CC: beta = H0
+        f.update(F_BETA=2)
+    elif lc.beta_fn is not None:
+        _refuse(f"the beta of term {t.name!r}", _ITEM_PRESETS)
+    if f["F_BETA"] and not has_h0:
+        _refuse(f"term {t.name!r}, whose beta needs H0, in a fit without H0", _ITEM_PRESETS)
+    if lc.n_w:
+        g = t.meta["gamma"]
+        j_want = 2 if g["h0"] is not None else 1
+        if lc.n_w != j_want or (g["h0"] is not None and (g["h0"] != "H0" or not has_h0)):
+            _refuse(f"the SN nuisance columns of term {t.name!r}", _ITEM_PRESETS)
+        f.update(F_MAG_IDX=_index(names, g["mag"], "the magnitude"),
+                 F_OFFSET=g["offset_ref"], F_H0REF=g["h0_ref"])
+        gr, qr, s = np.zeros(2), np.zeros(2), np.zeros((2, 2))
+        gr[:lc.n_w], qr[:lc.n_w] = form["g_ref"], form["q_ref"]
+        s[:lc.n_w, :lc.n_w] = form["s_mat"]
+        f.update(F_GREF0=gr[0], F_GREF1=gr[1], F_QREF0=qr[0], F_QREF1=qr[1],
+                 F_S00=s[0, 0], F_S01=s[0, 1], F_S10=s[1, 0], F_S11=s[1, 1])
+    n = len(form["v_ref"])
+    rows = np.zeros((n, PAIR_STRIDE))
+    rows[:, PAIR["P_BA"]] = form["ba_ref"]
+    rows[:, PAIR["P_V"]] = form["v_ref"]
+    p_mat = form.get("p_mat", np.zeros((n, 0)))
+    rows[:, PAIR["P_P0"]:PAIR["P_P0"] + p_mat.shape[1]] = p_mat
+    cols = [c for i in range(n) for c in (form["sl_a"].start + i, form["sl_d"].start + i)]
+    return f, cols, rows
+
+
+def _lift_form(t, cv, names):
+    """FORM fields and rows (d_ref [K], sigma^2 [K], scale B_t [R_t, K])
+    of the quasar curve-values term."""
+    form = cv.form(0)
+    b = form["b_scaled"]
+    n, k = b.shape
+    if k > MAX_K:
+        _refuse(f"a lift form of {k} values (at most {MAX_K})", _ITEM_KERNEL)
+    f = dict(F_K=k, F_I_OFF=_index(names, t.meta["offset"], "the quasar offset"),
+             F_I_S=_index(names, t.meta["scatter"], "the quasar scatter"))
+    cols = [c for i in range(n) for c in (form["sl_a"].start + i, form["sl_d"].start + i)]
+    return f, cols, (t.meta["d_ref"], t.meta["sigma_sq"], b)
+
+
+def _amp_pair_form(ap, names):
+    """FORM fields of the fs8 amplitude-pair term and its column quads."""
+    form = ap.form(0)
+    n = form["sl_au"].stop - form["sl_au"].start
+    cols = [form[k].start + i for i in range(n) for k in ("sl_au", "sl_du", "sl_av", "sl_dv")]
+    return dict(F_SCALE=form["scale"], F_I_AMP=_index(names, ap.amp_param, "the amplitude")), cols
+
+
 def pack(fit) -> Packed:
     """The constant buffer of a fast ``FitSpec`` (``get_preset(...,
     fast=True)``). Raises ``NotImplementedError``, naming the ROADMAP
     item, for a term, model, parameter treatment or size that the kernel
     does not take."""
     from cosmax_torch.configs.presets import Derive
-    from cosmax_torch.likelihoods.bao import RdFixed, RdParam
 
     if not fit.fast:
         raise ValueError(f"{fit.name} was built without fast=True: nothing to fuse")
@@ -128,31 +226,38 @@ def pack(fit) -> Packed:
     derive = fit.derive
     if not isinstance(derive, Derive):
         _refuse(f"the derive {derive!r}", _ITEM_PRESETS)
+    # a fit may sample no H0 (fs8.fs8): then nothing may need it
+    has_h0 = derive.h0_from in names
+    if not has_h0 and (derive.h0_from != "H0" or derive.orh2 is not None):
+        _index(names, derive.h0_from, "the Hubble parameter")
     hdr = dict(
         H_MAGIC=MAGIC, H_DIM=len(names), H_MODEL=MODELS.index(fit.model),
         H_I_OM=_index(names, "Om", "the density"),
         H_I_W0=_index(names, "w0", "the equation of state") if fit.model != "lcdm" else -1,
-        H_I_H0=_index(names, derive.h0_from, "the Hubble parameter"),
+        H_I_H0=names.index(derive.h0_from) if has_h0 else -1,
         H_H0_SCALE=1.0 if derive.h0_from == "H0" else derive.h0_scale,
         H_ORH2=0.0 if derive.orh2 is None else derive.orh2,
     )
 
-    linear, cmb_terms = [], []
+    emulated, cmb_terms = [], []
     for t in fit.terms:
-        if t.log_norm is not None:
-            _refuse(f"term {t.name!r} with a log-normalisation", _ITEM_MULTIPROBE)
-        if "linear_chi2" in t.meta:
-            linear.append(t)
+        kind = _emulated(t)
+        if kind is not None:
+            if t.log_norm is not None and kind[0] != "lift" and "rescale" not in t.meta:
+                _refuse(f"term {t.name!r} with a log-normalisation", _ITEM_PRESETS)
+            emulated.append((t, *kind))
         elif "compression" in t.meta:
             cmb_terms.append(t)
         else:
-            _refuse(f"term {t.name!r}", _ITEM_MULTIPROBE)
+            _refuse(f"term {t.name!r}", _ITEM_PRESETS)
     if len(cmb_terms) > 1:
         _refuse("more than one CMB term", _ITEM_PRESETS)
-    if not linear or len(linear) > MAX_FORMS:
-        _refuse(f"{len(linear)} emulated terms (1 to {MAX_FORMS})", _ITEM_KERNEL)
-    bundle = linear[0].meta["linear_chi2"].bundle
-    if any(t.meta["linear_chi2"].bundle is not bundle for t in linear):
+    if cmb_terms and not has_h0:
+        _refuse("a CMB term in a fit without H0", _ITEM_PRESETS)
+    if not emulated or len(emulated) > MAX_FORMS:
+        _refuse(f"{len(emulated)} emulated terms (1 to {MAX_FORMS})", _ITEM_KERNEL)
+    bundle = emulated[0][2].bundle
+    if any(obj.bundle is not bundle for _, _, obj in emulated):
         _refuse("terms from more than one emulator bundle", _ITEM_KERNEL)
     kind, halves = bundle.finalized()
     if kind != "native" or len(halves) != 1:
@@ -176,53 +281,41 @@ def pack(fit) -> Packed:
             _refuse(f"an emulator axis of {u.shape[0]} nodes at rank {u.shape[1]} "
                     f"(at most {MAX_NODES} and {MAX_RANK})", _ITEM_KERNEL)
 
-    # forms, and their coefficient columns reordered into (base, delta)
-    # pairs: the kernel walks the pairs with compile-time indices
-    forms, pairs, cols = [], [], []
-    for fid, t in enumerate(linear):
-        lc = t.meta["linear_chi2"]
-        form = lc.form(0)
+    # forms, and the core's columns reordered form by form, each window
+    # padded with zero columns (-1) to whole quads
+    forms, form_rows, cols = [], [], []
+    for t, kind, obj in emulated:
         f = dict.fromkeys(FORM, 0.0)
-        f.update(F_SCALE=form["scale"], F_CREF=form["c_ref"], F_RD_IDX=-1, F_J=lc.n_w,
-                 F_MAG_IDX=-1, F_H0REF=1.0)
-        if "rd" in t.meta:  # BAO: beta = c / (H0 r_d)
-            rd = t.meta["rd"]
-            if isinstance(rd, RdFixed):
-                f.update(F_BETA=1, F_RD=float(rd.value))
-            elif isinstance(rd, RdParam):
-                f.update(F_BETA=1, F_RD_IDX=_index(names, rd.name, "r_d"))
-            else:
-                _refuse(f"the r_d treatment {rd!r}", _ITEM_PRESETS)
-        elif lc.beta_fn is not None:
-            _refuse(f"the beta of term {t.name!r}", _ITEM_MULTIPROBE)
-        if lc.n_w:
-            g = t.meta["gamma"]
-            j_want = 2 if g["h0"] is not None else 1
-            if lc.n_w != j_want or (g["h0"] is not None and g["h0"] != "H0"):
-                _refuse(f"the SN nuisance columns of term {t.name!r}", _ITEM_PRESETS)
-            f.update(F_MAG_IDX=_index(names, g["mag"], "the magnitude"),
-                     F_OFFSET=g["offset_ref"], F_H0REF=g["h0_ref"])
-            gr = np.zeros(2)
-            qr = np.zeros(2)
-            s = np.zeros((2, 2))
-            gr[:lc.n_w], qr[:lc.n_w] = form["g_ref"], form["q_ref"]
-            s[:lc.n_w, :lc.n_w] = form["s_mat"]
-            f.update(F_GREF0=gr[0], F_GREF1=gr[1], F_QREF0=qr[0], F_QREF1=qr[1],
-                     F_S00=s[0, 0], F_S01=s[0, 1], F_S10=s[1, 0], F_S11=s[1, 1])
-        forms.append(f)
-        p_mat = form.get("p_mat", np.zeros((len(form["v_ref"]), 0)))
-        for i in range(len(form["v_ref"])):
-            cols += [form["sl_a"].start + i, form["sl_d"].start + i]
-            pp = np.zeros(2)
-            pp[:p_mat.shape[1]] = p_mat[i]
-            pairs.append((fid, form["ba_ref"][i], form["v_ref"][i], pp[0], pp[1]))
-    r_all = len(cols)
-    nq = -(-r_all // 4)
-    if 4 * nq > MAX_RALL:
-        _refuse(f"{r_all} coefficient columns (at most {MAX_RALL})", _ITEM_KERNEL)
-    core = np.concatenate(
-        [core[..., cols], np.zeros(core.shape[:2] + (4 * nq - r_all,))], axis=-1
-    )
+        f.update(F_KIND=KINDS.index(kind), F_RD_IDX=-1, F_MAG_IDX=-1, F_F_IDX=-1,
+                 F_I_AMP=-1, F_I_OFF=-1, F_I_S=-1, F_H0REF=1.0, F_POW=1.0)
+        if kind == "linear":
+            fields, fcols, rows = _linear_form(t, obj, names, has_h0)
+            rows = np.concatenate([rows, np.zeros((len(rows) % 2, PAIR_STRIDE))])
+        elif kind == "lift":
+            fields, fcols, (d_ref, sig2, b) = _lift_form(t, obj, names)
+            b = np.concatenate([b, np.zeros((len(b) % 2, b.shape[1]))])
+            rows = np.concatenate([d_ref, sig2, b.reshape(-1)])
+        else:
+            fields, fcols = _amp_pair_form(obj, names)
+            rows = np.zeros(0)
+        f.update(fields)
+        if "rescale" in t.meta:
+            rs = t.meta["rescale"]
+            f.update(F_F_IDX=_index(names, rs["param"], "the rescaling"), F_POW=rs["power"],
+                     F_LN_CONST=rs["ln_const"], F_LN_COEF=rs["ln_coef"])
+        n_cols = len(fcols)
+        fcols = fcols + [-1] * (-n_cols % 4)
+        f.update(F_Q0=len(cols) // 4, F_NQ=len(fcols) // 4)
+        cols += fcols
+        forms.append((f, n_cols))
+        form_rows.append(np.asarray(rows, np.float64).reshape(-1))
+    nq = len(cols) // 4
+    if len(cols) > MAX_RALL:
+        _refuse(f"{len(cols)} coefficient columns (at most {MAX_RALL})", _ITEM_KERNEL)
+    r_all = sum(c >= 0 for c in cols)
+    core = np.concatenate([core, np.zeros(core.shape[:2] + (1,))], axis=-1)[..., cols]
+    # quad-major [nq, r1, r2, 4]: one quad's r1 x r2 float4s lie together
+    core = core.reshape(core.shape[0], core.shape[1], nq, 4).transpose(2, 0, 1, 3)
 
     cmb = {}
     if cmb_terms:
@@ -254,47 +347,45 @@ def pack(fit) -> Packed:
     chunks = [np.zeros(HEADER_SIZE)]
     size = HEADER_SIZE
 
-    def put(key, arr, align=1):
+    def put(arr, align=1):
         nonlocal size
         pad = -size % align
         if pad:
             chunks.append(np.zeros(pad))
             size += pad
-        hdr[key] = size
+        off = size
         arr = np.asarray(arr, np.float64).reshape(-1)
         chunks.append(arr)
         size += arr.size
+        return off
 
-    put("H_OFF_BOUNDS", np.concatenate([fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]]))
+    hdr["H_OFF_BOUNDS"] = put(np.concatenate([fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]]))
     for i in range(2):
-        ax = half["axes"][i] if i < n_axes else np.zeros(0)
-        bw = half["bw"] if i < n_axes else np.zeros(0)
-        put(f"H_OFF_AX{i + 1}", ax)
-        put(f"H_OFF_BW{i + 1}", bw)
-        put(f"H_OFF_U{i + 1}", factors[i] if i < n_axes else np.zeros(0))
-    put("H_OFF_CORE", core, align=4)
-    pair_rows = np.zeros((len(pairs), PAIR_STRIDE))
-    pair_rows[:, :5] = np.asarray(pairs, np.float64)
-    put("H_OFF_PAIRS", pair_rows)
-    form_rows = np.zeros((len(forms), FORM_STRIDE))
-    for i, f in enumerate(forms):
+        hdr[f"H_OFF_AX{i + 1}"] = put(half["axes"][i] if i < n_axes else np.zeros(0))
+        hdr[f"H_OFF_BW{i + 1}"] = put(half["bw"] if i < n_axes else np.zeros(0))
+        hdr[f"H_OFF_U{i + 1}"] = put(factors[i] if i < n_axes else np.zeros(0))
+    hdr["H_OFF_CORE"] = put(core, align=4)
+    for (f, _), rows in zip(forms, form_rows):
+        f["F_ROWS"] = put(rows, align=4) if rows.size else 0
+    block = np.zeros((len(forms), FORM_STRIDE))
+    for i, (f, _) in enumerate(forms):
         for k, v in f.items():
-            form_rows[i, FORM[k]] = v
-    put("H_OFF_FORMS", form_rows)
+            block[i, FORM[k]] = v
+    hdr["H_OFF_FORMS"] = put(block)
     if cmb:
         block = np.zeros(CMB["C_NODES"])
         for k, v in cmb_values.items():
             block[CMB[k]] = v
         for k, a in cmb_arrays.items():
             block[CMB[k]:CMB[k] + a.size] = a.reshape(-1)
-        put("H_OFF_CMB", np.concatenate([block, *gl_nodes_01(n_rs), *gl_nodes_01(n_dc)]))
+        hdr["H_OFF_CMB"] = put(np.concatenate([block, *gl_nodes_01(n_rs), *gl_nodes_01(n_dc)]))
     else:
         hdr["H_OFF_CMB"] = 0
     hdr.update(
         H_SIZE=size, H_NAXES=n_axes,
         H_N1=factors[0].shape[0], H_N2=factors[1].shape[0] if n_axes > 1 else 0,
         H_R1=factors[0].shape[1], H_R2=factors[1].shape[1] if n_axes > 1 else 1,
-        H_NQ=nq, H_NPAIRS=len(pairs), H_NFORMS=len(forms), H_HAS_CMB=int(bool(cmb)),
+        H_NQ=nq, H_RALL=r_all, H_NFORMS=len(forms), H_HAS_CMB=int(bool(cmb)),
     )
     if size > MAX_FLOATS:
         _refuse(f"a constant buffer of {size} floats (at most {MAX_FLOATS})", _ITEM_KERNEL)
@@ -302,8 +393,7 @@ def pack(fit) -> Packed:
     for k, v in hdr.items():
         flat[HEADER[k]] = v
     buf = torch.as_tensor(flat, device=fit.device).to(fit.dtype)
-    layout = tuple({k: int(f[k]) for k in ("F_BETA", "F_RD_IDX", "F_J", "F_MAG_IDX")}
-                   for f in forms)
+    layout = tuple(dict({k: int(f[k]) for k in _FORM_INTS}, n_cols=n) for f, n in forms)
     return Packed(buf=buf, hdr=hdr, forms=layout, cmb=cmb)
 
 
@@ -343,19 +433,19 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
     theta = theta.to(buf.dtype)
     d = packed.dim
 
-    def seg(key, n, shape=None):
-        off = int(hdr[key])
-        out = buf[off:off + n]
+    def seg(off, n, shape=None):
+        out = buf[int(off):int(off) + n]
         return out.reshape(shape) if shape is not None else out
 
     def col(i):
         return theta[:, int(i)]
 
     model = MODELS[int(hdr["H_MODEL"])]
-    h0 = col(hdr["H_I_H0"]) * buf[HEADER["H_H0_SCALE"]]
+    zero = torch.zeros_like(theta[:, 0])
+    h0 = col(hdr["H_I_H0"]) * buf[HEADER["H_H0_SCALE"]] if hdr["H_I_H0"] >= 0 else zero
     om = col(hdr["H_I_OM"])
     w0 = col(hdr["H_I_W0"]) if model != "lcdm" else None
-    o_r = buf[HEADER["H_ORH2"]] / (h0 / 100.0) ** 2  # 0 without radiation
+    o_r = buf[HEADER["H_ORH2"]] / (h0 / 100.0) ** 2 if hdr["H_ORH2"] != 0 else zero
 
     # barycentric weights, factor projections, core contraction
     r1, r2, nq = int(hdr["H_R1"]), int(hdr["H_R2"]), int(hdr["H_NQ"])
@@ -363,51 +453,70 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
     wps = []
     for i, x in enumerate(coords):
         n, r = int(hdr[f"H_N{i + 1}"]), int(hdr[f"H_R{i + 1}"])
-        w = bary_vector(x, seg(f"H_OFF_AX{i + 1}", n), seg(f"H_OFF_BW{i + 1}", n))
-        wps.append(w @ seg(f"H_OFF_U{i + 1}", n * r, (n, r)))
-    core = seg("H_OFF_CORE", r1 * r2 * 4 * nq, (r1, r2, 4 * nq))
+        w = bary_vector(x, seg(hdr[f"H_OFF_AX{i + 1}"], n), seg(hdr[f"H_OFF_BW{i + 1}"], n))
+        wps.append(w @ seg(hdr[f"H_OFF_U{i + 1}"], n * r, (n, r)))
+    core = seg(hdr["H_OFF_CORE"], nq * r1 * r2 * 4, (nq, r1, r2, 4))
+    core = core.permute(1, 2, 0, 3).reshape(r1, r2, 4 * nq)
     a = torch.tensordot(wps[0], core, dims=([1], [0]))  # [W, r2, R]
     a = (torch.einsum("wk,wkr->wr", wps[1], a) if len(wps) > 1 else a[:, 0])
 
-    # linear-chi^2 forms over (base, delta) column pairs
-    npairs, nforms = int(hdr["H_NPAIRS"]), len(packed.forms)
-    pairs = seg("H_OFF_PAIRS", npairs * PAIR_STRIDE, (npairs, PAIR_STRIDE))
-    form_rows = seg("H_OFF_FORMS", nforms * FORM_STRIDE, (nforms, FORM_STRIDE))
+    # the forms, each over its own window of quads
+    nforms = len(packed.forms)
+    form_rows = seg(hdr["H_OFF_FORMS"], nforms * FORM_STRIDE, (nforms, FORM_STRIDE))
     t = (o_r / OR_REF)[:, None]
-    a_t = a[:, 0:2 * npairs:2] + t * a[:, 1:2 * npairs:2]  # [W, npairs]
     chi2 = torch.zeros_like(h0)
-    zero = torch.zeros_like(h0)
-    bs_cols, g0_cols, g1_cols = [], [], []
+    log_norm = torch.zeros_like(h0)
     for f, row in zip(packed.forms, form_rows):
         v = {k: row[i] for k, i in FORM.items()}
-        if f["F_BETA"]:
-            rd = col(f["F_RD_IDX"]) if f["F_RD_IDX"] >= 0 else v["F_RD"]
-            beta = C_KM_S / (h0 * rd)
+        win = a[:, 4 * f["F_Q0"]:4 * (f["F_Q0"] + f["F_NQ"])]
+        kind = KINDS[f["F_KIND"]]
+        if kind == "linear":
+            if f["F_BETA"] == 1:
+                rd = col(f["F_RD_IDX"]) if f["F_RD_IDX"] >= 0 else v["F_RD"]
+                beta = C_KM_S / (h0 * rd)
+            elif f["F_BETA"] == 2:
+                beta = h0
+            else:
+                beta = torch.ones_like(h0)
+            g0 = col(f["F_MAG_IDX"]) - v["F_OFFSET"] - v["F_GREF0"] if f["F_J"] > 0 else zero
+            g1 = ((-5.0 * torch.log10(h0 / v["F_H0REF"]) - v["F_GREF1"]) if f["F_J"] > 1
+                  else zero)
+            rows = seg(f["F_ROWS"], 2 * f["F_NQ"] * PAIR_STRIDE, (2 * f["F_NQ"], PAIR_STRIDE))
+            e = (beta * v["F_SCALE"])[:, None] * (win[:, 0::2] + t * win[:, 1::2]) \
+                - rows[:, PAIR["P_BA"]]
+            pg = rows[:, PAIR["P_P0"]] * g0[:, None] + rows[:, PAIR["P_P1"]] * g1[:, None]
+            fchi = (
+                v["F_CREF"]
+                + g0 * (v["F_S00"] * g0 + v["F_S01"] * g1) + g1 * (v["F_S10"] * g0 + v["F_S11"] * g1)
+                - 2.0 * (g0 * v["F_QREF0"] + g1 * v["F_QREF1"])
+                + (e * (e - 2.0 * rows[:, PAIR["P_V"]] + 2.0 * pg)).sum(-1)
+            )
+        elif kind == "lift":
+            k = f["F_K"]
+            rows = seg(f["F_ROWS"], (2 + 2 * f["F_NQ"]) * k)
+            d_ref, sig2 = rows[:k], rows[k:2 * k]
+            b = rows[2 * k:].reshape(2 * f["F_NQ"], k)
+            dmu = (win[:, 0::2] + t * win[:, 1::2]) @ b
+            var = sig2 + (col(f["F_I_S"]) ** 2)[:, None]
+            delta = d_ref - dmu - col(f["F_I_OFF"])[:, None]
+            fchi = (delta * delta / var).sum(-1)
+            log_norm = log_norm - 0.5 * torch.log(var).sum(-1)
         else:
-            beta = torch.ones_like(h0)
-        g0 = col(f["F_MAG_IDX"]) - v["F_OFFSET"] - v["F_GREF0"] if f["F_J"] > 0 else zero
-        g1 = (-5.0 * torch.log10(h0 / v["F_H0REF"]) - v["F_GREF1"]) if f["F_J"] > 1 else zero
-        chi2 = (
-            chi2 + v["F_CREF"]
-            + g0 * (v["F_S00"] * g0 + v["F_S01"] * g1) + g1 * (v["F_S10"] * g0 + v["F_S11"] * g1)
-            - 2.0 * (g0 * v["F_QREF0"] + g1 * v["F_QREF1"])
-        )
-        bs_cols.append(beta * v["F_SCALE"])
-        g0_cols.append(g0)
-        g1_cols.append(g1)
-    fid = pairs[:, PAIR["P_FORM"]].long()
-    bs = torch.stack(bs_cols, dim=-1)[:, fid]  # [W, npairs]
-    g0 = torch.stack(g0_cols, dim=-1)[:, fid]
-    g1 = torch.stack(g1_cols, dim=-1)[:, fid]
-    e = bs * a_t - pairs[:, PAIR["P_BA"]]
-    pg = pairs[:, PAIR["P_P0"]] * g0 + pairs[:, PAIR["P_P1"]] * g1
-    chi2 = chi2 + (e * (e - 2.0 * pairs[:, PAIR["P_V"]] + 2.0 * pg)).sum(-1)
+            amp = col(f["F_I_AMP"])[:, None]
+            r = v["F_SCALE"] * ((win[:, 0::4] + t * win[:, 1::4])
+                                - amp * (win[:, 2::4] + t * win[:, 3::4]))
+            fchi = (r * r).sum(-1)
+        if f["F_F_IDX"] >= 0:
+            fv = col(f["F_F_IDX"])
+            fchi = fchi * (1.0 / (fv * fv) if v["F_POW"] < 0 else fv * fv)
+            log_norm = log_norm + (v["F_LN_CONST"] + v["F_LN_COEF"] * torch.log(fv))
+        chi2 = chi2 + fchi
 
     if packed.cmb:
         chi2 = chi2 + _cmb_chi2(packed, col, h0, om, o_r, w0, model)
 
-    bounds = seg("H_OFF_BOUNDS", 2 * d)
-    ll = -0.5 * chi2
+    bounds = seg(hdr["H_OFF_BOUNDS"], 2 * d)
+    ll = -0.5 * chi2 + log_norm
     ok = torch.all((bounds[:d] < theta) & (theta < bounds[d:]), dim=-1) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -torch.inf))
 
@@ -510,17 +619,29 @@ def _entry(lib: ctypes.CDLL):
 def work_per_walker(packed: Packed) -> tuple:
     """(f32 operations, bytes) per walker of the fused log-prob, counted
     from the packed sizes: an FMA is 2 operations, every other
-    arithmetic operation (division, square root, exp, log, pow) 1.
-    Bytes are theta read once and logp written once; the constant buffer
-    (read once per call) is left out of the per-walker count."""
+    arithmetic operation (division, square root, exp, log, pow) 1. Only
+    the columns the forms use count, not the zero padding. Bytes are
+    theta read once and logp written once; the constant buffer (read
+    once per call) is left out of the per-walker count."""
     h = packed.hdr
     ops = 10  # derived parameters and the bounds test
     for i in (1, 2)[:int(h["H_NAXES"])]:
         n, r = h[f"H_N{i}"], h[f"H_R{i}"]
         ops += n * 4 + n * (4 + 2 * r)  # two barycentric passes, projection
-    r_all = 2 * h["H_NPAIRS"]
-    ops += h["H_R1"] * h["H_R2"] * (1 + 2 * r_all)  # core contraction
-    ops += 25 * h["H_NFORMS"] + 14 * h["H_NPAIRS"]  # forms
+    r_all = h["H_RALL"]
+    ops += 2 * h["H_R1"] * (h["H_R2"] + 1) * r_all  # core contraction, one window at a time
+    for f in packed.forms:
+        kind, n = KINDS[f["F_KIND"]], f["n_cols"]
+        if kind == "linear":
+            ops += 25 + 7 * n  # beta and nuisances; per pair the axpy, e and its dot
+        elif kind == "lift":
+            k = f["F_K"]
+            ops += n * (1 + k)  # per pair the axpy and its lift into K values
+            ops += 3 + 8 * k  # variance, residual, division, square-add, log per bin
+        else:
+            ops += 11 * n // 4  # per quad two axpys, the residual and its square
+        if f["F_F_IDX"] >= 0:
+            ops += 6  # f^power, log f
     if packed.cmb:
         n_rs, n_dc = packed.cmb["C_NRS"], packed.cmb["C_NDC"]
         # z*; per node E(z) is ~19 (cube, log, exp, sqrt), the integrand

@@ -174,7 +174,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_preset("bao.desi", "w0wacdm", fast=True, device="cpu")
     with pytest.raises(KeyError, match="ported"):
-        get_preset("cc.cc", "lcdm", device="cpu")
+        get_preset("qsr.desi", "lcdm", device="cpu")
     from cosmax_torch.data import load_bao
     from cosmax_torch.likelihoods import bao, sn
 
