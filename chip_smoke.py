@@ -35,7 +35,9 @@ raising on failure (non-zero exit):
    the dense synthetic SN covariance): its build, ranks and constants;
    the fused kernel against its plain version at 131,072, 70 and 1
    walkers within 1e-4 of max|logp| (a seeded out-of-box ``s`` and a NaN
-   row -inf in both), on all 12 configurations of ``joint.multiprobe``,
+   row -inf in both), each of its terms alone at 131,072 walkers within
+   1e-4 of that term's own max|logp| (and a quasar lift with its B_t
+   zeroed must fail that check), on all 12 configurations of ``joint.multiprobe``,
    ``fs8.fs8``, ``cc.cc_union3`` and ``cc.cc_des5y`` at 4,096 walkers,
    64 walkers against the port's f64 CPU fast path (and the gap to its
    parity path), kernel and plain times at 131,072 walkers with the
@@ -467,6 +469,25 @@ def _fused_vs_plain(fl, packed, theta):
     return float((got[fin] - want[fin]).abs().max()), float(want[fin].abs().max()), fin
 
 
+def _term_alone(fl, packed, i):
+    """The packed buffer cut to one term: form ``i`` alone, or the CMB
+    alone for ``i`` = None. The header's form count and offset (or the
+    CMB flag) are rewritten, so the kernel and the plain version read
+    only that term."""
+    import dataclasses
+
+    buf, hdr = packed.buf.clone(), dict(packed.hdr)
+    if i is None:
+        hdr.update(H_NFORMS=0)
+        forms, cmb = (), packed.cmb
+    else:
+        hdr.update(H_NFORMS=1, H_HAS_CMB=0, H_OFF_FORMS=hdr["H_OFF_FORMS"] + i * fl.FORM_STRIDE)
+        forms, cmb = (packed.forms[i],), {}
+    for k in ("H_NFORMS", "H_HAS_CMB", "H_OFF_FORMS"):
+        buf[fl.HEADER[k]] = hdr[k]
+    return dataclasses.replace(packed, buf=buf, hdr=hdr, forms=forms, cmb=cmb)
+
+
 def phase_multiprobe_fast(card):
     """Phase 9: the fused kernel on the fast multiprobe joint."""
     import numpy as np
@@ -502,6 +523,33 @@ def phase_multiprobe_fast(card):
               f"({err / scale:.3e} of max|logp|); -inf rows agree")
         if w == MP_WALKERS:
             max_abs_err = err
+            theta_big = torch.as_tensor(walkers, device="cuda")
+
+    # each term alone, within 1e-4 of its own max|logp|: the whole sum's
+    # limit (~8 at 131,072 walkers) would not see a wrong quasar lift,
+    # whose terms are a few units. A lift with its B_t zeroed must fail.
+    names = [t.name for t in fit.terms if "compression" not in t.meta]
+    parts = []
+    for i in [*range(len(packed.forms)), None]:
+        alone = _term_alone(fl, packed, i)
+        err, scale, _ = _fused_vs_plain(fl, alone, theta_big)
+        label = "cmb" if i is None else names[i]
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"fused kernel vs plain, {label} alone: {err / scale:.3e}")
+        parts.append(f"{label} {err / scale:.3e} (of {scale:.4g})")
+        if i is not None and fl.KINDS[packed.forms[i]["F_KIND"]] == "lift":
+            f, k = packed.forms[i], packed.forms[i]["F_K"]
+            start = f["F_ROWS"] + 2 * k
+            alone.buf[start:start + 2 * f["F_NQ"] * k] = 0.0
+            got = fl.fused_log_prob(alone, theta_big)
+            want = fl.fused_log_prob_reference(_term_alone(fl, packed, i), theta_big)
+            fin = torch.isfinite(want)
+            planted = float((got[fin] - want[fin]).abs().max()) / scale
+            if planted <= FUSED_RTOL:
+                raise AssertionError(f"the term-alone check missed a zeroed lift: {planted:.3e}")
+            parts[-1] += f", zeroed B_t caught at {planted:.3e}"
+    print(f"phase 9: fused kernel vs plain, each term alone at W={MP_WALKERS} (of its own "
+          f"max|logp|): {'; '.join(parts)}")
 
     for name in NEW_FAST:
         worst = 0.0

@@ -256,7 +256,7 @@ def _cc_cc(model, device, dtype):
         [("H0", 50, 90), ("Om", 0.15, 0.50), ("w0", -2.5, 0), ("f_cc", 0.1, 1.5)], model
     )
     terms = (
-        cc_mod.build_cc_term(ds, model, "f_cc", "divide", device=device, dtype=dtype),
+        cc_mod.build_cc_term(ds, model, "divide", device=device, dtype=dtype),
         priors_mod.omh2_term(),
     )
     return FitSpec(
@@ -284,7 +284,7 @@ def _cc_sn(name, sn_name, f_bounds, mag_bounds, h0_b, om_b, convention, note,
         terms = (
             sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", device=device, dtype=dtype,
                                  use_z_hel=use_z_hel, name="sn"),
-            cc_mod.build_cc_term(cc_ds, model, "f_cc", convention, device=device, dtype=dtype),
+            cc_mod.build_cc_term(cc_ds, model, convention, device=device, dtype=dtype),
         )
         n_sn = getattr(sn_ds, "effective_sample_size", sn_ds.n)
         return FitSpec(
@@ -354,7 +354,7 @@ def _joint_multiprobe(model, device, dtype):
                                **dev),
         cmb_mod.build_cmb_term("desi", model, **dev),
         sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", name="sn", **dev),
-        cc_mod.build_cc_term(cc_ds, model, "f_cc", "divide", **dev),
+        cc_mod.build_cc_term(cc_ds, model, "divide", **dev),
         qsr_mod.build_quasar_term(qz, qmu, qsig, model, **dev),
         fs8_mod.build_fs8_term(fs8_ds, model, **dev),
     )

@@ -15,8 +15,9 @@
 //   3. the emulated terms, one form at a time. Each form owns a window of
 //      the core's columns, whole quads (float4) in an order the packer
 //      chose; the window is contracted a[q] = sum_jk wp1[j] wp2[k]
-//      core[q, j, k] one quad at a time and reduced at once, so only the
-//      form's running sums stay live, never the whole a[R_all]:
+//      core[j, k, q] up to QC quads at a time and each quad reduced at
+//      once, so only the chunk and the form's running sums stay live, never
+//      the whole a[R_all]:
 //      * linear (BAO, SN, CC): quads of two (base, Or-delta) pairs,
 //        e = beta s (a + Or/OR_REF a_d) - ba_ref, chi2 = c_ref - 2 e.v_ref
 //        + e.e, plus g.S g - 2 g.q_ref + 2 e.P g where the form has
@@ -40,8 +41,8 @@
 // both files), 14 KB for the flagship, 45 KB for the multiprobe joint in
 // wzcdm and 80 KB in wcdm.
 //
-// What bounds it on the card: per walker about 9.7k f32 operations for the
-// flagship and 27k for the multiprobe joint (wzcdm; 20k of them in the
+// What bounds it on the card: per walker about 9.1k f32 operations for the
+// flagship and 25k for the multiprobe joint (wzcdm; 20k of them in the
 // core contraction), against 28 or 48 bytes of HBM traffic (theta in, logp
 // out). It is bound by operations (FFMA issue, the shared-memory loads
 // that feed it, and the accurate transcendental sequences), never by
@@ -53,11 +54,14 @@
 //   shared address across the warp (a broadcast, no bank conflicts), and
 //   the core as float4.
 // * Register pressure stays flat in R_all: a form's window is contracted
-//   quad by quad and each quad is consumed at once, so the live state is
-//   wp2[MAX_RANK], the quad, and the form's sums (dmu[MAX_K] for a lift).
-//   Loops over those arrays unroll to compile-time bounds with uniform
-//   guards. wp1 stays in a per-thread slice of shared memory ([j][thread],
-//   conflict-free), read back by the thread that wrote it.
+//   QC quads at a time (acc[QC], float4) and each quad is consumed at
+//   once, so the live state is the chunk and the form's sums (dmu[MAX_K]
+//   for a lift). The weight wp1[j] wp2[k] is formed once per (j, k) and
+//   chunk, so the contraction costs r1 r2 a chunk for the weights and
+//   2 r1 r2 a column. Loops over those arrays unroll to
+//   compile-time bounds with uniform guards. wp1 and wp2 stay in
+//   per-thread slices of shared memory ([j][thread], conflict-free), read
+//   back by the thread that wrote them.
 // * Accurate libm functions and IEEE division and square root (no
 //   --use_fast_math): the CMB term divides theta* by its sigma ~ 2.6e-6,
 //   and the quasar term takes 22 logf a walker.
@@ -79,6 +83,10 @@ constexpr int MAX_K = 32;
 constexpr int MAX_GL = 64;
 constexpr int MAX_FLOATS = 40960;
 constexpr int THREADS = 128;
+// quads contracted together (acc[QC] in registers): 5 takes the 5-quad
+// windows of the rank-9/10 linear forms in one chunk; the fastest of 3-8
+// on the flagship and the multiprobe joint (fused_ab.py, PERF.md)
+constexpr int QC = 5;
 
 // header slots (cosmax_torch/ops/kernels/fused_log_prob.py: HEADER)
 constexpr int H_MAGIC = 0;
@@ -216,34 +224,42 @@ __device__ void project_axis(float x, const float* nodes, const float* bw, const
     if (j < r) wp_out[j * THREADS] = wp[j];
 }
 
-// one quad q of the coefficient vector: sum_j wp1[j] sum_k wp2[k] core[q, j, k]
-// (the core quad-major, [nq][r1][r2] float4s, so that the unrolled k loop
-// reads at compile-time offsets; wp1 at wp1[j * THREADS], wp2 in registers)
-__device__ __forceinline__ float4 contract_quad(const float4* core, int q, int r1, int r2,
-                                                const float* wp1,
-                                                const float (&wp2)[MAX_RANK]) {
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float4* block = core + q * r1 * r2;
-  for (int j = 0; j < r1; ++j) {
-    const float4* row = block + j * r2;
-    float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// the quads [q0, q0 + n) of the coefficient vector, QC at a time:
+// a[q] = sum_jk (wp1[j] wp2[k]) core[j, k, q], the product of the two
+// projections formed once per (j, k) and chunk (the core is [r1][r2][nq]
+// float4s, so a chunk's loads lie together at compile-time offsets);
+// consume(i, a[q0 + i]) then takes each quad of the chunk in order. wp1 and
+// wp2 are the thread's slices of shared memory, at [j * THREADS].
+template <typename Consume>
+__device__ __forceinline__ void contract_window(const float4* core, int nq, int q0, int n, int r1,
+                                                int r2, const float* wp1, const float* wp2,
+                                                Consume&& consume) {
+  for (int c0 = 0; c0 < n; c0 += QC) {
+    const int nc = min(QC, n - c0);
+    float4 acc[QC];
 #pragma unroll
-    for (int k = 0; k < MAX_RANK; ++k) {
-      if (k < r2) {
-        const float4 c = row[k];
-        t.x = fmaf(wp2[k], c.x, t.x);
-        t.y = fmaf(wp2[k], c.y, t.y);
-        t.z = fmaf(wp2[k], c.z, t.z);
-        t.w = fmaf(wp2[k], c.w, t.w);
+    for (int c = 0; c < QC; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < r1; ++j) {
+      const float w1 = wp1[j * THREADS];
+      const float4* row = core + j * r2 * nq + q0 + c0;
+      for (int k = 0; k < r2; ++k, row += nq) {
+        const float cw = w1 * wp2[k * THREADS];
+#pragma unroll
+        for (int c = 0; c < QC; ++c) {
+          if (c < nc) {
+            const float4 v = row[c];
+            acc[c].x = fmaf(cw, v.x, acc[c].x);
+            acc[c].y = fmaf(cw, v.y, acc[c].y);
+            acc[c].z = fmaf(cw, v.z, acc[c].z);
+            acc[c].w = fmaf(cw, v.w, acc[c].w);
+          }
+        }
       }
     }
-    const float w1 = wp1[j * THREADS];
-    acc.x = fmaf(w1, t.x, acc.x);
-    acc.y = fmaf(w1, t.y, acc.y);
-    acc.z = fmaf(w1, t.z, acc.z);
-    acc.w = fmaf(w1, t.w, acc.w);
+#pragma unroll
+    for (int c = 0; c < QC; ++c)
+      if (c < nc) consume(c0 + c, acc[c]);
   }
-  return acc;
 }
 
 // e (e - 2 v + 2 P g) of one (base, delta) pair of a linear form
@@ -360,13 +376,12 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
   } else {
     s_wp2[tid] = 1.0f;  // one axis: core [r1, 1, R]
   }
-  float wp2[MAX_RANK];
-#pragma unroll
-  for (int k = 0; k < MAX_RANK; ++k) wp2[k] = k < r2 ? s_wp2[k * THREADS + tid] : 0.0f;
 
   // 3. the emulated terms, each contracted and reduced over its own window
   const float4* core = reinterpret_cast<const float4*>(s + static_cast<int>(s[H_OFF_CORE]));
+  const int nq = static_cast<int>(s[H_NQ]);
   const float* wp1 = s_wp1 + tid;
+  const float* wp2 = s_wp2 + tid;
   const int n_forms = static_cast<int>(s[H_NFORMS]);
   const float* forms = s + static_cast<int>(s[H_OFF_FORMS]);
   const float t = o_r / OR_REF;
@@ -397,11 +412,10 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
       fchi = F[F_CREF] + ga * (F[F_S00] * ga + F[F_S01] * gb) +
              gb * (F[F_S10] * ga + F[F_S11] * gb) - 2.0f * (ga * F[F_QREF0] + gb * F[F_QREF1]);
       const float4* prow = reinterpret_cast<const float4*>(rows);
-      for (int q = 0; q < fnq; ++q) {
-        const float4 v = contract_quad(core, q0 + q, r1, r2, wp1, wp2);
+      contract_window(core, nq, q0, fnq, r1, r2, wp1, wp2, [&](int q, float4 v) {
         fchi += pair_term(bs, v.x, v.y, t, prow[2 * q], ga, gb);
         fchi += pair_term(bs, v.z, v.w, t, prow[2 * q + 1], ga, gb);
-      }
+      });
     } else if (kind == KIND_LIFT) {
       // rows: d_ref [K], sigma^2 [K], scale B_t [2 fnq][K]
       const int K = static_cast<int>(F[F_K]);
@@ -409,8 +423,7 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
       float dmu[MAX_K];
 #pragma unroll
       for (int k = 0; k < MAX_K; ++k) dmu[k] = 0.0f;
-      for (int q = 0; q < fnq; ++q) {
-        const float4 v = contract_quad(core, q0 + q, r1, r2, wp1, wp2);
+      contract_window(core, nq, q0, fnq, r1, r2, wp1, wp2, [&](int q, float4 v) {
         const float a0 = fmaf(t, v.y, v.x);
         const float a1 = fmaf(t, v.w, v.z);
         const float* b0 = bt + 2 * q * K;
@@ -418,7 +431,7 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
 #pragma unroll
         for (int k = 0; k < MAX_K; ++k)
           if (k < K) dmu[k] = fmaf(a1, b1[k], fmaf(a0, b0[k], dmu[k]));
-      }
+      });
       const float sc = th[static_cast<int>(F[F_I_S])];
       const float s2 = sc * sc;
       const float off = th[static_cast<int>(F[F_I_OFF])];
@@ -436,11 +449,10 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
     } else {  // amp_pair: quads (u, du, v, dv)
       const float amp = th[static_cast<int>(F[F_I_AMP])];
       const float sc = F[F_SCALE];
-      for (int q = 0; q < fnq; ++q) {
-        const float4 v = contract_quad(core, q0 + q, r1, r2, wp1, wp2);
+      contract_window(core, nq, q0, fnq, r1, r2, wp1, wp2, [&](int, float4 v) {
         const float r = sc * (fmaf(t, v.y, v.x) - amp * fmaf(t, v.w, v.z));
         fchi = fmaf(r, r, fchi);
-      }
+      });
     }
     const int f_idx = static_cast<int>(F[F_F_IDX]);
     if (f_idx >= 0) {  // chi2 f^-2 or f^2, log_norm + const + coef ln f

@@ -9,13 +9,11 @@ conventions, both reproduced:
 * ``multiply``: chi^2 = f^2 d^T C^-1 d, normalisation N ln 2pi + ln|C|
   - 2N ln f (cosmic_chronometers/cc_des5y.py:58-79).
 
-With ``f_param=None`` the plain Gaussian chi^2 is used.
-
-Methods: ``direct`` evaluates H(z) = H0 E(z) per walker and whitens the
-residual (the CUDA chi^2 kernel on the card); ``emulated`` (what
-``direct`` becomes in fast mode) uses that the whitened residual Linv
-(H_obs - H0 E(z_i; theta)) is linear in H0: ``models.linear_chi2``
-tabulates Linv E on the family's grid with beta = H0 and beta_ref = 70.
+* Parity path: H(z) = H0 E(z) per walker and the whitened residual
+  (the CUDA chi^2 kernel on the card).
+* Fast path (``fast_mode()``): the whitened residual Linv (H_obs - H0
+  E(z_i; theta)) is linear in H0, so ``models.linear_chi2`` tabulates
+  Linv E on the family's grid with beta = H0 and beta_ref = 70.
 """
 
 import numpy as np
@@ -28,17 +26,16 @@ from cosmax_torch.likelihoods.fastmode import fast_mode
 from cosmax_torch.models.background import e_of_z, expand_params, hubble
 from cosmax_torch.ops.linalg import chi2_from_whitener
 
+F_PARAM = "f_cc"  # the error-rescaling parameter
+
 
 def build_cc_term(
     dataset: CovDataset,
     model: str,
-    f_param: str = None,
     convention: str = "divide",
     *,
     device,
     dtype=torch.float32,
-    name: str = "cc",
-    method: str = "direct",
 ) -> Term:
     z = np.asarray(dataset.z, dtype=np.float64)
     h_obs = np.asarray(dataset.values, dtype=np.float64)
@@ -46,12 +43,10 @@ def build_cc_term(
     n = dataset.n
     if convention not in ("divide", "multiply"):
         raise ValueError(convention)
-    if method == "direct" and fast_mode():
-        method = "emulated"
     meta = dict(n=n, legend=dataset.legend, plot_kind="cc", z=z, values=h_obs,
                 errors=np.sqrt(np.diag(dataset.cov)))
 
-    if method == "emulated":
+    if fast_mode():
         from cosmax_torch.models.linear_chi2 import _hash_arrays, make_linear_chi2
 
         def curve_fn(flat, to_params):
@@ -74,18 +69,13 @@ def build_cc_term(
         )
         # beta = H0, for the fused kernel's packer
         meta.update(linear_chi2=base_chi2, beta="H0")
-    elif method == "direct":
+    else:
         c = constants_from_numpy(dict(z=z, values=h_obs, linv=linv), device, dtype)
 
         def base_chi2(p):
             return chi2_from_whitener(c["linv"], c["values"] - hubble(c["z"], expand_params(p, 1), model))
 
         meta.update(constants=c)
-    else:
-        raise ValueError(f"unknown CC method {method!r}")
-
-    if f_param is None:
-        return Term(name=name, chi2=base_chi2, meta=meta)
 
     power = -2.0 if convention == "divide" else 2.0
     # the constant part folded at build time in f64, so that the f32
@@ -94,13 +84,13 @@ def build_cc_term(
     sign = 1.0 if convention == "divide" else -1.0
 
     def chi2(p):
-        f = p[f_param]
+        f = p[F_PARAM]
         return (f**power) * base_chi2(p)
 
     def log_norm(p):
-        return const_norm - sign * n * torch.log(p[f_param])
+        return const_norm - sign * n * torch.log(p[F_PARAM])
 
     # chi2 * f^power and log_norm = const + coef * ln f, for the packer
-    meta.update(rescale=dict(param=f_param, power=power, ln_const=const_norm,
+    meta.update(rescale=dict(param=F_PARAM, power=power, ln_const=const_norm,
                              ln_coef=-sign * n))
-    return Term(name=name, chi2=chi2, log_norm=log_norm, meta=meta)
+    return Term(name="cc", chi2=chi2, log_norm=log_norm, meta=meta)

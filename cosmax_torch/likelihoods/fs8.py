@@ -31,8 +31,16 @@ from cosmax_torch.likelihoods.base import Term
 from cosmax_torch.likelihoods.fastmode import fast_mode
 from cosmax_torch.models.background import e_of_z, expand_params
 from cosmax_torch.models.distances import comoving_integral_gl
-from cosmax_torch.models.growth import fsigma8, growth_curve, growth_elems_per_walker
+from cosmax_torch.models.growth import (
+    SUBSTEPS,
+    fsigma8,
+    growth_curve,
+    growth_elems_per_walker,
+)
 from cosmax_torch.ops.linalg import chi2_from_whitener
+
+GL_ORDER = 64  # Gauss-Legendre nodes of the model's D_M
+F_ERR = "f_err"  # the error-rescaling parameter
 
 
 def _fiducial_denominator(z, om_fid):
@@ -51,10 +59,6 @@ def _fiducial_denominator(z, om_fid):
 def build_fs8_term(
     dataset: CovDataset,
     model: str,
-    f_err_param: str = "f_err",
-    gl_order: int = 64,
-    ode_substeps: int = 4,
-    name: str = "fs8",
     *,
     device,
     dtype=torch.float32,
@@ -75,16 +79,16 @@ def build_fs8_term(
         def curve_u(flat, to_params):
             p = to_params(torch.as_tensor(flat, dtype=torch.float64))
             e = e_of_z(zt, expand_params(p, 1), model)
-            dm = comoving_integral_gl(zt, p, model, order=gl_order)
+            dm = comoving_integral_gl(zt, p, model, order=GL_ORDER)
             return (obs_over_fid * (e * dm).numpy()) @ linv.T
 
         def curve_v(flat, to_params):
             p = to_params(torch.as_tensor(flat, dtype=torch.float64))
-            return growth_curve(z, p, model, substeps=ode_substeps).numpy() @ linv.T
+            return growth_curve(z, p, model).numpy() @ linv.T
 
         raw_chi2 = make_amp_pair_chi2(
             model, curve_u, curve_v, "fs8",
-            (_hash_arrays(z, linv, obs_over_fid), gl_order, ode_substeps),
+            (_hash_arrays(z, linv, obs_over_fid), GL_ORDER, SUBSTEPS),
             "sigma8", device, dtype,
         )
         meta.update(amp_pair=raw_chi2)
@@ -95,27 +99,23 @@ def build_fs8_term(
         )
 
         def residual(p):
-            theory = fsigma8(z, p, model, substeps=ode_substeps)
+            theory = fsigma8(z, p, model)
             e_model = e_of_z(c["z"], expand_params(p, 1), model)
-            q = e_model * comoving_integral_gl(c["z"], p, model, order=gl_order) / c["fid_denom"]
+            q = e_model * comoving_integral_gl(c["z"], p, model, order=GL_ORDER) / c["fid_denom"]
             return c["fs8_obs"] * q - theory
 
         def raw_chi2(p):
             return chi2_from_whitener(c["linv"], residual(p))
 
         meta.update(constants=c)
-        elems = max(growth_elems_per_walker(ode_substeps), z.size * gl_order)
+        elems = max(growth_elems_per_walker(), z.size * GL_ORDER)
 
     def chi2(p):
-        f = p[f_err_param] if f_err_param else 1.0
-        return raw_chi2(p) / f**2
+        return raw_chi2(p) / p[F_ERR] ** 2
 
     def log_norm(p):
-        if not f_err_param:
-            return torch.zeros_like(p["Om"])
-        return -n * torch.log(p[f_err_param])
+        return -n * torch.log(p[F_ERR])
 
-    if f_err_param:
-        # chi2 * f^power and log_norm = const + coef * ln f, for the packer
-        meta.update(rescale=dict(param=f_err_param, power=-2.0, ln_const=0.0, ln_coef=-float(n)))
-    return Term(name=name, chi2=chi2, log_norm=log_norm, elems_per_walker=elems, meta=meta)
+    # chi2 * f^power and log_norm = const + coef * ln f, for the packer
+    meta.update(rescale=dict(param=F_ERR, power=-2.0, ln_const=0.0, ln_coef=-float(n)))
+    return Term(name="fs8", chi2=chi2, log_norm=log_norm, elems_per_walker=elems, meta=meta)

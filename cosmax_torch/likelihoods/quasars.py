@@ -32,6 +32,9 @@ from cosmax_torch.models.background import e_of_z, expand_params
 from cosmax_torch.ops.quadrature import cumtrapz, interp_apply, interp_weights
 
 BUILD_ORDER = 16  # GL panels of the fast path's build tables
+H0 = 70.0  # km/s/Mpc, fixed (qsr_desi.py:29)
+GRID_NUM = 3000  # points of the parity path's trapezoid grid
+OFFSET, SCATTER = "dM_qsr", "s"  # the magnitude offset and the intrinsic scatter
 
 
 def build_quasar_term(
@@ -39,11 +42,6 @@ def build_quasar_term(
     mu,
     sigma_mu,
     model: str,
-    h0: float = 70.0,
-    offset_param: str = "dM_qsr",
-    scatter_param: str = "s",
-    grid_num: int = 3000,
-    name: str = "quasars",
     *,
     device,
     dtype=torch.float32,
@@ -58,7 +56,7 @@ def build_quasar_term(
         from cosmax_torch.models.linear_chi2 import _hash_arrays, make_curve_values
 
         def mu_of(integral):
-            return 25.0 + 5.0 * torch.log10((1.0 + torch.as_tensor(z)) * (C_KM_S / h0) * integral)
+            return 25.0 + 5.0 * torch.log10((1.0 + torch.as_tensor(z)) * (C_KM_S / H0) * integral)
 
         prefix = make_prefix_comoving_integral(z, model, "cpu", torch.float64, BUILD_ORDER)
         p_ref = {k: torch.tensor([v], dtype=torch.float64)
@@ -70,21 +68,21 @@ def build_quasar_term(
             return (mu_of(integral) - torch.as_tensor(mu_ref)).numpy()
 
         dmu = make_curve_values(
-            model, curve_fn, "qsr", (_hash_arrays(z, mu_ref), float(h0), BUILD_ORDER),
+            model, curve_fn, "qsr", (_hash_arrays(z, mu_ref), H0, BUILD_ORDER),
             device, dtype,
         )
         d_ref = mu - mu_ref  # f64, before the cast
         c = constants_from_numpy(dict(d_ref=d_ref, sigma_sq=sigma_sq), device, dtype)
 
         def residual(p):
-            return c["d_ref"] - dmu(p) - p[offset_param][:, None]
+            return c["d_ref"] - dmu(p) - p[OFFSET][:, None]
 
         # what the fused kernel's packer reads
         meta.update(curve_values=dmu, d_ref=d_ref, sigma_sq=sigma_sq,
-                    offset=offset_param, scatter=scatter_param)
+                    offset=OFFSET, scatter=SCATTER)
         elems = z.size
     else:
-        z_grid = np.linspace(0.0, z.max(), num=grid_num)
+        z_grid = np.linspace(0.0, z.max(), num=GRID_NUM)
         idx, t = interp_weights(z, z_grid)
         c = constants_from_numpy(
             dict(z=z, mu=mu, sigma_sq=sigma_sq, z_grid=z_grid, interp_idx=idx, interp_t=t),
@@ -94,13 +92,13 @@ def build_quasar_term(
         def residual(p):
             inv_e = 1.0 / e_of_z(c["z_grid"], expand_params(p, 1), model)
             integral = interp_apply(cumtrapz(inv_e, c["z_grid"]), c["interp_idx"], c["interp_t"])
-            mu_th = 25.0 + 5.0 * torch.log10((1.0 + c["z"]) * (C_KM_S / h0) * integral)
-            return c["mu"] - mu_th - p[offset_param][:, None]
+            mu_th = 25.0 + 5.0 * torch.log10((1.0 + c["z"]) * (C_KM_S / H0) * integral)
+            return c["mu"] - mu_th - p[OFFSET][:, None]
 
-        elems = grid_num
+        elems = GRID_NUM
 
     def variance(p):
-        return c["sigma_sq"] + (p[scatter_param] ** 2)[:, None]
+        return c["sigma_sq"] + (p[SCATTER] ** 2)[:, None]
 
     def chi2(p):
         return torch.sum(residual(p) ** 2 / variance(p), dim=-1)
@@ -108,5 +106,5 @@ def build_quasar_term(
     def log_norm(p):
         return -0.5 * torch.sum(torch.log(variance(p)), dim=-1)
 
-    return Term(name=name, chi2=chi2, log_norm=log_norm, elems_per_walker=elems,
+    return Term(name="quasars", chi2=chi2, log_norm=log_norm, elems_per_walker=elems,
                 meta=dict(meta, constants=c))

@@ -25,15 +25,16 @@ from cosmax_torch.ops.ode import rk4, rk4_times
 from cosmax_torch.ops.quadrature import interp_apply, interp_weights
 
 A_GRID = np.logspace(-3.0, 0.0, 1000)
+SUBSTEPS = 4  # RK4 steps per interval of A_GRID
 
 
-def growth_solution(params, model, a_grid=None, substeps: int = 4):
-    """Integrate the growth ODE for [W] walker parameters (``Om``, the
-    dark-energy parameters, and ``Or`` when present). Returns (a_grid [n]
-    numpy, delta [W, n], ddelta_da [W, n])."""
-    a_grid = A_GRID if a_grid is None else np.asarray(a_grid, dtype=np.float64)
+def growth_solution(params, model):
+    """Integrate the growth ODE on ``A_GRID`` for [W] walker parameters
+    (``Om``, the dark-energy parameters, and ``Or`` when present).
+    Returns (a_grid [n] numpy, delta [W, n], ddelta_da [W, n])."""
+    a_grid = A_GRID
     om = params["Om"]
-    times = rk4_times(a_grid, substeps)
+    times = rk4_times(a_grid, SUBSTEPS)
     col = {t: i for i, t in enumerate(times)}
     a = torch.as_tensor(np.asarray(times), device=om.device).to(om.dtype)
     e2 = e2_of_z(1.0 / a - 1.0, expand_params(params, 1), model)  # [W, times]
@@ -50,20 +51,20 @@ def growth_solution(params, model, a_grid=None, substeps: int = 4):
         return torch.stack([y1, torch.addcmul(c2[j] * y0, c1[j], y1)], dim=-1)
 
     y0 = torch.stack([torch.full_like(om, float(a_grid[0])), torch.ones_like(om)], dim=-1)
-    ys = rk4(rhs, y0, a_grid, substeps=substeps)  # [W, n, 2]
+    ys = rk4(rhs, y0, a_grid, substeps=SUBSTEPS)  # [W, n, 2]
     return a_grid, ys[..., 0], ys[..., 1]
 
 
-def growth_elems_per_walker(substeps: int = 4) -> int:
+def growth_elems_per_walker() -> int:
     """Elements of the largest per-walker temporary of
     :func:`growth_solution` (the coefficient tables over the RK4 times)."""
-    return len(rk4_times(A_GRID, substeps))
+    return len(rk4_times(A_GRID, SUBSTEPS))
 
 
-def growth_curve(z, params, model, substeps: int = 4):
+def growth_curve(z, params, model):
     """a * delta'(a) / delta(a=1) at static redshifts ``z`` (numpy) for
     [W] walker parameters -> [W, len(z)]: fsigma8 / sigma8."""
-    a_grid, delta, ddelta = growth_solution(params, model, substeps=substeps)
+    a_grid, delta, ddelta = growth_solution(params, model)
     a_z = 1.0 / (1.0 + np.asarray(z, dtype=np.float64))
     idx, t = interp_weights(a_z, a_grid)
     dev = delta.device
@@ -73,7 +74,7 @@ def growth_curve(z, params, model, substeps: int = 4):
     return torch.as_tensor(a_z, device=dev).to(delta.dtype) * dd / delta[:, -1:]
 
 
-def fsigma8(z, params, model, substeps: int = 4):
+def fsigma8(z, params, model):
     """fsigma8(z) = sigma8 * a * delta'(a) / delta(a=1) -> [W, len(z)]
     (reference fs8/fs8.py:65-69). params needs 'Om', 'sigma8' (+ DE)."""
-    return params["sigma8"][:, None] * growth_curve(z, params, model, substeps)
+    return params["sigma8"][:, None] * growth_curve(z, params, model)

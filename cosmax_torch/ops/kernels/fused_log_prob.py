@@ -34,8 +34,8 @@ A form may carry a rescaling parameter f (CC's f_cc, fs8's f_err):
 chi^2 * f^power and log_norm = const + coef * ln f. The packer orders
 the core's columns form by form, each form's window padded with zero
 columns to whole quads (four columns, one float4), so that the kernel
-contracts and reduces one window at a time; the core is stored
-quad-major, [quad, r1, r2, 4].
+contracts and reduces one window at a time; the core is stored [r1,
+r2, 4 nq].
 
 The buffer is in the fit's dtype: float32 on the card (the f64 build
 constants cast once, as the per-term path casts them), float64 for the
@@ -313,9 +313,8 @@ def pack(fit) -> Packed:
     if len(cols) > MAX_RALL:
         _refuse(f"{len(cols)} coefficient columns (at most {MAX_RALL})", _ITEM_KERNEL)
     r_all = sum(c >= 0 for c in cols)
+    # [r1, r2, 4 nq]: each (j, k) row of the core holds its quads together
     core = np.concatenate([core, np.zeros(core.shape[:2] + (1,))], axis=-1)[..., cols]
-    # quad-major [nq, r1, r2, 4]: one quad's r1 x r2 float4s lie together
-    core = core.reshape(core.shape[0], core.shape[1], nq, 4).transpose(2, 0, 1, 3)
 
     cmb = {}
     if cmb_terms:
@@ -455,8 +454,7 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
         n, r = int(hdr[f"H_N{i + 1}"]), int(hdr[f"H_R{i + 1}"])
         w = bary_vector(x, seg(hdr[f"H_OFF_AX{i + 1}"], n), seg(hdr[f"H_OFF_BW{i + 1}"], n))
         wps.append(w @ seg(hdr[f"H_OFF_U{i + 1}"], n * r, (n, r)))
-    core = seg(hdr["H_OFF_CORE"], nq * r1 * r2 * 4, (nq, r1, r2, 4))
-    core = core.permute(1, 2, 0, 3).reshape(r1, r2, 4 * nq)
+    core = seg(hdr["H_OFF_CORE"], r1 * r2 * 4 * nq, (r1, r2, 4 * nq))
     a = torch.tensordot(wps[0], core, dims=([1], [0]))  # [W, r2, R]
     a = (torch.einsum("wk,wkr->wr", wps[1], a) if len(wps) > 1 else a[:, 0])
 
@@ -628,8 +626,8 @@ def work_per_walker(packed: Packed) -> tuple:
     for i in (1, 2)[:int(h["H_NAXES"])]:
         n, r = h[f"H_N{i}"], h[f"H_R{i}"]
         ops += n * 4 + n * (4 + 2 * r)  # two barycentric passes, projection
-    r_all = h["H_RALL"]
-    ops += 2 * h["H_R1"] * (h["H_R2"] + 1) * r_all  # core contraction, one window at a time
+    r1, r2 = h["H_R1"], h["H_R2"]
+    ops += r1 * r2 + 2 * r1 * r2 * h["H_RALL"]  # wp1 (x) wp2, then its dot with the core
     for f in packed.forms:
         kind, n = KINDS[f["F_KIND"]], f["n_cols"]
         if kind == "linear":

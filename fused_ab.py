@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Same-call A/B timing of the fused log-prob kernel across source trees
+and variants, on one CUDA card.
+
+    python3 fused_ab.py TREE [TREE ...] [--variant QC=4 ...] [--out FILE]
+
+Each TREE is the root of a checkout of this repo (``.`` for this one; an
+older commit unpacked with ``git archive``). The trees run one after
+another, each in its own process, in the order given, so that
+``parent change change parent`` spreads the card's drift over both.
+Each process imports that tree's ``cosmax_torch``, builds the fast
+flagship (``bao.desi_cmb_des5y``/wzcdm) and, where the tree has it, the
+fast ``joint.multiprobe``/wzcdm (both with the dense synthetic SN
+covariance), packs them with the tree's own packer and times its own
+kernel: CUDA events, median of 20 samples of 20 calls, at 65,536 and
+262,144 flagship walkers and 131,072 multiprobe walkers, walkers drawn
+as ``chip_smoke.py`` draws them. Each ``--variant NAME=VALUE`` also
+builds that tree's source with the line ``constexpr int NAME = ...;``
+set to VALUE (where the tree's source has that constant), and times it
+in the same process, interleaved with the tree's own kernel (forward,
+then reverse order). Every timed kernel is
+first held against the tree's plain version (1e-4 of max|logp|).
+
+Prints one JSON line per tree and kernel, and writes them all to
+``--out`` (default ``build/fused_ab.json``).
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+SIZES = (("bao.desi_cmb_des5y", 65536), ("bao.desi_cmb_des5y", 262144),
+         ("joint.multiprobe", 131072))
+
+
+def _median_ms(fn, reps=20, inner=20):
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _build_variant(tree, name, value):
+    """Compile the tree's fused kernel source with one constant changed;
+    returns (ctypes library, ptxas lines), or None where the tree's
+    source has no such constant."""
+    from cosmax_torch.ops.kernels import build
+
+    src = open(os.path.join(tree, "cosmax_torch", "csrc", "fused_log_prob.cu")).read()
+    pat = re.compile(rf"constexpr int {name} = [^;]+;")
+    if not pat.search(src):
+        return None
+    out_dir = os.path.join(tree, "build", "fused_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, f"fused_{name}{value}.cu")
+    with open(cu, "w") as f:
+        f.write(pat.sub(f"constexpr int {name} = {value};", src))
+    so = cu[:-3] + ".so"
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stderr}")
+    return ctypes.CDLL(so), _ptxas(proc.stderr)
+
+
+def _ptxas(log):
+    return "; ".join(ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln)
+
+
+def run_tree(tree, variants):
+    """One process: the tree's own kernel and its variants, timed."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, tree)
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.device import disable_tf32
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+    from cosmax_torch.ops.kernels.build import load_kernel
+
+    disable_tf32()
+    own = load_kernel("fused_log_prob")
+    kernels = {"own": (own.lib, _ptxas(own.log))}
+    for v in variants:
+        built = _build_variant(tree, *v.split("="))
+        if built is not None:
+            kernels[v] = built
+
+    def call(lib, packed, theta, out):
+        err = fl._entry(lib)(packed.buf.data_ptr(), packed.buf.numel(), theta.data_ptr(),
+                             out.data_ptr(), theta.shape[0], packed.dim,
+                             torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+
+    fits = {}
+    for preset, _ in SIZES:
+        if preset not in fits:
+            try:
+                fits[preset] = get_preset(preset, "wzcdm", fast=True, synthetic_sys=True,
+                                          device="cuda")
+            except (KeyError, ValueError, NotImplementedError):
+                fits[preset] = None  # the tree does not have this preset
+    results = {k: {} for k in kernels}
+    for preset, w in SIZES:
+        fit = fits[preset]
+        if fit is None:
+            continue
+        packed = fl.pack(fit)
+        rng = np.random.default_rng(0)
+        lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+        walkers = 0.5 * (lo + hi) + 0.05 * (hi - lo) * rng.standard_normal((w, fit.spec.dim))
+        theta = torch.as_tensor(walkers.astype(np.float32), device="cuda")
+        want = fl.fused_log_prob_reference(packed, theta)
+        scale = float(want.abs().max())
+        out = torch.empty(w, device="cuda")
+        for key, (lib, _) in kernels.items():
+            call(lib, packed, theta, out)
+            err = float((out - want).abs().max())
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{tree} {key} {preset} W={w}: {err / scale:.3e}")
+        order = list(kernels) + list(kernels)[::-1]
+        for key in order:
+            lib = kernels[key][0]
+            ms = _median_ms(lambda: call(lib, packed, theta, out))
+            results[key].setdefault(f"{preset}@{w}", []).append(ms)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    for key, (_, ptxas) in kernels.items():
+        print(json.dumps(dict(tree=tree, kernel=key, card=card.strip().splitlines()[0],
+                              ptxas=ptxas, ms=results[key])), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--out", default=os.path.join("build", "fused_ab.json"))
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        run_tree(os.path.abspath(args.trees[0]), args.variant)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("fused_ab.py needs a CUDA card")
+    lines = []
+    for tree in args.trees:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", tree,
+             *[f"--variant={v}" for v in args.variant]],
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(tree)),
+        )
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            raise RuntimeError(f"tree {tree} failed (exit {proc.returncode})")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("{"):
+                print(ln, flush=True)
+                lines.append(json.loads(ln))
+        print(f"# {tree}: {time.perf_counter() - t0:.1f}s", flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(lines, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

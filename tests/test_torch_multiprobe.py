@@ -19,6 +19,7 @@ The CUDA kernel runs only on a card (``chip_smoke.py`` holds it against
 the plain version there). One JAX build per path (module fixtures), and
 every JAX evaluation takes N_THETA walkers."""
 
+import functools
 import inspect
 
 import jax
@@ -48,10 +49,13 @@ def _thetas(bounds, seed, n=N_THETA, spread=0.05):
 
 
 def _jax_eval(jfit, theta):
+    """The JAX package's breakdown and log-prob, each jitted: one XLA
+    compile, where un-jitted JAX would compile every primitive."""
     with jax.enable_x64(True):
         th = jnp.asarray(theta)
-        chi = {k: np.asarray(v) for k, v in jax.vmap(jfit.chi2_breakdown())(th).items()}
-        return chi, np.asarray(jax.vmap(jfit.log_prob())(th))
+        chi = jax.jit(jax.vmap(jfit.chi2_breakdown()))(th)
+        return ({k: np.asarray(v) for k, v in chi.items()},
+                np.asarray(jax.jit(jax.vmap(jfit.log_prob()))(th)))
 
 
 def _jax_bundle(jfit):
@@ -68,11 +72,18 @@ def _jax_bundle(jfit):
     return kind, halves, windows
 
 
+@functools.lru_cache(maxsize=None)
+def _fast_fit(name, model):
+    """The port's fast build in f64, once per configuration in this file
+    (the cold table builds of the fs8 growth curves take seconds)."""
+    return get_preset(name, model, fast=True, device="cpu", dtype=F64)
+
+
 @pytest.fixture(scope="module")
 def fast():
     with jax.enable_x64(True):
         jfit = jax_preset("joint.multiprobe", MODEL, fast=True)
-    tfit = get_preset("joint.multiprobe", MODEL, fast=True, device="cpu", dtype=F64)
+    tfit = _fast_fit("joint.multiprobe", MODEL)
     theta = _thetas(tfit.spec.bounds, seed=0)
     jchi, jlp = _jax_eval(jfit, theta)
     return dict(jfit=jfit, tfit=tfit, theta=theta, jchi=jchi, jlp=jlp)
@@ -90,7 +101,7 @@ def test_parity_joint_per_term_matches_jax(fast):
     # second time: its value is composed from the breakdown instead
     with jax.enable_x64(True):
         th = jnp.asarray(theta)
-        jchi = {k: np.asarray(v) for k, v in jax.vmap(jfit.chi2_breakdown())(th).items()}
+        jchi = {k: np.asarray(v) for k, v in jax.jit(jax.vmap(jfit.chi2_breakdown()))(th).items()}
         p = jax.vmap(lambda x: jfit.derive(jfit.spec.unpack(x)))(th)
         jlp = sum(-0.5 * jchi[t.name] for t in jfit.terms) + sum(
             np.asarray(jax.vmap(t.log_norm)(p)) for t in jfit.terms if t.log_norm is not None
@@ -165,8 +176,7 @@ def test_fused_plain_matches_the_terms_at_70_walkers(fast, name, model):
     """The fused log-prob's plain version against the sum of the fast
     terms (log-normalisations included), 1e-10 relative in f64; bad
     walkers touch no other row."""
-    fit = (fast["tfit"] if name == "joint.multiprobe"
-           else get_preset(name, model, fast=True, device="cpu", dtype=F64))
+    fit = _fast_fit(name, model)
     theta = torch.as_tensor(_thetas(fit.spec.bounds, seed=1, n=70))
     packed = fl.pack(fit)
     before = fl.LAUNCHES
@@ -192,8 +202,7 @@ def test_packer_takes_the_12_new_configurations(fast):
              "cc.cc_des5y": ["linear", "linear"]}
     for name in NEW_FAST:
         for model in ("lcdm", "wcdm", "wzcdm"):
-            fit = (fast["tfit"] if (name, model) == ("joint.multiprobe", MODEL)
-                   else get_preset(name, model, fast=True, device="cpu"))
+            fit = _fast_fit(name, model)
             packed = fl.pack(fit)
             h = packed.hdr
             assert [fl.KINDS[f["F_KIND"]] for f in packed.forms] == kinds[name], name

@@ -90,7 +90,7 @@ def test_fsigma8_matches_jax(model):
 
 @pytest.mark.parametrize("convention", ["divide", "multiply"])
 def test_cc_parity_term_matches_jax(convention):
-    t = build_cc_term(load_cc(), "wzcdm", "f_cc", convention, device="cpu", dtype=F64)
+    t = build_cc_term(load_cc(), "wzcdm", convention, device="cpu", dtype=F64)
     j = jax_cc(jdata.load_cc(), "wzcdm", "f_cc", convention)
     p = _params(2, {"H0": (62.0, 74.0), "f_cc": (0.5, 1.5)})
     (chi2, log_norm), (want_chi2, want_norm) = _both(t, j, p)
