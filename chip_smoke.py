@@ -47,7 +47,23 @@ raising on failure (non-zero exit):
    finite, 64 walkers against the f64 CPU parity path, the time per call;
 11. the CLI with ``--fast`` on the multiprobe joint, 256 walkers x 20
    steps: a finite (256, 11) chain, acceptance in (0, 1), at least two
-   fused launches per step.
+   fused launches per step;
+12. the fast w0wacdm flagship (``bao.desi_cmb_des5y``/w0wacdm,
+   ``fast=True``, the dense synthetic SN covariance), the fused kernel's
+   split-grid branch: the build time, each half's tensor-train ranks, the
+   shared and device bytes of its constants, ptxas; the kernel against its
+   plain version within 1e-4 of max|logp| at 65,536 and 262,144 walkers
+   of the bench draw, 65,536 uniform over the box, a seam batch with
+   |w0 + wa| < 1e-4 on both sides, 70 and 1 walkers (seeded out-of-box
+   and NaN rows -inf in both); each term alone within 1e-4 of its own
+   max|logp| (the CMB also on walkers with w0 + wa > 1.5), and a planted
+   swap of the halves' select that must fail; 64 walkers over both halves
+   against the port's f64 CPU fast path; ``bao.desi``,
+   ``bao.desi_cmb_union3`` and ``bao.desi_cmb_pantheon`` in w0wacdm at
+   4,096 walkers (bench and uniform draws); kernel and plain times with
+   the bound; ``fit.log_prob()`` end to end with its launch count; and the
+   CLI with ``--fast --model w0wacdm``, 150 walkers x 20 steps, a finite
+   (150, 7) chain.
 
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
@@ -78,6 +94,7 @@ BIG_WALKERS = 262144  # the flagship size of bench.py
 MP_WALKERS = 131072  # the multiprobe size of bench.py
 MP_PARITY_WALKERS = 4096
 NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
+W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s and
 # HBM3 bytes/s
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -421,8 +438,9 @@ def phase_fast(card, parity_ref):
                 library_ms=None)
 
 
-def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast=False):
-    """Phase 6 (parity), 8 and 11 (--fast): the CLI, wzcdm, 20 steps."""
+def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast=False,
+              model="wzcdm"):
+    """Phase 6 (parity), 8, 11 and 12 (--fast): the CLI, 20 steps."""
     import numpy as np
 
     from cosmax_torch import fit as fit_cli
@@ -431,7 +449,7 @@ def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast
     kmod = fused_log_prob if fast else whitened_chi2
     n_steps = 20
     with tempfile.TemporaryDirectory() as out:
-        argv = ["--preset", preset, "--model", "wzcdm",
+        argv = ["--preset", preset, "--model", model,
                 "--walkers", str(walkers), "--steps", str(n_steps), "--seed", "0",
                 "--no-plots", *(["--fast"] if fast else []), "--out", out]
         _reset_counts()
@@ -471,21 +489,31 @@ def _fused_vs_plain(fl, packed, theta):
 
 def _term_alone(fl, packed, i):
     """The packed buffer cut to one term: form ``i`` alone, or the CMB
-    alone for ``i`` = None. The header's form count and offset (or the
-    CMB flag) are rewritten, so the kernel and the plain version read
-    only that term."""
+    alone for ``i`` = None. The header's form count and the form table's
+    offset (each half's, on the split grid), or the CMB flag, are
+    rewritten, so the kernel and the plain version read only that term."""
     import dataclasses
 
     buf, hdr = packed.buf.clone(), dict(packed.hdr)
     if i is None:
         hdr.update(H_NFORMS=0)
-        forms, cmb = (), packed.cmb
+        cmb = packed.cmb
     else:
         hdr.update(H_NFORMS=1, H_HAS_CMB=0, H_OFF_FORMS=hdr["H_OFF_FORMS"] + i * fl.FORM_STRIDE)
-        forms, cmb = (packed.forms[i],), {}
+        cmb = {}
     for k in ("H_NFORMS", "H_HAS_CMB", "H_OFF_FORMS"):
         buf[fl.HEADER[k]] = hdr[k]
-    return dataclasses.replace(packed, buf=buf, hdr=hdr, forms=forms, cmb=cmb)
+    halves = []
+    for h, lay in enumerate(packed.halves):
+        lay = dict(lay, forms=() if i is None else (lay["forms"][i],))
+        if i is not None:
+            lay["T_OFF_FORMS"] += i * fl.FORM_STRIDE
+            buf[hdr["H_OFF_HALVES"] + h * fl.HALF_STRIDE + fl.HALF["T_OFF_FORMS"]] = \
+                lay["T_OFF_FORMS"]
+        halves.append(lay)
+    forms = halves[0]["forms"] if halves else (() if i is None else (packed.forms[i],))
+    return dataclasses.replace(packed, buf=buf, hdr=hdr, forms=forms, cmb=cmb,
+                               halves=tuple(halves))
 
 
 def phase_multiprobe_fast(card):
@@ -650,6 +678,220 @@ def phase_multiprobe_parity(card, ref_par):
     return launched
 
 
+def _ptxas_of(log, marker):
+    """ptxas's register and spill lines for the kernel functions whose
+    mangled name holds ``marker`` (the split grid's instance of the fused
+    kernel is the one with template argument true, ``ILb1E``)."""
+    lines, ours = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            ours = marker in ln
+        elif ours and ("Used" in ln or "spill" in ln):
+            lines.append(ln.strip())
+    return "; ".join(lines)
+
+
+def _box_walkers(fit, n, seed, seam=False):
+    """Walkers uniform over the prior box; ``seam`` puts each on the
+    split grid's seam, w0 + wa within 1e-4 of 0 on either side."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+    walkers = lo + (hi - lo) * rng.uniform(0.0, 1.0, (n, fit.spec.dim))
+    if seam:
+        i_w0, i_wa = fit.spec.names.index("w0"), fit.spec.names.index("wa")
+        walkers[:, i_wa] = -walkers[:, i_w0] + rng.uniform(-1e-4, 1e-4, n)
+    return walkers.astype(np.float32)
+
+
+def _halves_of(fit, theta):
+    """Walkers of each half: (s <= 0, s > 0) counts, s = w0 + wa in f32."""
+    s = theta[:, fit.spec.names.index("w0")] + theta[:, fit.spec.names.index("wa")]
+    lower = int((s <= 0).sum())
+    return lower, theta.shape[0] - lower
+
+
+def _split_bound_ms(fl, fit, packed, theta):
+    """The least time for this batch: each walker's minimal work in its
+    own half, against both constant buffers read once."""
+    lower, upper = _halves_of(fit, theta)
+    ops0, nbytes = fl.work_per_walker(packed, 0)
+    ops1, _ = fl.work_per_walker(packed, 1)
+    w = theta.shape[0]
+    const_bytes = 4 * (packed.buf.numel() + packed.dev.numel())
+    return 1e3 * max((lower * ops0 + upper * ops1) / PEAK_F32_FLOPS,
+                     (w * nbytes + const_bytes) / PEAK_BYTES), (ops0, ops1)
+
+
+def phase_w0wa_fast(card, ptxas_split):
+    """Phase 12: the fused kernel's split-grid branch on the fast w0wacdm
+    flagship."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    t0 = time.perf_counter()
+    fit = get_preset("bao.desi_cmb_des5y", "w0wacdm", fast=True, synthetic_sys=True,
+                     device="cuda")
+    log_prob = fit.log_prob()
+    build_s = time.perf_counter() - t0
+    packed = fl.pack(fit)
+    h = packed.hdr
+    ranks = "; ".join(
+        f"half {i}: perm {tuple(lay[f'T_PERM{j}'] for j in range(3))}, bonds "
+        f"({lay['T_R1']}, {lay['T_R2']}, {lay['T_R3']}), R_all {lay['T_RALL']} ({lay['T_NQ']} quads)"
+        for i, lay in enumerate(packed.halves))
+    print(f"phase 12: fast w0wacdm flagship bao.desi_cmb_des5y/w0wacdm (synthetic dense 1829^2 "
+          f"SN) built and packed in {build_s:.2f}s: {ranks}; {4 * h['H_SIZE']} bytes of shared "
+          f"constants, {4 * packed.dev.numel()} bytes of TT cores and tails in device memory, "
+          f"{2 * h['H_BOND'] * 128 * 4} bytes of sweep scratch a block; {ptxas_split}")
+
+    i_w0, i_wa = fit.spec.names.index("w0"), fit.spec.names.index("wa")
+    batches = {
+        "bench 65536": _flagship_walkers(fit, BENCH_WALKERS, seed=12),
+        "bench 262144": _flagship_walkers(fit, BIG_WALKERS, seed=13),
+        "uniform 65536": _box_walkers(fit, BENCH_WALKERS, seed=14),
+        "seam 65536": _box_walkers(fit, BENCH_WALKERS, seed=15, seam=True),
+        "uniform 70": _box_walkers(fit, 70, seed=16),
+        "bench 1": _flagship_walkers(fit, 1, seed=17),
+    }
+    result = {}
+    for label, walkers in batches.items():
+        w = walkers.shape[0]
+        if w >= 4:
+            walkers[1, 2] = 0.95  # Om beyond its bound (0.1, 0.6)
+            walkers[2, 0] = np.nan
+        theta = torch.as_tensor(walkers, device="cuda")
+        err, scale, fin = _fused_vs_plain(fl, packed, theta)
+        if w >= 4 and (bool(fin[1]) or bool(fin[2]) or int((~fin).sum()) != 2):
+            raise AssertionError(f"bad rows not exactly the -inf rows at {label}")
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"w0wacdm fused kernel vs plain at {label}: {err:.3e} > 1e-4 "
+                                 f"of {scale:.3e}")
+        lower, upper = _halves_of(fit, theta)
+        print(f"phase 12: fused kernel vs plain, {label} ({lower} walkers in half 0, {upper} in "
+              f"half 1): max abs err {err:.3e} ({err / scale:.3e} of max|logp|); -inf rows agree")
+        if label == "bench 65536":
+            result["max_abs_err"] = err
+
+    # each term alone against its own max|logp|, on the uniform batch (both
+    # halves); the CMB also on walkers with s = w0 + wa > 1.5, where the CPL
+    # density reaches ~1e27 at z*
+    uniform = torch.as_tensor(batches["uniform 65536"], device="cuda")
+    names = [t.name for t in fit.terms if "compression" not in t.meta]
+    parts = []
+    for i in [*range(len(packed.forms)), None]:
+        alone = _term_alone(fl, packed, i)
+        err, scale, _ = _fused_vs_plain(fl, alone, uniform)
+        label = "cmb" if i is None else names[i]
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"w0wacdm fused kernel vs plain, {label} alone: {err / scale:.3e}")
+        parts.append(f"{label} {err / scale:.3e} (of {scale:.4g})")
+    high = _box_walkers(fit, BENCH_WALKERS, seed=18)
+    high[:, i_w0] = np.random.default_rng(19).uniform(-0.45, -0.01, BENCH_WALKERS)
+    high[:, i_wa] = 1.55 - high[:, i_w0] + (0.44 + high[:, i_w0]) * np.random.default_rng(
+        20).uniform(0.0, 1.0, BENCH_WALKERS)
+    high_t = torch.as_tensor(high.astype(np.float32), device="cuda")
+    s_high = (high_t[:, i_w0] + high_t[:, i_wa])
+    if not bool((s_high > 1.5).all()):
+        raise AssertionError("the high-s batch left s > 1.5")
+    err, scale, _ = _fused_vs_plain(fl, _term_alone(fl, packed, None), high_t)
+    if not err <= FUSED_RTOL * scale:
+        raise AssertionError(f"w0wacdm CMB alone at s > 1.5: {err / scale:.3e}")
+    parts.append(f"cmb at s in ({float(s_high.min()):.3f}, {float(s_high.max()):.3f}) "
+                 f"{err / scale:.3e} (of {scale:.4g})")
+    print(f"phase 12: fused kernel vs plain, each term alone at W={BENCH_WALKERS} uniform (of "
+          f"its own max|logp|): {'; '.join(parts)}")
+
+    # the planted fault: the halves' select swapped in a copy of the buffer
+    swapped = packed.buf.clone()
+    base, stride = int(h["H_OFF_HALVES"]), fl.HALF_STRIDE
+    swapped[base:base + stride] = packed.buf[base + stride:base + 2 * stride]
+    swapped[base + stride:base + 2 * stride] = packed.buf[base:base + stride]
+    import dataclasses
+
+    got = fl.fused_log_prob(dataclasses.replace(packed, buf=swapped), uniform)
+    want = fl.fused_log_prob_reference(packed, uniform)
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    planted = float((got[fin] - want[fin]).abs().max()) / float(want[fin].abs().max())
+    if planted <= FUSED_RTOL:
+        raise AssertionError(f"the check missed the swapped halves: {planted:.3e}")
+    print(f"phase 12: planted swap of the halves' select caught at {planted:.3e} of max|logp| "
+          f"(limit {FUSED_RTOL:g})")
+
+    # 64 walkers over both halves against the f64 CPU fast path
+    mixed = np.concatenate([_flagship_walkers(fit, 32, seed=21), batches["uniform 65536"][3:]])
+    s_mixed = mixed[:, i_w0] + mixed[:, i_wa]
+    mixed = np.concatenate([mixed[:32], mixed[32:][s_mixed[32:] > 0][:32]])
+    lp32 = log_prob(torch.as_tensor(mixed, device="cuda")).double().cpu().numpy()
+    t0 = time.perf_counter()
+    ref = get_preset("bao.desi_cmb_des5y", "w0wacdm", fast=True, synthetic_sys=True,
+                     device="cpu", dtype=torch.float64)
+    lp64 = ref.log_prob()(torch.as_tensor(mixed.astype(np.float64))).numpy()
+    gap = float(np.max(np.abs(lp32 - lp64)) / np.max(np.abs(lp64)))
+    if not gap <= LOGP_RTOL:
+        raise AssertionError(f"w0wacdm fused kernel vs f64 CPU fast path: {gap:.3e} of max|logp|")
+    print(f"phase 12: fused kernel (f32 card) vs f64 CPU fast path on 64 walkers (32 in each "
+          f"half): {gap:.3e} of max|logp| (the f64 build {time.perf_counter() - t0:.2f}s)")
+
+    for name in W0WA_OTHERS:
+        t0 = time.perf_counter()
+        other = get_preset(name, "w0wacdm", fast=True, device="cuda")
+        p = fl.pack(other)
+        other_s = time.perf_counter() - t0
+        worst = []
+        for draw in (_flagship_walkers(other, 4096, seed=7), _box_walkers(other, 4096, seed=8)):
+            err, scale, _ = _fused_vs_plain(fl, p, torch.as_tensor(draw, device="cuda"))
+            if not err <= FUSED_RTOL * scale:
+                raise AssertionError(f"fused kernel vs plain on {name}/w0wacdm: {err / scale:.3e}")
+            worst.append(err / scale)
+        print(f"phase 12: {name}/w0wacdm built and packed in {other_s:.2f}s; fused kernel vs "
+              f"plain at W=4096: bench {worst[0]:.3e}, uniform {worst[1]:.3e} of max|logp|")
+
+    timing = {}
+    for label in ("bench 65536", "bench 262144", "uniform 65536"):
+        theta = torch.as_tensor(np.nan_to_num(batches[label], nan=0.3), device="cuda")
+        w = theta.shape[0]
+        ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=5)
+        plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), reps=5,
+                              inner=1)
+        bound_ms, ops = _split_bound_ms(fl, fit, packed, theta)
+        lower, upper = _halves_of(fit, theta)
+        print(f"phase 12: fused_log_prob w0wacdm {label} ({lower} + {upper} walkers in halves "
+              f"0 + 1) on {card}: kernel {ms:.4f} ms ({w / ms * 1e3:.1f} evals/s), plain "
+              f"{plain_ms:.4f} ms (CUDA events, medians); bound {bound_ms:.4f} ms ({ops[0]} and "
+              f"{ops[1]} f32 ops a walker in halves 0 and 1)")
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+    theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device="cuda")
+    _reset_counts()
+    lp = log_prob(theta)
+    torch.cuda.synchronize()
+    launched = fl.LAUNCHES
+    if launched != 1 or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"fast w0wacdm log_prob: {launched} fused launches, "
+                             f"{int((~torch.isfinite(lp)).sum())} non-finite values")
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        lp = log_prob(theta)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    print(f"phase 12: fit.log_prob() on {BENCH_WALKERS} walkers all finite, {launched} fused "
+          f"kernel launch per call; end to end {BENCH_WALKERS / dt:.1f} evals/s "
+          f"({1e3 * dt:.4f} ms per call, host clock, mean of {reps}) on {card}")
+    bench = timing["bench 65536"]
+    return dict(max_abs_err=result["max_abs_err"], **bench, bound_by="operations",
+                log_prob_launches=launched, walkers=BENCH_WALKERS,
+                ms_262144=timing["bench 262144"]["ms"],
+                bound_ms_262144=timing["bench 262144"]["bound_ms"],
+                ms_uniform=timing["uniform 65536"]["ms"],
+                bound_ms_uniform=timing["uniform 65536"]["bound_ms"])
+
+
 def main():
     import torch
 
@@ -664,12 +906,13 @@ def main():
     from cosmax_torch.ops.kernels.build import load_kernels
 
     disable_tf32()
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     built = load_kernels(["whitened_chi2", "fused_log_prob"])
-    print(f"phase 2: built both kernels in {time.perf_counter() - t0:.2f}s (in parallel)")
+    print(f"phase 2: built both kernels in {time.perf_counter() - t_start:.2f}s (in parallel)")
     for src, b in zip((SOURCE, FUSED_SOURCE), built):
         ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
+    ptxas_split = _ptxas_of(built[1].log, "ILb1E") or "ptxas report not found"
 
     timing = phase_kernel(card)
     phase_anchor()
@@ -680,6 +923,10 @@ def main():
     mp_ref, mp_fused = phase_multiprobe_fast(card)
     mp_parity_launches = phase_multiprobe_parity(card, mp_ref)
     mp_cli_launches = phase_cli(card, "phase 11", "joint.multiprobe", 256, 11, fast=True)
+    w0wa = phase_w0wa_fast(card, ptxas_split)
+    w0wa_cli_launches = phase_cli(card, "phase 12", walkers=150, dim=7, fast=True,
+                                  model="w0wacdm")
+    print(f"phases 2-12 took {time.perf_counter() - t_start:.1f}s on {card}")
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
@@ -687,7 +934,8 @@ def main():
          "multiprobe_parity_launches": mp_parity_launches},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
-         "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches)},
+         "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
+         "w0wacdm": dict(w0wa, cli_launches=w0wa_cli_launches)},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

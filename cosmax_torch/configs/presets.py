@@ -5,11 +5,12 @@ Ported so far: ``bao.desi``, the three BAO + CMB + SN joints
 ``bao.desi_cmb_des5y``), the all-probe ``joint.multiprobe``, ``fs8.fs8``,
 ``cc.cc_union3`` and ``cc.cc_des5y`` (both f conventions of the CC
 term), on the parity path and, for lcdm, wcdm and wzcdm, on the fast
-path (``fast=True``); and ``cc.cc``, whose Om h^2 prior keeps it on the
-parity path. Each preset reproduces the reference script's parameter
-order, bounds, grids, r_d treatment and radiation constants. The model
-is an argument: for 'lcdm' w0 is dropped from the sampled vector, for
-'w0wacdm' a wa parameter (-3, 2) follows w0.
+path (``fast=True``); w0wacdm takes the fast path in the four presets
+of the flagship family (``W0WA_FAST``); and ``cc.cc``, whose Om h^2
+prior keeps it on the parity path. Each preset reproduces the reference
+script's parameter order, bounds, grids, r_d treatment and radiation
+constants. The model is an argument: for 'lcdm' w0 is dropped from the
+sampled vector, for 'w0wacdm' a wa parameter (-3, 2) follows w0.
 
 Build-time constants are f64 numpy, turned into tensors once per preset
 on the chosen device and dtype. A fast preset's ``log_prob`` is the
@@ -45,6 +46,11 @@ from cosmax_torch.models.linear_chi2 import set_scope_domains
 from cosmax_torch.samplers.ensemble import default_moves
 
 WA_BOUNDS = (-3.0, 2.0)
+
+# The presets whose w0wacdm fast path is ported: BAO, CMB and SN on the
+# split grid. The other fast presets (CC, quasars, fsigma8, whose growth
+# tables are 2 x 40^3 ODE solves) refuse w0wacdm before building.
+W0WA_FAST = ("bao.desi", "bao.desi_cmb_des5y", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
 
 
 @dataclass(frozen=True)
@@ -157,10 +163,10 @@ def get_preset(
         raise KeyError(
             f"unknown or unported preset {name!r}; ported: {', '.join(list_presets())}"
         )
-    if fast and model == "w0wacdm":
+    if fast and model == "w0wacdm" and name not in W0WA_FAST:
         raise NotImplementedError(
-            "fast=True for w0wacdm needs the split emulator grid and the "
-            "tensor-train program, not ported yet (ROADMAP.md queue 1, item 9)"
+            f"fast=True for w0wacdm on {name!r} is not ported yet: the w0wacdm fast path "
+            f"takes {', '.join(W0WA_FAST)} (ROADMAP.md queue 1, item 9b)"
         )
     device, dtype = resolve(device, dtype)
     with use_synthetic_sys(synthetic_sys), use_fast_mode(fast):

@@ -6,6 +6,7 @@ Examples::
     python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model wzcdm \
         --steps 2200 --walkers 150 --seed 42 --out results/flagship --no-plots
     python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model wzcdm --fast
+    python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model w0wacdm --fast
     python -m cosmax_torch.fit --list
 
 Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).

@@ -60,9 +60,10 @@ def bundle_from_numpy(bundle, kind, halves, windows):
     port's ``bundle`` (a ``models.linear_chi2._Bundle``, e.g. the
     ``meta["linear_chi2"].bundle`` of a fast preset's terms).
 
-    ``kind``: the grid kind ("native"). ``halves``: per half a dict with
-    ``axes`` (list of [n_i] node arrays), ``bw`` [n] and ``rep``, either
-    ("tucker", [U_i [n_i, r_i]], core) or ("exact", table). ``windows``:
+    ``kind``: the grid kind ("native", or "split" for the two halves of
+    w0wacdm). ``halves``: per half a dict with ``axes`` (list of [n_i]
+    node arrays), ``bw`` [n] and ``rep``: ("tucker", [U_i [n_i, r_i]],
+    core), ("exact", table) or ("tt", perm, [G_i], tail). ``windows``:
     {tag: per half ``(slots, B_t [R_t, K], scale)``} with one ``(sl_a,
     sl_d, a_ref)`` slot per curve, matched to the bundle's registrations
     by tag (e.g. "bao-wzcdm"). Every term of the bundle then evaluates on
@@ -73,10 +74,12 @@ def bundle_from_numpy(bundle, kind, halves, windows):
     new_halves = []
     for h in halves:
         rep = h["rep"]
-        rep = (
-            ("tucker", [f64(u) for u in rep[1]], f64(rep[2])) if rep[0] == "tucker"
-            else ("exact", f64(rep[1]))
-        )
+        if rep[0] == "tucker":
+            rep = ("tucker", [f64(u) for u in rep[1]], f64(rep[2]))
+        elif rep[0] == "tt":
+            rep = ("tt", tuple(int(a) for a in rep[1]), [f64(g) for g in rep[2]], f64(rep[3]))
+        else:
+            rep = ("exact", f64(rep[1]))
         new_halves.append(dict(rep=rep, axes=[f64(ax) for ax in h["axes"]], bw=f64(h["bw"])))
     by_tag = {key[0]: key for key in bundle.regs}
     if sorted(by_tag) != sorted(windows):

@@ -12,16 +12,16 @@ selection would then chase noise (the reference's ``f64_build``
 rationale).
 
 The runtime half is torch, batched over walkers: ``bary_vector`` and
-``coeff_contract``, for the ``exact`` and ``tucker`` representations.
-The tensor-train representation, which only grids with three or more
-axes take (w0wacdm), is not ported yet (ROADMAP.md queue 1, item 9).
-``delta_subspace`` is not ported: only the reference's retired fs8
-emulator used it (ROADMAP.md, "Do not port").
+``coeff_contract``, for the ``exact``, ``tucker`` and ``tt``
+representations (the tensor train, which grids with three or more axes
+take: w0wacdm). ``delta_subspace`` is not ported: only the reference's
+retired fs8 emulator used it (ROADMAP.md, "Do not port").
 """
 
 import hashlib
 import os
 import tempfile
+from itertools import permutations
 from pathlib import Path
 
 import numpy as np
@@ -46,10 +46,9 @@ MODEL_PARAMS = {
     "w0wacdm": ("Om", "w0", "wa"),
 }
 
-TT_NOT_PORTED = (
-    "the tensor-train representation of grids with three or more axes "
-    "(w0wacdm) is not ported yet (ROADMAP.md queue 1, item 9)"
-)
+# Bytes of the largest temporary of a batched tensor-train sweep; its
+# walkers run in chunks under it (as the per-term path's terms do).
+TT_TEMP_BYTES = 256 << 20
 
 
 def cheb_nodes(n, lo, hi):
@@ -259,8 +258,126 @@ def tucker(table, node_shape, tol, proj, ref):
 
 
 def tt(table, node_shape, tol, proj, ref):
-    """Tensor-train compression of grids with three or more axes."""
-    raise NotImplementedError(TT_NOT_PORTED)
+    """TT-SVD (tensor train) of ``table`` [*node_shape, R] along the
+    parameter axes, for grids with three or more of them (reference
+    ``emu_core.tt``). Evaluation sweeps v <- v (w_i . G_i) through
+    [r_{i-1}, n_i, r_i] cores, so its cost is linear in the number of
+    axes where Tucker's is their product.
+
+    The axis order is chosen first, from singular-value-only estimates of
+    every single-axis and axis-pair unfolding; then the best order is
+    built under the composed verification of :func:`tucker`: (1) a
+    global relative truncation eps halved from 1e-7 until the build
+    verifies, (2) a per-bond binary search for the smallest rank that
+    still verifies. Returns ``(perm, cores, tail)`` (f64 numpy), or None
+    when ``tol`` is unreachable or compression would not pay.
+
+    The SVD of each sequential unfolding depends only on the ranks of the
+    bonds before it, so it is computed once per such prefix: the search
+    rebuilds from the memo, with the reference's numbers."""
+    k = len(node_shape)
+    tab0 = np.asarray(table, np.float64)
+    nz = tab0.shape[-1]
+    proj64 = np.asarray(proj, np.float64)
+    ref64 = np.asarray(ref, np.float64)
+
+    def est_rank(axes_front):
+        mat = np.transpose(
+            tab0,
+            tuple(axes_front) + tuple(a for a in range(k) if a not in axes_front) + (k,),
+        ).reshape(int(np.prod([node_shape[a] for a in axes_front])), -1)
+        s = np.linalg.svd(mat, compute_uv=False)
+        return max(int(np.sum(s > 1e-7 * s[0])), 1)
+
+    singles = {(a,): est_rank((a,)) for a in range(k)}
+    pairs = {}
+    best_perm, best_cost = None, np.inf
+    for perm in permutations(range(k)):
+        bonds = []
+        for cut in range(1, k):
+            front = tuple(sorted(perm[:cut]))
+            if len(front) == 1:
+                bonds.append(singles[front])
+            else:
+                if front not in pairs:
+                    pairs[front] = est_rank(front)
+                bonds.append(pairs[front])
+        n = [node_shape[a] for a in perm]
+        r_last = min(bonds[-1] * n[-1], nz)  # final bond into the tail
+        cost = 2 * n[0] * bonds[0] + 2 * r_last * nz
+        for i in range(1, k):
+            r_in = bonds[i - 1]
+            r_out = bonds[i] if i < k - 1 else r_last
+            cost += 2 * n[i] * r_in * r_out
+        if cost < best_cost:
+            best_perm, best_cost = perm, cost
+
+    perm = best_perm
+    tab64 = np.ascontiguousarray(np.transpose(tab0, perm + (k,)))
+    shape_p = [node_shape[a] for a in perm]
+    svd_memo = {}
+
+    def build(eps, caps):
+        cores = []
+        carry = tab64.reshape(shape_p[0], -1)
+        r_prev = 1
+        prefix = ()
+        for i in range(k):
+            if prefix not in svd_memo:
+                mat = carry if i == 0 else carry.reshape(r_prev * shape_p[i], -1)
+                svd_memo[prefix] = np.linalg.svd(mat, full_matrices=False)
+            u, s, vt = svd_memo[prefix]
+            r = max(int(np.sum(s > eps * s[0])), 1)
+            if caps is not None:
+                r = min(r, caps[i])
+            if i == 0:
+                cores.append(u[:, :r])  # [n1, r1]
+            else:
+                cores.append(u[:, :r].reshape(r_prev, shape_p[i], r))
+            carry = s[:r, None] * vt[:r]
+            r_prev = r
+            prefix += (r,)
+        return cores, carry.reshape(r_prev, nz)
+
+    inv_perm = tuple(np.argsort(perm))
+
+    def passes(cores, tail):
+        rec = cores[0]
+        for g in cores[1:]:
+            rec = np.tensordot(rec, g, axes=(rec.ndim - 1, 0))
+        rec = np.tensordot(rec, tail, axes=(rec.ndim - 1, 0))
+        rec = np.transpose(rec, inv_perm + (k,))
+        return composed_err(rec, proj64, ref64) <= tol
+
+    eps = 1e-7
+    for _ in range(12):
+        cores, tail = build(eps, None)
+        if passes(cores, tail):
+            break
+        eps *= 0.5
+    else:
+        return None
+
+    ranks = [c.shape[-1] for c in cores]
+    for i in range(k):
+        lo, hi = 1, ranks[i]
+        while lo < hi:
+            mid = (lo + hi) // 2
+            trial = list(ranks)
+            trial[i] = mid
+            if passes(*build(eps, trial)):
+                hi = mid
+            else:
+                lo = mid + 1
+        ranks[i] = lo
+    cores, tail = build(eps, ranks)
+    if not passes(cores, tail):  # defensive: keep the verified build
+        cores, tail = build(eps, None)
+
+    n_stored = sum(c.size for c in cores) + tail.size
+    if n_stored * 2 > tab64.size:
+        return None
+    return tuple(int(a) for a in perm), cores, tail
 
 
 def seq_contract_flops(shape):
@@ -275,20 +392,30 @@ def eval_flops(rep):
     if rep[0] == "tucker":
         _, factors, core = rep
         return sum(2 * u.shape[0] * u.shape[1] for u in factors) + seq_contract_flops(core.shape)
-    raise NotImplementedError(TT_NOT_PORTED)
+    _, _, cores, tail = rep  # tt
+    total = 2 * cores[0].shape[0] * cores[0].shape[1]
+    for g in cores[1:]:
+        r_prev, n, r = g.shape
+        total += 2 * n * r_prev * r + 2 * r_prev * r
+    return total + 2 * tail.shape[0] * tail.shape[1]
 
 
 def compress(table, node_shape, tol, proj, ref):
-    """The verified representation of the coefficient table: Tucker, or
-    the exact table when Tucker would not pay. Returns a tagged rep
-    (f64 numpy) consumed by :func:`coeff_contract`. Grids with three or
-    more axes would also try a tensor train (``tt``), which is not ported."""
+    """The cheapest verified representation of the coefficient table by
+    exact eval flop count: a tensor train (three or more parameter axes
+    only), Tucker, or the exact table when Tucker would not pay. Returns
+    a tagged rep (f64 numpy) consumed by :func:`coeff_contract`."""
+    candidates = []
     if len(node_shape) >= 3:
-        tt(table, node_shape, tol, proj, ref)
+        rep_tt = tt(table, node_shape, tol, proj, ref)
+        if rep_tt is not None:
+            candidates.append(("tt",) + rep_tt)
     factors, core = tucker(table, node_shape, tol, proj, ref)
     if factors is None:
-        return ("exact", core)
-    return ("tucker", factors, core)
+        candidates.append(("exact", core))
+    else:
+        candidates.append(("tucker", factors, core))
+    return min(candidates, key=eval_flops)
 
 
 def coeff_contract(weights, rep):
@@ -314,4 +441,16 @@ def coeff_contract(weights, rep):
                 else torch.einsum("wr,wr...->w...", wp, out)
             )
         return out
-    raise NotImplementedError(TT_NOT_PORTED)
+    _, perm, cores, tail = rep  # tt, axes in build order
+    wp = [weights[a] for a in perm]
+    # the largest [W, r_prev, r] temporary bounds the walkers of a chunk
+    per_walker = max([g.shape[0] * g.shape[2] for g in cores[1:]] + [tail.shape[1]])
+    chunk = max(1, TT_TEMP_BYTES // (tail.element_size() * per_walker))
+    parts = []
+    for s in range(0, wp[0].shape[0], chunk):
+        v = wp[0][s:s + chunk] @ cores[0]  # [W, r1]
+        for w, g in zip(wp[1:], cores[1:]):
+            m = torch.einsum("wn,pnr->wpr", w[s:s + chunk], g)  # [W, r_prev, r]
+            v = torch.einsum("wp,wpr->wr", v, m)
+        parts.append(v @ tail)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -6,12 +6,14 @@ The SN and BAO residuals share one shape,
     r(p) = u0 - beta(p) * y(theta) - W @ gamma(p),
 
 where ``theta`` is the dark-energy family's geometric parameters (Om,
-w0) plus the small radiation density Or, and ``beta``/``gamma`` are
-cheap analytic functions of the other parameters (BAO: beta = c/(H0
+w0[, wa]) plus the small radiation density Or, and ``beta``/``gamma``
+are cheap analytic functions of the other parameters (BAO: beta = c/(H0
 r_d); SN: gamma = (magnitude shift, -5 log10(h/h_ref))).
 
 Build (f64, disk-cached): each term's c-space curve is tabulated on a
-Chebyshev grid over the family's domain, with and without Or = OR_REF;
+Chebyshev grid over the family's domain, with and without Or = OR_REF
+(w0wacdm: two halves on the rotated axes (Om, wa, s = w0 + wa), split at
+s = 0, where the curves lose smoothness);
 a per-term truncated SVD over the stacked [base; Or-delta] rows gives
 its coefficient table; and chi^2 is expanded exactly around a fixed
 reference point so that the f32 runtime does not cancel:
@@ -23,9 +25,9 @@ reference point so that the f32 runtime does not cancel:
 **Bundling.** All terms of one fast-mode scope that share (model, grid,
 device, dtype) register their curves into one bundle. Their coefficient
 tables are stacked along one axis and co-compressed into a single
-Tucker program, so the joint's geometry costs one barycentric
-contraction per walker, and each term slices its coefficients out of
-the shared [R_all] vector. The per-term torch path evaluates that
+Tucker or tensor-train program per half, so the joint's geometry costs
+one barycentric contraction per walker, and each term slices its
+coefficients out of the shared [R_all] vector. The per-term torch path evaluates that
 contraction once per term; the fused kernel
 (``ops/kernels/fused_log_prob.py``) evaluates it once per walker.
 
@@ -71,10 +73,6 @@ TOL_SCALE = 1e-6
 # by model, grid, domains and registrations.
 _FINALIZE_MEMO = {}
 
-_W0WA_NOT_PORTED = (
-    "the split w0wacdm emulator grid is not ported yet (ROADMAP.md queue 1, item 9)"
-)
-
 
 def _hash_arrays(*arrays):
     h = hashlib.sha256()
@@ -102,16 +100,40 @@ def _cached_curve(model, curve_fn, flat, to_params, map_tag, tag, key_extra):
 
 def _grid_spec(model, n_nodes, domains):
     """The family's grid: ``(kind, [(axes, to_params, map_tag,
-    theta_ref_vec)])``. ``to_params`` maps grid thetas [M, P] (an f64
-    tensor) to a dict of [M] tensors. Only the native grids are ported."""
-    if model == "w0wacdm":
-        raise NotImplementedError(_W0WA_NOT_PORTED)
+    theta_ref_vec)])``, one entry per half. ``to_params`` maps grid
+    thetas [M, P] (an f64 tensor) to a dict of [M] tensors.
+
+    w0wacdm is ``"split"``: two halves on (Om, wa, s = w0 + wa), one for
+    s <= 0 and one for s > 0, each a 40-node Chebyshev grid, s = 0 a
+    Lobatto endpoint of both. Every other family is ``"native"``: one
+    grid on its own parameters."""
 
     def dom(nm):
         return domains.get(nm, DOMAINS[nm])
 
     def clamp_ref(x, lo, hi):
         return min(max(x, lo + 0.25 * (hi - lo)), hi - 0.25 * (hi - lo))
+
+    if model == "w0wacdm":
+        n = 40 if n_nodes is None else n_nodes
+        om_ax = cheb_nodes(n, *dom("Om"))
+        wa_ax = cheb_nodes(n, *dom("wa"))
+        s_bounds = (dom("w0")[0] + dom("wa")[0], dom("w0")[1] + dom("wa")[1])
+        om_ref = clamp_ref(0.3, *dom("Om"))
+        wa_ref = clamp_ref(0.0, *dom("wa"))
+        # each half needs a non-degenerate interval even when the box
+        # lies on one side of s = 0 (the unselected half still builds)
+        s_lo = (min(s_bounds[0], -1e-2), 0.0)
+        s_hi = (0.0, max(s_bounds[1], 1e-2))
+        halves = []
+        for s_dom in (s_lo, s_hi):
+            halves.append((
+                [om_ax, wa_ax, cheb_nodes(n, *s_dom)],
+                lambda th: {"Om": th[:, 0], "wa": th[:, 1], "w0": th[:, 2] - th[:, 1]},
+                "w0wa-rot",
+                (om_ref, wa_ref, 0.5 * (s_dom[0] + s_dom[1])),
+            ))
+        return "split", halves
 
     pnames = MODEL_PARAMS[model]
     if n_nodes is None:
@@ -274,10 +296,12 @@ class _Bundle:
                 return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(self.dtype)
 
             rep = half["rep"]
-            rep_t = (
-                ("exact", t(rep[1])) if rep[0] == "exact"
-                else ("tucker", [t(u) for u in rep[1]], t(rep[2]))
-            )
+            if rep[0] == "exact":
+                rep_t = ("exact", t(rep[1]))
+            elif rep[0] == "tucker":
+                rep_t = ("tucker", [t(u) for u in rep[1]], t(rep[2]))
+            else:
+                rep_t = ("tt", rep[1], [t(g) for g in rep[2]], t(rep[3]))
             self._tensors[half_index] = dict(
                 axes=[t(ax) for ax in half["axes"]], bw=t(half["bw"]), rep=rep_t,
             )
@@ -286,7 +310,10 @@ class _Bundle:
     def coeff(self, p, half_index):
         """The shared [W, R_all] coefficient vectors at walker params ``p``."""
         rt = self.runtime(half_index)
-        coords = [p[nm] for nm in MODEL_PARAMS[self.model]]
+        if self.model == "w0wacdm":
+            coords = (p["Om"], p["wa"], p["w0"] + p["wa"])
+        else:
+            coords = [p[nm] for nm in MODEL_PARAMS[self.model]]
         weights = [bary_vector(x, ax, rt["bw"]) for x, ax in zip(coords, rt["axes"])]
         return coeff_contract(weights, rt["rep"])
 
@@ -484,11 +511,15 @@ def make_linear_chi2(
 
 
 def _dispatch_halves(bundle, p, half_fn):
-    """``half_fn(p, i)`` under the family's half-selection rule. Only
-    the native one-half grids are ported, so this is half 0."""
+    """``half_fn(p, i)`` under the family's half-selection rule: the
+    split w0wacdm grid evaluates both halves and selects per walker,
+    half 0 where s = w0 + wa <= 0 (branch-free, so the seam stays
+    differentiable, as the reference does); a native grid is half 0."""
     kind, _ = bundle.finalized()
-    if kind != "native":
-        raise NotImplementedError(_W0WA_NOT_PORTED)
+    if kind == "split":
+        lo, hi = half_fn(p, 0), half_fn(p, 1)
+        s = torch.as_tensor(p["w0"] + p["wa"])
+        return torch.where((s <= 0.0).reshape(s.shape + (1,) * (lo.dim() - s.dim())), lo, hi)
     return half_fn(p, 0)
 
 

@@ -11,8 +11,11 @@ answers that). This module holds
   header of offsets and sizes (``HEADER``), the bundle's barycentric
   axes, Tucker factors and core, one row of constants per emulated term
   (``FORM``) with its per-rank rows, the CMB compression and its
-  Gauss-Legendre rules, the bounds and the derived parameters. It raises
-  for what the kernel does not take;
+  Gauss-Legendre rules, the bounds and the derived parameters. A split
+  w0wacdm bundle packs per half a block of its tensor-train layout
+  (``HALF``), its own s axis and its own FORM table and rows, while its
+  TT cores and tails go into a second buffer kept in device memory
+  (``Packed.dev``). It raises for what the kernel does not take;
 * the **plain version** ``fused_log_prob_reference(packed, theta)``: the
   same function in plain torch ops over the same buffer;
 * the **wrapper** ``fused_log_prob(packed, theta)``: CPU tensors take the
@@ -37,6 +40,13 @@ columns to whole quads (four columns, one float4), so that the kernel
 contracts and reduces one window at a time; the core is stored [r1,
 r2, 4 nq].
 
+The split w0wacdm grid: each walker takes half 0 if s = w0 + wa <= 0,
+else half 1, and computes that half only. Its coefficient vector comes
+from the tensor-train sweep v <- w_0^T G_0, v'[r] = sum_p sum_n v[p] w[n]
+G[p, n, r] over the later cores, a = v^T tail; each core is stored
+[n][r_prev][r padded to quads], the tail [r_last, 4 nq] with its columns
+ordered form by form as the Tucker core's.
+
 The buffer is in the fit's dtype: float32 on the card (the f64 build
 constants cast once, as the per-term path casts them), float64 for the
 CPU parity tests.
@@ -50,7 +60,7 @@ import numpy as np
 import torch
 
 from cosmax_torch.constants import C_KM_S
-from cosmax_torch.models.emu_core import OR_REF, bary_vector
+from cosmax_torch.models.emu_core import OR_REF, bary_vector, coeff_contract
 from cosmax_torch.ops.quadrature import gl_nodes_01
 
 # Kernel launches made by ``fused_log_prob`` since the last reset; a run
@@ -63,11 +73,13 @@ LAUNCHES = 0
 MAX_DIM = 16  # sampled parameters
 MAX_NODES = 64  # Chebyshev nodes per emulator axis
 MAX_RANK = 16  # Tucker rank per axis
+MAX_BOND = 128  # tensor-train bond rank
 MAX_RALL = 256  # coefficient columns, each form's window padded to quads
 MAX_FORMS = 8  # emulated terms
 MAX_K = 32  # values of a lift form (quasar bins)
 MAX_GL = 64  # nodes of each CMB quadrature
 MAX_FLOATS = 40960  # constant-buffer floats (160 KB of shared memory)
+MAX_DEV_FLOATS = 1 << 24  # device-buffer floats (offsets are exact in f32)
 
 # Header slots of the buffer (floats holding small integers or values).
 HEADER = dict(
@@ -75,7 +87,8 @@ HEADER = dict(
     H_H0_SCALE=7, H_ORH2=8, H_NAXES=9, H_N1=10, H_N2=11, H_R1=12, H_R2=13,
     H_NQ=14, H_RALL=15, H_NFORMS=16, H_HAS_CMB=17, H_OFF_BOUNDS=18,
     H_OFF_AX1=19, H_OFF_AX2=20, H_OFF_BW1=21, H_OFF_BW2=22, H_OFF_U1=23,
-    H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27,
+    H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27, H_I_WA=28, H_SPLIT=29,
+    H_OFF_HALVES=30, H_BOND=31,
 )
 HEADER_SIZE = 32
 MAGIC = 20260.0
@@ -91,18 +104,28 @@ FORM = dict(
 )
 FORM_STRIDE = 32
 KINDS = ("linear", "lift", "amp_pair")  # F_KIND; F_BETA: 0 one, 1 c / (H0 r_d), 2 H0
+# one half of the split grid: per core i its grid axis (0 Om, 1 wa, 2 s),
+# node offset and count; the bond ranks r1..r3 (r3 the tail's rows); the
+# device-buffer offsets of the cores and the tail; the tail's quads and
+# used columns; the half's FORM table; and a 1.0
+HALF = dict(
+    T_PERM0=0, T_PERM1=1, T_PERM2=2, T_AX0=3, T_AX1=4, T_AX2=5, T_N0=6, T_N1=7, T_N2=8,
+    T_R1=9, T_R2=10, T_R3=11, T_G0=12, T_G1=13, T_G2=14, T_TAIL=15, T_NQ=16, T_RALL=17,
+    T_OFF_FORMS=18, T_ONE=19,
+)
+HALF_STRIDE = 24
 CMB = dict(
     C_PRIOR=0, C_L=3, C_OG4=12, C_OBS=13, C_ZSTAR=14, C_I_OBH2=15, C_NRS=16,
     C_NDC=17, C_NODES=20,
 )
-MODELS = ("lcdm", "wcdm", "wzcdm")
+MODELS = ("lcdm", "wcdm", "wzcdm", "w0wacdm")
 OBSERVABLES = ("R_lA_wb", "theta_wb_wm", "R_100theta_wb")
 Z_STAR = ("aizpuru", "hu")
 # the integer fields of a form, kept in ``Packed.forms`` for the plain version
 _FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_RD_IDX", "F_J", "F_MAG_IDX",
               "F_F_IDX", "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
 
-_ITEM_W0WA = "ROADMAP.md queue 1, item 9; queue 2, #1b"
+_ITEM_W0WA = "ROADMAP.md queue 1, item 9b"
 _ITEM_PRESETS = "ROADMAP.md queue 1, item 10"
 _ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
 
@@ -119,6 +142,10 @@ class Packed:
     hdr: dict
     forms: tuple  # per form: the _FORM_INTS fields and n_cols, its columns before padding
     cmb: dict  # C_OBS, C_ZSTAR, C_I_OBH2, C_NRS, C_NDC; empty without a CMB term
+    # the split grid: per half its HALF fields and its own ``forms``;
+    # ``forms`` above is then half 0's. Empty on a native grid.
+    halves: tuple = ()
+    dev: torch.Tensor = None  # the split grid's TT cores and tails, f32 or f64
 
     @property
     def dim(self) -> int:
@@ -144,11 +171,11 @@ def _emulated(t):
     return None
 
 
-def _linear_form(t, lc, names, has_h0):
-    """FORM fields and per-pair rows of a linear-chi^2 term."""
+def _linear_form(t, lc, names, has_h0, h):
+    """FORM fields and per-pair rows of a linear-chi^2 term in half ``h``."""
     from cosmax_torch.likelihoods.bao import RdFixed, RdParam
 
-    form = lc.form(0)
+    form = lc.form(h)
     f = dict(F_SCALE=form["scale"], F_CREF=form["c_ref"], F_BETA=0, F_RD_IDX=-1, F_J=lc.n_w,
              F_MAG_IDX=-1, F_H0REF=1.0)
     if "rd" in t.meta:  # BAO: beta = c / (H0 r_d)
@@ -187,10 +214,10 @@ def _linear_form(t, lc, names, has_h0):
     return f, cols, rows
 
 
-def _lift_form(t, cv, names):
+def _lift_form(t, cv, names, h):
     """FORM fields and rows (d_ref [K], sigma^2 [K], scale B_t [R_t, K])
-    of the quasar curve-values term."""
-    form = cv.form(0)
+    of the quasar curve-values term in half ``h``."""
+    form = cv.form(h)
     b = form["b_scaled"]
     n, k = b.shape
     if k > MAX_K:
@@ -201,25 +228,73 @@ def _lift_form(t, cv, names):
     return f, cols, (t.meta["d_ref"], t.meta["sigma_sq"], b)
 
 
-def _amp_pair_form(ap, names):
-    """FORM fields of the fs8 amplitude-pair term and its column quads."""
-    form = ap.form(0)
+def _amp_pair_form(ap, names, h):
+    """FORM fields of the fs8 amplitude-pair term and its column quads in
+    half ``h``."""
+    form = ap.form(h)
     n = form["sl_au"].stop - form["sl_au"].start
     cols = [form[k].start + i for i in range(n) for k in ("sl_au", "sl_du", "sl_av", "sl_dv")]
     return dict(F_SCALE=form["scale"], F_I_AMP=_index(names, ap.amp_param, "the amplitude")), cols
 
 
+def _half_forms(emulated, names, has_h0, h):
+    """The forms of half ``h``: per form (FORM fields, n_cols), its rows,
+    and the coefficient columns in window order, each form's window
+    padded with zero columns (-1) to whole quads."""
+    forms, form_rows, cols = [], [], []
+    for t, kind, obj in emulated:
+        f = dict.fromkeys(FORM, 0.0)
+        f.update(F_KIND=KINDS.index(kind), F_RD_IDX=-1, F_MAG_IDX=-1, F_F_IDX=-1,
+                 F_I_AMP=-1, F_I_OFF=-1, F_I_S=-1, F_H0REF=1.0, F_POW=1.0)
+        if kind == "linear":
+            fields, fcols, rows = _linear_form(t, obj, names, has_h0, h)
+            rows = np.concatenate([rows, np.zeros((len(rows) % 2, PAIR_STRIDE))])
+        elif kind == "lift":
+            fields, fcols, (d_ref, sig2, b) = _lift_form(t, obj, names, h)
+            b = np.concatenate([b, np.zeros((len(b) % 2, b.shape[1]))])
+            rows = np.concatenate([d_ref, sig2, b.reshape(-1)])
+        else:
+            fields, fcols = _amp_pair_form(obj, names, h)
+            rows = np.zeros(0)
+        f.update(fields)
+        if "rescale" in t.meta:
+            rs = t.meta["rescale"]
+            f.update(F_F_IDX=_index(names, rs["param"], "the rescaling"), F_POW=rs["power"],
+                     F_LN_CONST=rs["ln_const"], F_LN_COEF=rs["ln_coef"])
+        n_cols = len(fcols)
+        fcols = fcols + [-1] * (-n_cols % 4)
+        f.update(F_Q0=len(cols) // 4, F_NQ=len(fcols) // 4)
+        cols += fcols
+        forms.append((f, n_cols))
+        form_rows.append(np.asarray(rows, np.float64).reshape(-1))
+    if len(cols) > MAX_RALL:
+        _refuse(f"{len(cols)} coefficient columns (at most {MAX_RALL})", _ITEM_KERNEL)
+    return forms, form_rows, cols
+
+
+def _by_cols(table, cols):
+    """``table`` [..., R_all] with its last axis reordered to ``cols``, a
+    -1 column being zeros."""
+    return np.concatenate([table, np.zeros(table.shape[:-1] + (1,))], axis=-1)[..., cols]
+
+
+def _quads(r):
+    return -(-r // 4) * 4
+
+
 def pack(fit) -> Packed:
-    """The constant buffer of a fast ``FitSpec`` (``get_preset(...,
+    """The constant buffers of a fast ``FitSpec`` (``get_preset(...,
     fast=True)``). Raises ``NotImplementedError``, naming the ROADMAP
     item, for a term, model, parameter treatment or size that the kernel
     does not take."""
-    from cosmax_torch.configs.presets import Derive
+    from cosmax_torch.configs.presets import W0WA_FAST, Derive
 
     if not fit.fast:
         raise ValueError(f"{fit.name} was built without fast=True: nothing to fuse")
     if fit.model not in MODELS:
-        _refuse(f"model {fit.model!r}", _ITEM_W0WA)
+        _refuse(f"model {fit.model!r}", _ITEM_PRESETS)
+    if fit.model == "w0wacdm" and fit.name not in W0WA_FAST:
+        _refuse(f"preset {fit.name!r} in w0wacdm", _ITEM_W0WA)
     names = list(fit.spec.names)
     if len(names) > MAX_DIM:
         _refuse(f"{len(names)} parameters (at most {MAX_DIM})", _ITEM_KERNEL)
@@ -230,10 +305,12 @@ def pack(fit) -> Packed:
     has_h0 = derive.h0_from in names
     if not has_h0 and (derive.h0_from != "H0" or derive.orh2 is not None):
         _index(names, derive.h0_from, "the Hubble parameter")
-    hdr = dict(
+    hdr = dict.fromkeys(HEADER, 0)
+    hdr.update(
         H_MAGIC=MAGIC, H_DIM=len(names), H_MODEL=MODELS.index(fit.model),
         H_I_OM=_index(names, "Om", "the density"),
         H_I_W0=_index(names, "w0", "the equation of state") if fit.model != "lcdm" else -1,
+        H_I_WA=_index(names, "wa", "the equation of state") if fit.model == "w0wacdm" else -1,
         H_I_H0=names.index(derive.h0_from) if has_h0 else -1,
         H_H0_SCALE=1.0 if derive.h0_from == "H0" else derive.h0_scale,
         H_ORH2=0.0 if derive.orh2 is None else derive.orh2,
@@ -260,61 +337,138 @@ def pack(fit) -> Packed:
     if any(obj.bundle is not bundle for _, _, obj in emulated):
         _refuse("terms from more than one emulator bundle", _ITEM_KERNEL)
     kind, halves = bundle.finalized()
-    if kind != "native" or len(halves) != 1:
-        _refuse(f"the {kind} emulator grid", _ITEM_W0WA)
-    half = halves[0]
+    split = kind == "split"
+    if split != (fit.model == "w0wacdm") or len(halves) != (2 if split else 1):
+        _refuse(f"the {kind} emulator grid of {len(halves)} halves", _ITEM_KERNEL)
 
-    # the representation as Tucker factors and a [r1, r2, R_all] core;
-    # an exact table is Tucker with identity factors, one axis has r2 = 1
-    rep = half["rep"]
-    n_axes = len(half["axes"])
-    if rep[0] == "exact":
-        factors, core = [np.eye(len(ax)) for ax in half["axes"]], rep[1]
-    elif rep[0] == "tucker":
-        factors, core = list(rep[1]), rep[2]
-    else:
-        _refuse(f"the {rep[0]} representation", _ITEM_W0WA)
-    if n_axes == 1:
-        core = core[:, None, :]
-    for u in factors:
-        if u.shape[0] > MAX_NODES or u.shape[1] > MAX_RANK:
-            _refuse(f"an emulator axis of {u.shape[0]} nodes at rank {u.shape[1]} "
-                    f"(at most {MAX_NODES} and {MAX_RANK})", _ITEM_KERNEL)
+    # per half: its forms and the columns of its coefficient vector,
+    # reordered form by form, each window padded to whole quads
+    per_half = [_half_forms(emulated, names, has_h0, h) for h in range(len(halves))]
 
-    # forms, and the core's columns reordered form by form, each window
-    # padded with zero columns (-1) to whole quads
-    forms, form_rows, cols = [], [], []
-    for t, kind, obj in emulated:
-        f = dict.fromkeys(FORM, 0.0)
-        f.update(F_KIND=KINDS.index(kind), F_RD_IDX=-1, F_MAG_IDX=-1, F_F_IDX=-1,
-                 F_I_AMP=-1, F_I_OFF=-1, F_I_S=-1, F_H0REF=1.0, F_POW=1.0)
-        if kind == "linear":
-            fields, fcols, rows = _linear_form(t, obj, names, has_h0)
-            rows = np.concatenate([rows, np.zeros((len(rows) % 2, PAIR_STRIDE))])
-        elif kind == "lift":
-            fields, fcols, (d_ref, sig2, b) = _lift_form(t, obj, names)
-            b = np.concatenate([b, np.zeros((len(b) % 2, b.shape[1]))])
-            rows = np.concatenate([d_ref, sig2, b.reshape(-1)])
+    # assemble: offsets are in floats; float4 tables start on 16 bytes
+    chunks = [np.zeros(HEADER_SIZE)]
+    size = HEADER_SIZE
+
+    def put(arr, align=1):
+        nonlocal size
+        pad = -size % align
+        if pad:
+            chunks.append(np.zeros(pad))
+            size += pad
+        off = size
+        arr = np.asarray(arr, np.float64).reshape(-1)
+        chunks.append(arr)
+        size += arr.size
+        return off
+
+    def put_forms(forms, form_rows):
+        for (f, _), rows in zip(forms, form_rows):
+            f["F_ROWS"] = put(rows, align=4) if rows.size else 0
+        block = np.zeros((len(forms), FORM_STRIDE))
+        for i, (f, _) in enumerate(forms):
+            for k, v in f.items():
+                block[i, FORM[k]] = v
+        return put(block)
+
+    hdr["H_OFF_BOUNDS"] = put(np.concatenate([fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]]))
+    half_layouts, dev = (), None
+    if not split:
+        # the representation as Tucker factors and a [r1, r2, R_all] core;
+        # an exact table is Tucker with identity factors, one axis has r2 = 1
+        half = halves[0]
+        rep = half["rep"]
+        n_axes = len(half["axes"])
+        if rep[0] == "exact":
+            factors, core = [np.eye(len(ax)) for ax in half["axes"]], rep[1]
+        elif rep[0] == "tucker":
+            factors, core = list(rep[1]), rep[2]
         else:
-            fields, fcols = _amp_pair_form(obj, names)
-            rows = np.zeros(0)
-        f.update(fields)
-        if "rescale" in t.meta:
-            rs = t.meta["rescale"]
-            f.update(F_F_IDX=_index(names, rs["param"], "the rescaling"), F_POW=rs["power"],
-                     F_LN_CONST=rs["ln_const"], F_LN_COEF=rs["ln_coef"])
-        n_cols = len(fcols)
-        fcols = fcols + [-1] * (-n_cols % 4)
-        f.update(F_Q0=len(cols) // 4, F_NQ=len(fcols) // 4)
-        cols += fcols
-        forms.append((f, n_cols))
-        form_rows.append(np.asarray(rows, np.float64).reshape(-1))
-    nq = len(cols) // 4
-    if len(cols) > MAX_RALL:
-        _refuse(f"{len(cols)} coefficient columns (at most {MAX_RALL})", _ITEM_KERNEL)
-    r_all = sum(c >= 0 for c in cols)
-    # [r1, r2, 4 nq]: each (j, k) row of the core holds its quads together
-    core = np.concatenate([core, np.zeros(core.shape[:2] + (1,))], axis=-1)[..., cols]
+            _refuse(f"the {rep[0]} representation of a native grid", _ITEM_KERNEL)
+        if n_axes == 1:
+            core = core[:, None, :]
+        for u in factors:
+            if u.shape[0] > MAX_NODES or u.shape[1] > MAX_RANK:
+                _refuse(f"an emulator axis of {u.shape[0]} nodes at rank {u.shape[1]} "
+                        f"(at most {MAX_NODES} and {MAX_RANK})", _ITEM_KERNEL)
+        forms, form_rows, cols = per_half[0]
+        for i in range(2):
+            hdr[f"H_OFF_AX{i + 1}"] = put(half["axes"][i] if i < n_axes else np.zeros(0))
+            hdr[f"H_OFF_BW{i + 1}"] = put(half["bw"] if i < n_axes else np.zeros(0))
+            hdr[f"H_OFF_U{i + 1}"] = put(factors[i] if i < n_axes else np.zeros(0))
+        # [r1, r2, 4 nq]: each (j, k) row of the core holds its quads together
+        hdr["H_OFF_CORE"] = put(_by_cols(core, cols), align=4)
+        hdr["H_OFF_FORMS"] = put_forms(forms, form_rows)
+        hdr.update(
+            H_NAXES=n_axes, H_N1=factors[0].shape[0],
+            H_N2=factors[1].shape[0] if n_axes > 1 else 0, H_R1=factors[0].shape[1],
+            H_R2=factors[1].shape[1] if n_axes > 1 else 1, H_NQ=len(cols) // 4,
+            H_RALL=sum(c >= 0 for c in cols),
+        )
+    else:
+        # (Om, wa) axes shared by both halves, one s axis per half; every
+        # axis of the split grid has the halves' one node count and bw
+        axes0 = halves[0]["axes"]
+        if any(not (np.array_equal(h["axes"][0], axes0[0])
+                    and np.array_equal(h["axes"][1], axes0[1])
+                    and np.array_equal(h["bw"], halves[0]["bw"])
+                    and all(len(ax) == len(h["bw"]) for ax in h["axes"])) for h in halves):
+            _refuse("split halves on different (Om, wa) grids", _ITEM_KERNEL)
+        n = len(halves[0]["bw"])
+        if n > MAX_NODES:
+            _refuse(f"an emulator axis of {n} nodes (at most {MAX_NODES})", _ITEM_KERNEL)
+        hdr["H_OFF_AX1"] = put(axes0[0])
+        hdr["H_OFF_AX2"] = put(axes0[1])
+        hdr["H_OFF_BW1"] = put(halves[0]["bw"])
+        dev_chunks, dev_size = [], 0
+        half_layouts = []
+        for h, half in enumerate(halves):
+            rep = half["rep"]
+            if rep[0] != "tt" or len(rep[2]) != 3:
+                _refuse(f"a split half as {rep[0]!r} (a three-core tensor train only)",
+                        _ITEM_KERNEL)
+            _, perm, cores, tail = rep
+            forms, form_rows, cols = per_half[h]
+            t = dict.fromkeys(HALF, 0.0)
+            t["T_ONE"] = 1.0
+            ax_s = put(half["axes"][2])
+            r_prev = 1
+            for i, g in enumerate(cores):
+                g3 = g[None] if i == 0 else g  # [r_prev, n, r]
+                r = g3.shape[2]
+                if r > MAX_BOND:
+                    _refuse(f"a tensor-train bond of rank {r} (at most {MAX_BOND})",
+                            _ITEM_KERNEL)
+                # [n][r_prev][r padded to quads]: the kernel's loads, one
+                # node and input rank at a time, are float4 rows
+                stored = np.zeros((g3.shape[1], r_prev, _quads(r)))
+                stored[:, :, :r] = np.transpose(g3, (1, 0, 2))
+                t[f"T_PERM{i}"] = perm[i]
+                t[f"T_AX{i}"] = (hdr["H_OFF_AX1"], hdr["H_OFF_AX2"], ax_s)[perm[i]]
+                t[f"T_N{i}"] = g3.shape[1]
+                t[f"T_R{i + 1}"] = r
+                t[f"T_G{i}"] = dev_size
+                dev_chunks.append(stored.reshape(-1))
+                dev_size += stored.size
+                r_prev = r
+            t["T_TAIL"] = dev_size
+            dev_chunks.append(_by_cols(tail, cols).reshape(-1))  # [r3, 4 nq]
+            dev_size += tail.shape[0] * len(cols)
+            t.update(T_NQ=len(cols) // 4, T_RALL=sum(c >= 0 for c in cols),
+                     T_OFF_FORMS=put_forms(forms, form_rows))
+            half_layouts.append(t)
+        if dev_size > MAX_DEV_FLOATS:
+            _refuse(f"a device buffer of {dev_size} floats (at most {MAX_DEV_FLOATS})",
+                    _ITEM_KERNEL)
+        hdr["H_OFF_HALVES"] = put(np.concatenate([
+            [t[k] for k in sorted(HALF, key=HALF.get)] + [0.0] * (HALF_STRIDE - len(HALF))
+            for t in half_layouts
+        ]))
+        dev = torch.as_tensor(np.concatenate(dev_chunks), device=fit.device).to(fit.dtype)
+        forms = per_half[0][0]
+        hdr.update(
+            H_NAXES=3, H_N1=len(axes0[0]), H_N2=len(axes0[1]), H_SPLIT=1,
+            H_BOND=max(_quads(int(t[f"T_R{i}"])) for t in half_layouts for i in (1, 2, 3)),
+        )
 
     cmb = {}
     if cmb_terms:
@@ -338,68 +492,37 @@ def pack(fit) -> Packed:
         )
         # 4 og as one constant: the per-term path divides by 4.0 * og, a
         # Python float, cast once to the runtime dtype
-        cmb_values = dict(C_OG4=4.0 * comp.o_gamma_h2, **cmb)
-        cmb_arrays = dict(C_PRIOR=comp.priors,
-                          C_L=whitening_operator(np.linalg.inv(comp.inv_cov)))
-
-    # assemble: offsets are in floats; the core starts on 16 bytes
-    chunks = [np.zeros(HEADER_SIZE)]
-    size = HEADER_SIZE
-
-    def put(arr, align=1):
-        nonlocal size
-        pad = -size % align
-        if pad:
-            chunks.append(np.zeros(pad))
-            size += pad
-        off = size
-        arr = np.asarray(arr, np.float64).reshape(-1)
-        chunks.append(arr)
-        size += arr.size
-        return off
-
-    hdr["H_OFF_BOUNDS"] = put(np.concatenate([fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]]))
-    for i in range(2):
-        hdr[f"H_OFF_AX{i + 1}"] = put(half["axes"][i] if i < n_axes else np.zeros(0))
-        hdr[f"H_OFF_BW{i + 1}"] = put(half["bw"] if i < n_axes else np.zeros(0))
-        hdr[f"H_OFF_U{i + 1}"] = put(factors[i] if i < n_axes else np.zeros(0))
-    hdr["H_OFF_CORE"] = put(core, align=4)
-    for (f, _), rows in zip(forms, form_rows):
-        f["F_ROWS"] = put(rows, align=4) if rows.size else 0
-    block = np.zeros((len(forms), FORM_STRIDE))
-    for i, (f, _) in enumerate(forms):
-        for k, v in f.items():
-            block[i, FORM[k]] = v
-    hdr["H_OFF_FORMS"] = put(block)
-    if cmb:
         block = np.zeros(CMB["C_NODES"])
-        for k, v in cmb_values.items():
+        for k, v in dict(C_OG4=4.0 * comp.o_gamma_h2, **cmb).items():
             block[CMB[k]] = v
-        for k, a in cmb_arrays.items():
+        for k, a in dict(C_PRIOR=comp.priors,
+                         C_L=whitening_operator(np.linalg.inv(comp.inv_cov))).items():
             block[CMB[k]:CMB[k] + a.size] = a.reshape(-1)
         hdr["H_OFF_CMB"] = put(np.concatenate([block, *gl_nodes_01(n_rs), *gl_nodes_01(n_dc)]))
     else:
         hdr["H_OFF_CMB"] = 0
-    hdr.update(
-        H_SIZE=size, H_NAXES=n_axes,
-        H_N1=factors[0].shape[0], H_N2=factors[1].shape[0] if n_axes > 1 else 0,
-        H_R1=factors[0].shape[1], H_R2=factors[1].shape[1] if n_axes > 1 else 1,
-        H_NQ=nq, H_RALL=r_all, H_NFORMS=len(forms), H_HAS_CMB=int(bool(cmb)),
-    )
+    hdr.update(H_SIZE=size, H_NFORMS=len(forms), H_HAS_CMB=int(bool(cmb)))
     if size > MAX_FLOATS:
         _refuse(f"a constant buffer of {size} floats (at most {MAX_FLOATS})", _ITEM_KERNEL)
     flat = np.concatenate(chunks)
     for k, v in hdr.items():
         flat[HEADER[k]] = v
     buf = torch.as_tensor(flat, device=fit.device).to(fit.dtype)
-    layout = tuple(dict({k: int(f[k]) for k in _FORM_INTS}, n_cols=n) for f, n in forms)
-    return Packed(buf=buf, hdr=hdr, forms=layout, cmb=cmb)
+
+    def layout(forms):
+        return tuple(dict({k: int(f[k]) for k in _FORM_INTS}, n_cols=n) for f, n in forms)
+
+    halves_out = tuple(
+        dict({k: int(v) for k, v in t.items()}, forms=layout(per_half[h][0]))
+        for h, t in enumerate(half_layouts)
+    )
+    return Packed(buf=buf, hdr=hdr, forms=layout(forms), cmb=cmb, halves=halves_out, dev=dev)
 
 
 # --- the plain version -------------------------------------------------------
 
 
-def _e_of_z(z, om, o_r, w0, model):
+def _e_of_z(z, om, o_r, w0, wa, model):
     """E(z) with radiation (``o_r`` = 0 gives the radiation-free E
     exactly); walker values [W, 1] against nodes [W, n]."""
     opz = 1.0 + z
@@ -408,8 +531,10 @@ def _e_of_z(z, om, o_r, w0, model):
         rho = torch.ones_like(z)
     elif model == "wcdm":
         rho = torch.exp(3.0 * (1.0 + w0) * torch.log(opz))
-    else:
+    elif model == "wzcdm":
         rho = torch.exp(2.0 * (1.0 + w0) * torch.log(2.0 * cubed / (1.0 + cubed)))
+    else:  # w0wacdm (CPL)
+        rho = torch.exp(3.0 * (1.0 + w0 + wa) * torch.log(opz) - 3.0 * wa * z / opz)
     ode = 1.0 - om - o_r
     return torch.sqrt(o_r * cubed * opz + om * cubed + ode * rho)
 
@@ -424,47 +549,64 @@ def _z_star(wb, wm, variant):
     ) + wm ** (-0.731631)
 
 
-def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the kernel over the same buffer: theta
-    [W, D] -> logp [W], -inf outside the strict interior of the bounds
-    or where the sum is not finite."""
+def _seg(buf, off, n, shape=None):
+    out = buf[int(off):int(off) + n]
+    return out.reshape(shape) if shape is not None else out
+
+
+def _tucker_coeff(packed, om, w0):
+    """[W, 4 nq] of the native grid: barycentric weights, factor
+    projections, core contraction."""
     hdr, buf = packed.hdr, packed.buf
-    theta = theta.to(buf.dtype)
-    d = packed.dim
-
-    def seg(off, n, shape=None):
-        out = buf[int(off):int(off) + n]
-        return out.reshape(shape) if shape is not None else out
-
-    def col(i):
-        return theta[:, int(i)]
-
-    model = MODELS[int(hdr["H_MODEL"])]
-    zero = torch.zeros_like(theta[:, 0])
-    h0 = col(hdr["H_I_H0"]) * buf[HEADER["H_H0_SCALE"]] if hdr["H_I_H0"] >= 0 else zero
-    om = col(hdr["H_I_OM"])
-    w0 = col(hdr["H_I_W0"]) if model != "lcdm" else None
-    o_r = buf[HEADER["H_ORH2"]] / (h0 / 100.0) ** 2 if hdr["H_ORH2"] != 0 else zero
-
-    # barycentric weights, factor projections, core contraction
     r1, r2, nq = int(hdr["H_R1"]), int(hdr["H_R2"]), int(hdr["H_NQ"])
     coords = [om] + ([w0] if int(hdr["H_NAXES"]) > 1 else [])
     wps = []
     for i, x in enumerate(coords):
         n, r = int(hdr[f"H_N{i + 1}"]), int(hdr[f"H_R{i + 1}"])
-        w = bary_vector(x, seg(hdr[f"H_OFF_AX{i + 1}"], n), seg(hdr[f"H_OFF_BW{i + 1}"], n))
-        wps.append(w @ seg(hdr[f"H_OFF_U{i + 1}"], n * r, (n, r)))
-    core = seg(hdr["H_OFF_CORE"], r1 * r2 * 4 * nq, (r1, r2, 4 * nq))
+        w = bary_vector(x, _seg(buf, hdr[f"H_OFF_AX{i + 1}"], n),
+                        _seg(buf, hdr[f"H_OFF_BW{i + 1}"], n))
+        wps.append(w @ _seg(buf, hdr[f"H_OFF_U{i + 1}"], n * r, (n, r)))
+    core = _seg(buf, hdr["H_OFF_CORE"], r1 * r2 * 4 * nq, (r1, r2, 4 * nq))
     a = torch.tensordot(wps[0], core, dims=([1], [0]))  # [W, r2, R]
-    a = (torch.einsum("wk,wkr->wr", wps[1], a) if len(wps) > 1 else a[:, 0])
+    return torch.einsum("wk,wkr->wr", wps[1], a) if len(wps) > 1 else a[:, 0]
 
-    # the forms, each over its own window of quads
-    nforms = len(packed.forms)
-    form_rows = seg(hdr["H_OFF_FORMS"], nforms * FORM_STRIDE, (nforms, FORM_STRIDE))
-    t = (o_r / OR_REF)[:, None]
-    chi2 = torch.zeros_like(h0)
-    log_norm = torch.zeros_like(h0)
-    for f, row in zip(packed.forms, form_rows):
+
+def _tt_coeff(packed, h, coords):
+    """[W, 4 nq] of half ``h`` of the split grid at ``coords`` (Om, wa,
+    s): the tensor-train sweep over the device buffer's cores, through
+    ``emu_core.coeff_contract``."""
+    lay, buf, dev = packed.halves[h], packed.buf, packed.dev
+    bw = _seg(buf, packed.hdr["H_OFF_BW1"], int(packed.hdr["H_N1"]))
+    weights, cores, perm = [None] * 3, [], []
+    r_prev = 1
+    for i in range(3):
+        n, r = lay[f"T_N{i}"], lay[f"T_R{i + 1}"]
+        rq = -(-r // 4) * 4
+        g = _seg(dev, lay[f"T_G{i}"], n * r_prev * rq, (n, r_prev, rq))
+        g = g[:, :, :r].permute(1, 0, 2)  # [r_prev, n, r]
+        cores.append(g[0] if i == 0 else g)
+        axis = lay[f"T_PERM{i}"]
+        perm.append(axis)
+        weights[axis] = bary_vector(coords[axis], _seg(buf, lay[f"T_AX{i}"], n), bw)
+        r_prev = r
+    tail = _seg(dev, lay["T_TAIL"], r_prev * 4 * lay["T_NQ"], (r_prev, 4 * lay["T_NQ"]))
+    return coeff_contract(weights, ("tt", tuple(perm), cores, tail))
+
+
+def _forms_chi2(packed, forms, forms_off, a, theta, h0, t):
+    """(chi^2, log_norm) [W] of the emulated terms, each form over its
+    own window of the coefficient vector ``a`` [W, 4 nq]."""
+    buf = packed.buf
+    zero = torch.zeros_like(theta[:, 0])
+
+    def col(i):
+        return theta[:, int(i)]
+
+    nforms = len(forms)
+    form_rows = _seg(buf, forms_off, nforms * FORM_STRIDE, (nforms, FORM_STRIDE))
+    chi2 = torch.zeros_like(zero)
+    log_norm = torch.zeros_like(zero)
+    for f, row in zip(forms, form_rows):
         v = {k: row[i] for k, i in FORM.items()}
         win = a[:, 4 * f["F_Q0"]:4 * (f["F_Q0"] + f["F_NQ"])]
         kind = KINDS[f["F_KIND"]]
@@ -479,7 +621,8 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
             g0 = col(f["F_MAG_IDX"]) - v["F_OFFSET"] - v["F_GREF0"] if f["F_J"] > 0 else zero
             g1 = ((-5.0 * torch.log10(h0 / v["F_H0REF"]) - v["F_GREF1"]) if f["F_J"] > 1
                   else zero)
-            rows = seg(f["F_ROWS"], 2 * f["F_NQ"] * PAIR_STRIDE, (2 * f["F_NQ"], PAIR_STRIDE))
+            rows = _seg(buf, f["F_ROWS"], 2 * f["F_NQ"] * PAIR_STRIDE,
+                        (2 * f["F_NQ"], PAIR_STRIDE))
             e = (beta * v["F_SCALE"])[:, None] * (win[:, 0::2] + t * win[:, 1::2]) \
                 - rows[:, PAIR["P_BA"]]
             pg = rows[:, PAIR["P_P0"]] * g0[:, None] + rows[:, PAIR["P_P1"]] * g1[:, None]
@@ -491,7 +634,7 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
             )
         elif kind == "lift":
             k = f["F_K"]
-            rows = seg(f["F_ROWS"], (2 + 2 * f["F_NQ"]) * k)
+            rows = _seg(buf, f["F_ROWS"], (2 + 2 * f["F_NQ"]) * k)
             d_ref, sig2 = rows[:k], rows[k:2 * k]
             b = rows[2 * k:].reshape(2 * f["F_NQ"], k)
             dmu = (win[:, 0::2] + t * win[:, 1::2]) @ b
@@ -509,17 +652,58 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
             fchi = fchi * (1.0 / (fv * fv) if v["F_POW"] < 0 else fv * fv)
             log_norm = log_norm + (v["F_LN_CONST"] + v["F_LN_COEF"] * torch.log(fv))
         chi2 = chi2 + fchi
+    return chi2, log_norm
+
+
+def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the kernel over the same buffers: theta
+    [W, D] -> logp [W], -inf outside the strict interior of the bounds
+    or where the sum is not finite. On the split grid each walker
+    computes its own half only, as the kernel does."""
+    hdr, buf = packed.hdr, packed.buf
+    theta = theta.to(buf.dtype)
+    d = packed.dim
+
+    def col(i):
+        return theta[:, int(i)]
+
+    model = MODELS[int(hdr["H_MODEL"])]
+    zero = torch.zeros_like(theta[:, 0])
+    h0 = col(hdr["H_I_H0"]) * buf[HEADER["H_H0_SCALE"]] if hdr["H_I_H0"] >= 0 else zero
+    om = col(hdr["H_I_OM"])
+    w0 = col(hdr["H_I_W0"]) if model != "lcdm" else None
+    wa = col(hdr["H_I_WA"]) if model == "w0wacdm" else None
+    o_r = buf[HEADER["H_ORH2"]] / (h0 / 100.0) ** 2 if hdr["H_ORH2"] != 0 else zero
+    t = (o_r / OR_REF)[:, None]
+
+    if not hdr["H_SPLIT"]:
+        a = _tucker_coeff(packed, om, w0)
+        chi2, log_norm = _forms_chi2(packed, packed.forms, hdr["H_OFF_FORMS"], a, theta, h0, t)
+    else:
+        s = w0 + wa
+        lower = s <= 0.0  # a NaN s takes half 1, as in the kernel
+        chi2, log_norm = torch.zeros_like(zero), torch.zeros_like(zero)
+        for h, rows in enumerate((lower, ~lower)):
+            idx = rows.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                continue
+            lay = packed.halves[h]
+            a = _tt_coeff(packed, h, (om[idx], wa[idx], s[idx]))
+            c, ln = _forms_chi2(packed, lay["forms"], lay["T_OFF_FORMS"], a, theta[idx],
+                                h0[idx], t[idx])
+            chi2 = chi2.index_put((idx,), c)
+            log_norm = log_norm.index_put((idx,), ln)
 
     if packed.cmb:
-        chi2 = chi2 + _cmb_chi2(packed, col, h0, om, o_r, w0, model)
+        chi2 = chi2 + _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model)
 
-    bounds = seg(hdr["H_OFF_BOUNDS"], 2 * d)
+    bounds = _seg(buf, hdr["H_OFF_BOUNDS"], 2 * d)
     ll = -0.5 * chi2 + log_norm
     ok = torch.all((bounds[:d] < theta) & (theta < bounds[d:]), dim=-1) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -torch.inf))
 
 
-def _cmb_chi2(packed, col, h0, om, o_r, w0, model):
+def _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model):
     """The compressed-CMB chi^2: z* fit, r_s by GL in a, D_C by GL in
     ln a, the three observables and the 3 x 3 whitening."""
     c = packed.cmb
@@ -532,18 +716,19 @@ def _cmb_chi2(packed, col, h0, om, o_r, w0, model):
     wb = col(c["C_I_OBH2"])
     wm = om * (h0 / 100.0) ** 2
     zs = _z_star(wb, wm, Z_STAR[c["C_ZSTAR"]])
-    cm, cr, cw = om[:, None], o_r[:, None], (w0[:, None] if w0 is not None else None)
+    cm, cr = om[:, None], o_r[:, None]
+    cw, cwa = (None if x is None else x[:, None] for x in (w0, wa))
 
     rb = (3.0 * wb / block[CMB["C_OG4"]])[:, None]
     a_end = (1.0 / (1.0 + zs))[:, None]
     a = a_end * t_rs
-    ez = _e_of_z(1.0 / a - 1.0, cm, cr, cw, model)
+    ez = _e_of_z(1.0 / a - 1.0, cm, cr, cw, cwa, model)
     integ = C_KM_S / (a * a * ez * torch.sqrt(3.0 * (1.0 + rb * a)))
     rs = torch.sum(integ * (a_end * w_rs), dim=-1) / h0
 
     u0 = torch.log(1.0 / (1.0 + zs))[:, None]
     a = torch.exp(u0 * (1.0 - t_dc))
-    ez = _e_of_z(1.0 / a - 1.0, cm, cr, cw, model)
+    ez = _e_of_z(1.0 / a - 1.0, cm, cr, cw, cwa, model)
     dm = torch.sum(C_KM_S / (a * ez) * (-u0 * w_dc), dim=-1) / h0
 
     obs = OBSERVABLES[c["C_OBS"]]
@@ -566,7 +751,7 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
     """logp [W] for walkers theta [W, D].
 
     CPU tensors: the plain version, in the buffer's dtype. CUDA tensors:
-    the kernel, which takes a contiguous float32 theta on the buffer's
+    the kernel, which takes a contiguous float32 theta on the buffers'
     device and raises otherwise.
     """
     if theta.dim() != 2 or theta.shape[1] != packed.dim:
@@ -577,7 +762,13 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
         return fused_log_prob_reference(packed, theta)
     if theta.device.type != "cuda":
         raise ValueError(f"fused_log_prob has no kernel for device {theta.device}")
-    for name, t in (("theta", theta), ("constant buffer", packed.buf)):
+    split = bool(packed.hdr["H_SPLIT"])
+    tensors = [("theta", theta), ("constant buffer", packed.buf)]
+    if split:
+        if packed.dev.device != theta.device:
+            raise ValueError(f"theta on {theta.device} but the TT cores on {packed.dev.device}")
+        tensors.append(("TT buffer", packed.dev))
+    for name, t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes a float32 {name}; got {t.dtype}")
         if not t.is_contiguous():
@@ -589,10 +780,14 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
     from cosmax_torch.ops.kernels.build import load_kernel
 
     fn = _entry(load_kernel("fused_log_prob").lib)
+    # per-thread scratch of shared memory: two projections of at most
+    # MAX_RANK (Tucker) or two sweep vectors of the largest padded bond
+    stride = int(packed.hdr["H_BOND"]) if split else MAX_RANK
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed.buf.data_ptr(), packed.buf.numel(), theta.data_ptr(),
-                 out.data_ptr(), w, packed.dim, stream)
+        err = fn(packed.buf.data_ptr(), packed.buf.numel(),
+                 packed.dev.data_ptr() if split else None, int(split), stride,
+                 theta.data_ptr(), out.data_ptr(), w, packed.dim, stream)
     if err != 0:
         raise RuntimeError(f"fused_log_prob kernel launch failed: cudaError {err}")
     global LAUNCHES
@@ -604,8 +799,8 @@ def _entry(lib: ctypes.CDLL):
     fn = lib.cosmax_fused_log_prob_f32
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -614,21 +809,37 @@ def _entry(lib: ctypes.CDLL):
 # --- the work of one call, for the bound -------------------------------------
 
 
-def work_per_walker(packed: Packed) -> tuple:
+def work_per_walker(packed: Packed, half: int = 0) -> tuple:
     """(f32 operations, bytes) per walker of the fused log-prob, counted
     from the packed sizes: an FMA is 2 operations, every other
     arithmetic operation (division, square root, exp, log, pow) 1. Only
-    the columns the forms use count, not the zero padding. Bytes are
-    theta read once and logp written once; the constant buffer (read
-    once per call) is left out of the per-walker count."""
+    the columns the forms use count, not the zero padding; on the split
+    grid, a walker of ``half`` (the minimal sweep of that half's tensor
+    train, as ``emu_core.eval_flops`` counts it). Bytes are theta read
+    once and logp written once; the constant buffers (read once per
+    call) are left out of the per-walker count."""
     h = packed.hdr
     ops = 10  # derived parameters and the bounds test
-    for i in (1, 2)[:int(h["H_NAXES"])]:
-        n, r = h[f"H_N{i}"], h[f"H_R{i}"]
-        ops += n * 4 + n * (4 + 2 * r)  # two barycentric passes, projection
-    r1, r2 = h["H_R1"], h["H_R2"]
-    ops += r1 * r2 + 2 * r1 * r2 * h["H_RALL"]  # wp1 (x) wp2, then its dot with the core
-    for f in packed.forms:
+    if not h["H_SPLIT"]:
+        forms = packed.forms
+        for i in (1, 2)[:int(h["H_NAXES"])]:
+            n, r = h[f"H_N{i}"], h[f"H_R{i}"]
+            ops += n * 4 + n * (4 + 2 * r)  # two barycentric passes, projection
+        r1, r2 = h["H_R1"], h["H_R2"]
+        ops += r1 * r2 + 2 * r1 * r2 * h["H_RALL"]  # wp1 (x) wp2, then its dot with the core
+    else:
+        lay = packed.halves[half]
+        forms = lay["forms"]
+        ops += 2  # s and the half's select
+        r_prev = 1
+        for i in range(3):
+            n, r = lay[f"T_N{i}"], lay[f"T_R{i + 1}"]
+            ops += 8 * n  # barycentric sum and weights
+            # v' = v (w . G): 2 n r_prev r, and r_prev r for the weights
+            ops += 2 * n * r if i == 0 else 2 * n * r_prev * r + 2 * r_prev * r
+            r_prev = r
+        ops += 2 * r_prev * lay["T_RALL"]  # a = v^T tail, the columns the forms use
+    for f in forms:
         kind, n = KINDS[f["F_KIND"]], f["n_cols"]
         if kind == "linear":
             ops += 25 + 7 * n  # beta and nuisances; per pair the axpy, e and its dot
@@ -642,7 +853,9 @@ def work_per_walker(packed: Packed) -> tuple:
             ops += 6  # f^power, log f
     if packed.cmb:
         n_rs, n_dc = packed.cmb["C_NRS"], packed.cmb["C_NDC"]
-        # z*; per node E(z) is ~19 (cube, log, exp, sqrt), the integrand
-        # and the sum ~14 for r_s, ~10 for D_C; the observables and 3 x 3
-        ops += 30 + n_rs * 33 + n_dc * 29 + 40
+        # z*; per node E(z) is ~19 (cube, log, exp, sqrt; ~24 with CPL's
+        # exponent), the integrand and the sum ~14 for r_s, ~10 for D_C;
+        # the observables and 3 x 3
+        cpl = 5 if h["H_SPLIT"] else 0
+        ops += 30 + n_rs * (33 + cpl) + n_dc * (29 + cpl) + 40
     return int(ops), 4 * (packed.dim + 1)

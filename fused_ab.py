@@ -9,12 +9,12 @@ older commit unpacked with ``git archive``). The trees run one after
 another, each in its own process, in the order given, so that
 ``parent change change parent`` spreads the card's drift over both.
 Each process imports that tree's ``cosmax_torch``, builds the fast
-flagship (``bao.desi_cmb_des5y``/wzcdm) and, where the tree has it, the
-fast ``joint.multiprobe``/wzcdm (both with the dense synthetic SN
-covariance), packs them with the tree's own packer and times its own
-kernel: CUDA events, median of 20 samples of 20 calls, at 65,536 and
-262,144 flagship walkers and 131,072 multiprobe walkers, walkers drawn
-as ``chip_smoke.py`` draws them. Each ``--variant NAME=VALUE`` also
+flagship (``bao.desi_cmb_des5y``/wzcdm) and, where the tree has them, the
+fast ``joint.multiprobe``/wzcdm and the fast w0wacdm flagship (all with
+the dense synthetic SN covariance), packs them with the tree's own packer
+and times its own kernel: CUDA events, median of 20 samples of 20 calls,
+at 65,536 and 262,144 flagship walkers, 131,072 multiprobe walkers and
+65,536 w0wacdm walkers, walkers drawn as ``chip_smoke.py`` draws them. Each ``--variant NAME=VALUE`` also
 builds that tree's source with the line ``constexpr int NAME = ...;``
 set to VALUE (where the tree's source has that constant), and times it
 in the same process, interleaved with the tree's own kernel (forward,
@@ -34,8 +34,8 @@ import subprocess
 import sys
 import time
 
-SIZES = (("bao.desi_cmb_des5y", 65536), ("bao.desi_cmb_des5y", 262144),
-         ("joint.multiprobe", 131072))
+SIZES = (("bao.desi_cmb_des5y", "wzcdm", 65536), ("bao.desi_cmb_des5y", "wzcdm", 262144),
+         ("joint.multiprobe", "wzcdm", 131072), ("bao.desi_cmb_des5y", "w0wacdm", 65536))
 
 
 def _median_ms(fn, reps=20, inner=20):
@@ -105,23 +105,31 @@ def run_tree(tree, variants):
             kernels[v] = built
 
     def call(lib, packed, theta, out):
-        err = fl._entry(lib)(packed.buf.data_ptr(), packed.buf.numel(), theta.data_ptr(),
-                             out.data_ptr(), theta.shape[0], packed.dim,
-                             torch.cuda.current_stream().cuda_stream)
+        fn = fl._entry(lib)
+        stream = torch.cuda.current_stream().cuda_stream
+        if len(fn.argtypes) == 7:  # a tree from before the split grid
+            err = fn(packed.buf.data_ptr(), packed.buf.numel(), theta.data_ptr(),
+                     out.data_ptr(), theta.shape[0], packed.dim, stream)
+        else:
+            split = int(packed.hdr["H_SPLIT"])
+            err = fn(packed.buf.data_ptr(), packed.buf.numel(),
+                     packed.dev.data_ptr() if split else None, split,
+                     int(packed.hdr["H_BOND"]) if split else fl.MAX_RANK,
+                     theta.data_ptr(), out.data_ptr(), theta.shape[0], packed.dim, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
     fits = {}
-    for preset, _ in SIZES:
-        if preset not in fits:
+    for preset, model, _ in SIZES:
+        if (preset, model) not in fits:
             try:
-                fits[preset] = get_preset(preset, "wzcdm", fast=True, synthetic_sys=True,
-                                          device="cuda")
+                fits[preset, model] = get_preset(preset, model, fast=True, synthetic_sys=True,
+                                                 device="cuda")
             except (KeyError, ValueError, NotImplementedError):
-                fits[preset] = None  # the tree does not have this preset
+                fits[preset, model] = None  # the tree does not have this preset
     results = {k: {} for k in kernels}
-    for preset, w in SIZES:
-        fit = fits[preset]
+    for preset, model, w in SIZES:
+        fit = fits[preset, model]
         if fit is None:
             continue
         packed = fl.pack(fit)
@@ -136,12 +144,13 @@ def run_tree(tree, variants):
             call(lib, packed, theta, out)
             err = float((out - want).abs().max())
             if not err <= 1e-4 * scale:
-                raise AssertionError(f"{tree} {key} {preset} W={w}: {err / scale:.3e}")
+                raise AssertionError(f"{tree} {key} {preset}/{model} W={w}: {err / scale:.3e}")
         order = list(kernels) + list(kernels)[::-1]
         for key in order:
             lib = kernels[key][0]
             ms = _median_ms(lambda: call(lib, packed, theta, out))
-            results[key].setdefault(f"{preset}@{w}", []).append(ms)
+            label = preset if model == "wzcdm" else f"{preset}/{model}"
+            results[key].setdefault(f"{label}@{w}", []).append(ms)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     for key, (_, ptxas) in kernels.items():

@@ -4,7 +4,8 @@ JAX package's emulator build.
 * ``bary_vector`` against JAX's at random points and exactly at a node;
 * ``svd_rank_factor``, ``tucker`` and ``compress`` on one f64 table: the
   same ranks, and a composed error within the tolerance;
-* ``coeff_contract`` against JAX's on the same representation;
+* ``coeff_contract`` against JAX's on the same representation (the
+  tensor train's own tests are in test_torch_w0wa.py);
 * the on-disk table cache keeps wcdm and wzcdm apart with the in-memory
   finalize memo cleared first, so that the disk is really read.
 
@@ -120,12 +121,35 @@ def test_coeff_contract_matches_jax_on_the_same_rep():
 
 
 def test_tensor_train_raises_naming_item_9():
+    """The tensor train is ported (item 9): a 3-axis table too small for it
+    to pay stays exact, as in the JAX package; a hand-made train
+    contracts; the w0wacdm grid is the split one. What stays unported
+    names item 9b."""
+    table = np.random.default_rng(0).standard_normal((3, 3, 3, 2))
+    args = (table, [3, 3, 3], 1e-6, np.eye(2), table.reshape(27, 2))
+    assert temu.tt(*args) is None and jemu.tt(*args) is None
+    assert temu.compress(*args)[0] == "exact"
+    cores = [np.ones((3, 1)), np.ones((1, 3, 1)), np.ones((1, 3, 1))]
+    tail = np.array([[1.0, 2.0]])
+    weights = [torch.full((2, 3), 1.0 / 3.0, dtype=torch.float64)] * 3
+    got = temu.coeff_contract(weights, ("tt", (2, 0, 1), [torch.as_tensor(c) for c in cores],
+                                        torch.as_tensor(tail)))
+    np.testing.assert_allclose(got.numpy(), [[1.0, 2.0]] * 2, rtol=1e-15)
+    assert temu.eval_flops(("tt", (0, 1, 2), cores, tail)) == jemu.eval_flops(
+        ("tt", (0, 1, 2), cores, tail))
+    from cosmax.models import linear_chi2 as jlc
+
+    kind, halves = tlc._grid_spec("w0wacdm", None, {})
+    jkind, jhalves = jlc._grid_spec("w0wacdm", None, {})
+    assert kind == jkind == "split" and len(halves) == len(jhalves) == 2
+    for (axes, _, tag, ref), (jaxes, _, jtag, jref) in zip(halves, jhalves):
+        assert tag == jtag and ref == jref
+        for ax, jax_ in zip(axes, jaxes):
+            np.testing.assert_array_equal(ax, np.asarray(jax_))
+    from cosmax_torch.configs import get_preset
+
     with pytest.raises(NotImplementedError, match="item 9"):
-        temu.compress(np.zeros((3, 3, 3, 2)), [3, 3, 3], 1e-6, np.eye(2), np.zeros((27, 2)))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        temu.coeff_contract([], ("tt", (0, 1, 2), [], None))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tlc._grid_spec("w0wacdm", None, {})
+        get_preset("fs8.fs8", "w0wacdm", fast=True, device="cpu")
 
 
 def test_table_cache_reads_back_and_can_be_off(tmp_path, monkeypatch):

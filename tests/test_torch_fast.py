@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from cosmax.configs import get_preset as jax_preset
 from cosmax.data import load_sn as jax_load_sn
@@ -42,6 +43,15 @@ from cosmax_torch.ops.kernels import fused_log_prob as fl
 F64 = torch.float64
 N_THETA = 8
 FLAGSHIP = ("bao.desi_cmb_des5y", "wzcdm")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """The w0wacdm tensor-train builds are SVDs that gain little from
+    BLAS threads; beside other test processes (pytest-xdist), threaded
+    SVDs spin against each other and take ten times longer."""
+    with threadpool_limits(1):
+        yield
 
 
 def _thetas(bounds, seed, n=N_THETA, spread=0.05):
@@ -148,17 +158,19 @@ def test_fused_plain_matches_make_log_prob_at_70_walkers(flagship):
 @pytest.mark.parametrize("name", ["bao.desi", "bao.desi_cmb_des5y", "bao.desi_cmb_union3",
                                   "bao.desi_cmb_pantheon"])
 def test_ported_presets_build_fast_for_each_model(name):
-    for model in ("lcdm", "wcdm", "wzcdm"):
+    for model in ("lcdm", "wcdm", "wzcdm", "w0wacdm"):
         fit = get_preset(name, model, fast=True, device="cpu", dtype=F64)
         assert fit.fast
-        theta = torch.as_tensor(_thetas(fit.spec.bounds, seed=2))
+        theta = _thetas(fit.spec.bounds, seed=2)
+        if model == "w0wacdm":  # two walkers on the split grid's half 1
+            i_w0, i_wa = fit.spec.names.index("w0"), fit.spec.names.index("wa")
+            theta[:2, i_w0], theta[:2, i_wa] = -0.3, 0.9
+        theta = torch.as_tensor(theta)
         fused = fit.log_prob()(theta)
         terms = make_log_prob(fit.spec, fit.terms, fit.derive)(theta)
         assert bool(torch.isfinite(fused).all()), (name, model)
         np.testing.assert_allclose(fused.numpy(), terms.numpy(), rtol=1e-10, atol=0,
                                    err_msg=f"{name}/{model}")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_preset(name, "w0wacdm", fast=True, device="cpu")
 
 
 @pytest.mark.parametrize("rd_case", ["fixed", "param"])
@@ -314,13 +326,24 @@ def test_kernel_source_agrees_with_the_packer():
     together here)."""
     src = (Path(fl.__file__).resolve().parents[2] / "csrc" / "fused_log_prob.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    want = dict(HEADER=fl.HEADER, PAIR=fl.PAIR, FORM=fl.FORM, CMB=fl.CMB)
+    want = dict(HEADER=fl.HEADER, PAIR=fl.PAIR, FORM=fl.FORM, CMB=fl.CMB, HALF=fl.HALF)
     for table in want.values():
         for k, v in table.items():
             assert consts[k] == v, k
-    for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_RALL", "MAX_FORMS", "MAX_K", "MAX_GL",
-              "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE"):
+    for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_BOND", "MAX_RALL", "MAX_FORMS", "MAX_K",
+              "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE"):
         assert consts[k] == getattr(fl, k), k
+    # the split grid's header slots and its per-half block, whose per-core
+    # slots the kernel indexes from T_PERM0, T_AX0, T_N0, T_G0 and T_R1
+    assert {"H_I_WA", "H_SPLIT", "H_OFF_HALVES", "H_BOND"} <= set(fl.HEADER)
+    assert max(fl.HEADER.values()) < fl.HEADER_SIZE
+    for k, v in fl.HALF.items():
+        assert consts[k] == v, k
+    for i in range(3):
+        for first in ("T_PERM", "T_AX", "T_N", "T_G"):
+            assert fl.HALF[f"{first}{i}"] == fl.HALF[f"{first}0"] + i
+        assert fl.HALF[f"T_R{i + 1}"] == fl.HALF["T_R1"] + i
+    assert max(fl.HALF.values()) < fl.HALF_STRIDE
 
 
 def test_cli_fast_on_the_cpu(tmp_path, capsys):

@@ -171,15 +171,16 @@ def test_other_joint_presets_f64(name):
 
 
 def test_unported_paths_raise():
+    # w0wacdm takes the fast path in the flagship family only (the split
+    # grid's BAO and SN terms are tested in test_torch_w0wa.py)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_preset("bao.desi", "w0wacdm", fast=True, device="cpu")
+        get_preset("joint.multiprobe", "w0wacdm", fast=True, device="cpu")
     with pytest.raises(KeyError, match="ported"):
         get_preset("qsr.desi", "lcdm", device="cpu")
-    from cosmax_torch.data import load_bao
-    from cosmax_torch.likelihoods import bao, sn
+    from cosmax_torch.likelihoods import sn
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bao.build_bao_term(load_bao(), "w0wacdm", bao.rd_fixed(), "cpu", grid=("emu",))
+        get_preset("cc.cc_des5y", "w0wacdm", fast=True, device="cpu")
     from cosmax_torch.data import load_sn
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

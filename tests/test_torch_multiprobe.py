@@ -196,7 +196,7 @@ def test_fused_plain_matches_the_terms_at_70_walkers(fast, name, model):
     np.testing.assert_allclose(lp[:70].numpy(), fused.numpy(), rtol=1e-12, atol=0)
 
 
-def test_packer_takes_the_12_new_configurations(fast):
+def test_packer_takes_the_12_new_configurations(fast, monkeypatch):
     kinds = {"joint.multiprobe": ["linear", "linear", "linear", "lift", "amp_pair"],
              "fs8.fs8": ["amp_pair"], "cc.cc_union3": ["linear", "linear"],
              "cc.cc_des5y": ["linear", "linear"]}
@@ -212,6 +212,11 @@ def test_packer_takes_the_12_new_configurations(fast):
             assert h["H_HAS_CMB"] == (name == "joint.multiprobe")
             ops, nbytes = fl.work_per_walker(packed)
             assert nbytes == 4 * (fit.spec.dim + 1) and ops > 0
+    # w0wacdm refuses before any table is built
+    def no_build(*args, **kwargs):
+        raise AssertionError("a table was built before the refusal")
+
+    monkeypatch.setattr("cosmax_torch.models.linear_chi2.table_cached", no_build)
     with pytest.raises(NotImplementedError, match="item 9"):
         get_preset("joint.multiprobe", "w0wacdm", fast=True, device="cpu")
 

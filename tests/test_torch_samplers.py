@@ -141,9 +141,30 @@ def test_cli_short_fit(tmp_path, capsys):
     assert set(summary["chi2"]) == {"bao", "cmb_desi", "sn"}
 
 
-# --fast is ported for lcdm, wcdm and wzcdm; w0wacdm still raises
+# --fast is ported for every model; w0wacdm only in the flagship family
 @pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"],
-                                  ["--fast", "--model", "w0wacdm"], ["--out", "x"]])
+                                  ["--fast", "--model", "w0wacdm", "--preset", "fs8.fs8"],
+                                  ["--out", "x"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfit_cli.main(["--preset", "bao.desi", "--device", "cpu", *flag])
+
+
+def test_cli_fast_w0wacdm_on_the_cpu(tmp_path, capsys):
+    """--fast --model w0wacdm on bao.desi: the split grid's BAO-only build
+    and the fused log-prob's plain version on the CPU."""
+    from threadpoolctl import threadpool_limits
+
+    out = tmp_path / "run"
+    # one BLAS thread: the build's SVDs gain little from threads, and beside
+    # other test processes threaded SVDs spin against each other
+    with threadpool_limits(1):
+        rc = tfit_cli.main([
+            "--preset", "bao.desi", "--model", "w0wacdm", "--fast", "--steps", "3",
+            "--walkers", "16", "--seed", "0", "--device", "cpu", "--no-plots",
+            "--out", str(out),
+        ])
+    assert rc == 0
+    assert "fast path" in capsys.readouterr().out
+    chain = np.load(out / "chain.npy")
+    assert chain.shape[1:] == (16, 4) and np.all(np.isfinite(chain))

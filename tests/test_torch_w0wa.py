@@ -1,0 +1,263 @@
+"""The port's w0wacdm fast path (the split grid on s = w0 + wa, the tensor
+train, the fused log-prob's split-grid branch) against the JAX package.
+
+* ``tt``, ``compress`` and the TT ``coeff_contract`` on a small seeded
+  table: the same axis order, ranks and representation as the JAX
+  package, contractions equal to 1e-12;
+* the w0wacdm flagship built by each package: the same axis order and
+  bond ranks per half (within one), per-term chi^2 within the truncation
+  contract 1e-3 + 2e-4 sqrt(chi^2), at walkers in both halves; and with
+  the JAX bundle carried across (``interop.bundle_from_numpy``) within
+  1e-9 relative in f64;
+* ``fused_log_prob_reference`` over the packed buffers against
+  ``make_log_prob`` over the fast terms, 1e-10 relative in f64, on 70
+  walkers over both halves, bad rows -inf (a port of
+  ``test_megakernel_blocked_log_prob_matches_vmap``);
+* a port of ``test_w0wacdm_seam_continuity`` (tests/test_linear_chi2.py)
+  on the flagship's emulated SN and BAO terms: chi^2 and its gradient,
+  through torch.autograd, across s = 0;
+* the w0wacdm presets outside the flagship family refuse before any
+  table is built.
+
+The CUDA kernel runs only on a card (``chip_smoke.py`` phase 12 holds it
+against the plain version there); here the wrapper takes the plain
+version because the tensors lie on the CPU. One flagship build per
+package (module fixture); every JAX evaluation takes N_THETA points."""
+
+import inspect
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from threadpoolctl import threadpool_limits
+
+from cosmax.configs import get_preset as jax_preset
+from cosmax.models import emu_core as jemu
+from cosmax_torch.configs import get_preset
+from cosmax_torch.interop import bundle_from_numpy
+from cosmax_torch.likelihoods.base import make_log_prob
+from cosmax_torch.models import emu_core as temu
+from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+F64 = torch.float64
+N_THETA = 16
+FLAGSHIP = ("bao.desi_cmb_des5y", "w0wacdm")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """The tensor-train builds are SVDs that gain little from BLAS
+    threads; beside other test processes (pytest-xdist), threaded SVDs
+    spin against each other and take ten times longer."""
+    with threadpool_limits(1):
+        yield
+
+
+def _thetas(bounds, names, seed, n=N_THETA):
+    """Half the walkers near the box centre (s = w0 + wa ~ -1.5, half 0),
+    half uniform over the box with s > 0 (half 1)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    near = 0.5 * (lo + hi) + 0.05 * (hi - lo) * rng.standard_normal((n // 2, len(lo)))
+    box = lo + (hi - lo) * rng.uniform(0.02, 0.98, (64 * n, len(lo)))
+    box = box[box[:, names.index("w0")] + box[:, names.index("wa")] > 0.0][:n - n // 2]
+    return np.concatenate([near, box])
+
+
+def _jax_bundle(jfit):
+    """The JAX fast preset's finalized bundle as numpy: the arguments of
+    ``bundle_from_numpy``."""
+    jb = inspect.getclosurevars(jfit.terms[0].chi2).nonlocals["bundle"]
+    kind, halves = jb.finalized()
+    out = []
+    for h in halves:
+        _, perm, cores, tail = h["rep"]
+        out.append(dict(axes=[np.asarray(a) for a in h["axes"]], bw=np.asarray(h["bw"]),
+                        rep=("tt", perm, [np.asarray(g) for g in cores], np.asarray(tail))))
+    windows = {key[0]: handle.per_half for key, (_, handle) in jb.regs.items()}
+    return kind, out, windows
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    with jax.enable_x64(True):
+        jfit = jax_preset(*FLAGSHIP, fast=True)
+        theta = _thetas(jfit.spec.bounds, list(jfit.spec.names), seed=0)
+        jchi = {k: np.asarray(v) for k, v in
+                jax.jit(jax.vmap(jfit.chi2_breakdown()))(jnp.asarray(theta)).items()}
+    tfit = get_preset(*FLAGSHIP, fast=True, device="cpu", dtype=F64)
+    return dict(jfit=jfit, tfit=tfit, theta=theta, jchi=jchi)
+
+
+def _smooth_table(n=12, r=12):
+    """A smooth [n, n, n, r] table on Chebyshev nodes of (s, wa, Om): the
+    CPL 1/E(z) at r redshifts. Its tensor train pays, in the axis order
+    (Om, wa, s)."""
+    axes = [temu.cheb_nodes(n, -3.0, 0.0), temu.cheb_nodes(n, -2.0, 1.0),
+            temu.cheb_nodes(n, 0.1, 0.6)]
+    s, wa, om = (g[..., None] for g in np.meshgrid(*axes, indexing="ij"))
+    opz = 1.0 + np.linspace(0.1, 2.5, r)
+    rho = np.exp(3.0 * (1.0 + s) * np.log(opz) - 3.0 * wa * (opz - 1.0) / opz)
+    return axes, 1.0 / np.sqrt(om * opz**3 + (1.0 - om) * rho)
+
+
+def test_tt_compress_contract_match_jax():
+    axes, table = _smooth_table()
+    shape = [len(ax) for ax in axes]
+    ref = table.reshape(-1, table.shape[-1])
+    tol = 1e-6 * np.max(np.abs(table))
+    proj = np.eye(table.shape[-1])
+    perm, cores, tail = temu.tt(table, shape, tol, proj, ref)
+    with jax.enable_x64(True):
+        jperm, jcores, jtail = jemu.tt(table, shape, tol, proj, ref)
+        jrep = jemu.compress(table, shape, tol, proj, ref)
+    assert perm == tuple(jperm) == (2, 1, 0)
+    assert [c.shape for c in cores] == [c.shape for c in jcores]
+    assert tail.shape == jtail.shape
+    rep = temu.compress(table, shape, tol, proj, ref)
+    assert rep[0] == jrep[0] == "tt"
+    assert temu.eval_flops(rep) == jemu.eval_flops(jrep)
+
+    rng = np.random.default_rng(3)
+    xs = [rng.uniform(ax[0], ax[-1], 64) for ax in axes]
+    xs[2][:3] = axes[2][[0, 5, 11]]  # on a node: the one-hot weights
+    bw = temu.bary_weights(len(axes[0]))
+    weights = [temu.bary_vector(torch.as_tensor(x), torch.as_tensor(ax), torch.as_tensor(bw))
+               for x, ax in zip(xs, axes)]
+    rep_t = ("tt", perm, [torch.as_tensor(c) for c in cores], torch.as_tensor(tail))
+    got = temu.coeff_contract(weights, rep_t).numpy()
+    with jax.enable_x64(True):
+        jrep_np = ("tt", tuple(jperm), [jnp.asarray(c) for c in cores], jnp.asarray(tail))
+        want = np.asarray(jax.vmap(lambda a, b, c: jemu.coeff_contract(
+            [jemu.bary_vector(x, jnp.asarray(ax), jnp.asarray(bw))
+             for x, ax in zip((a, b, c), axes)], jrep_np))(*map(jnp.asarray, xs)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    # walker chunks give the same rows
+    temu_bytes = temu.TT_TEMP_BYTES
+    try:
+        temu.TT_TEMP_BYTES = 8 * 7 * max(c.shape[0] * c.shape[-1] for c in cores[1:])
+        chunked = temu.coeff_contract(weights, rep_t).numpy()
+    finally:
+        temu.TT_TEMP_BYTES = temu_bytes
+    np.testing.assert_array_equal(chunked, got)
+
+
+def test_flagship_ranks_match_jax(flagship):
+    tkind, thalves = flagship["tfit"].terms[0].meta["linear_chi2"].bundle.finalized()
+    jkind, jhalves, _ = _jax_bundle(flagship["jfit"])
+    assert tkind == jkind == "split"
+    for th, jh in zip(thalves, jhalves):
+        assert th["rep"][0] == jh["rep"][0] == "tt"
+        assert th["rep"][1] == tuple(jh["rep"][1])
+        t_bonds = [g.shape[-1] for g in th["rep"][2]]
+        j_bonds = [g.shape[-1] for g in jh["rep"][2]]
+        assert all(abs(a - b) <= 1 for a, b in zip(t_bonds, j_bonds)), (t_bonds, j_bonds)
+        for ax_t, ax_j in zip(th["axes"], jh["axes"]):
+            np.testing.assert_allclose(ax_t, ax_j, rtol=1e-15, atol=0)
+
+
+def test_flagship_own_bundles_within_the_truncation_contract(flagship):
+    got = flagship["tfit"].chi2_breakdown()(torch.as_tensor(flagship["theta"]))
+    assert set(got) == set(flagship["jchi"]) == {"bao", "cmb_desi", "sn"}
+    for name, want in flagship["jchi"].items():
+        tol = 1e-3 + 2e-4 * np.sqrt(np.maximum(want, 0.0))
+        assert np.all(np.abs(got[name].numpy() - want) <= tol), name
+
+
+def test_flagship_with_the_jax_bundle_carried_across(flagship):
+    tfit = get_preset(*FLAGSHIP, fast=True, device="cpu", dtype=F64)
+    bundle_from_numpy(tfit.terms[0].meta["linear_chi2"].bundle, *_jax_bundle(flagship["jfit"]))
+    got = tfit.chi2_breakdown()(torch.as_tensor(flagship["theta"]))
+    for name, want in flagship["jchi"].items():
+        np.testing.assert_allclose(got[name].numpy(), want, rtol=1e-9, atol=0, err_msg=name)
+
+
+def test_fused_plain_matches_make_log_prob_at_70_walkers(flagship):
+    """Port of test_megakernel_blocked_log_prob_matches_vmap on the split
+    grid: each walker's own half only, against the per-term path's
+    select of both; bad walkers touch no other row."""
+    tfit = flagship["tfit"]
+    names = list(tfit.spec.names)
+    theta = torch.as_tensor(_thetas(tfit.spec.bounds, names, seed=1, n=70))
+    s = theta[:, names.index("w0")] + theta[:, names.index("wa")]
+    assert int((s <= 0).sum()) == 35 and int((s > 0).sum()) == 35
+    packed = fl.pack(tfit)
+    assert packed.hdr["H_SPLIT"] == 1 and len(packed.halves) == 2
+    before = fl.LAUNCHES
+    fused = fl.fused_log_prob(packed, theta)
+    assert fl.LAUNCHES == before  # CPU tensors never reach the kernel
+    terms = make_log_prob(tfit.spec, tfit.terms, tfit.derive)(theta)
+    assert fused.shape == (70,) and bool(torch.isfinite(fused).all())
+    np.testing.assert_allclose(fused.numpy(), terms.numpy(), rtol=1e-10, atol=0)
+
+    bad = torch.cat([theta, theta[:4].clone()])
+    bad[70, 2] = 0.95  # Om beyond its bound (0.1, 0.6)
+    bad[71, 0] = float("nan")
+    bad[72, names.index("w0")] = float("nan")  # s = NaN: half 1, then -inf
+    bad[73, names.index("wa")] = tfit.spec.bounds[names.index("wa"), 1]  # on the edge
+    lp = fl.fused_log_prob_reference(packed, bad)
+    assert bool(torch.all(lp[70:] == -torch.inf))
+    np.testing.assert_allclose(lp[:70].numpy(), fused.numpy(), rtol=1e-12, atol=0)
+
+    ops0, nbytes = fl.work_per_walker(packed, 0)
+    ops1, _ = fl.work_per_walker(packed, 1)
+    assert nbytes == 4 * (len(names) + 1)
+    # the TT sweep of each half, as emu_core.eval_flops counts it
+    _, halves = tfit.terms[0].meta["linear_chi2"].bundle.finalized()
+    for ops, half in ((ops0, halves[0]), (ops1, halves[1])):
+        assert temu.eval_flops(half["rep"]) < ops < temu.eval_flops(half["rep"]) + 6000
+
+
+def test_w0wacdm_seam_continuity(flagship):
+    """chi^2 and its (w0, wa) gradient across the split-half seam
+    s = w0 + wa = 0, where two independently built interpolants meet,
+    on the flagship's emulated SN and BAO terms. s = 0 is a
+    Chebyshev-Lobatto endpoint of both half grids and both interpolate
+    the same curves, so the jump is bounded by twice the truncation
+    contract. Points, steps and tolerances as the reference test."""
+    terms = {t.name: t for t in flagship["tfit"].terms}
+    assert terms["bao"].meta["linear_chi2"].bundle.finalized()[0] == "split"
+
+    def chi2(term, p, key=None):
+        x = {k: torch.tensor([v], dtype=F64, requires_grad=k == key) for k, v in p.items()}
+        c = term.chi2(x)[0]
+        if key is None:
+            return float(c)
+        (g,) = torch.autograd.grad(c, x[key])
+        return float(g[0])
+
+    for name, nuis in (("sn", {"dM": -0.05, "H0": 68.0}), ("bao", {"H0": 68.0, "rd": 147.0})):
+        term = terms[name]
+        for om, w0 in ((0.31, -0.9), (0.25, -1.2), (0.42, -0.6)):
+            for eps in (1e-7, 1e-5):
+                lo = dict(nuis, Om=om, w0=w0, wa=-w0 - eps)  # s = -eps
+                hi = dict(nuis, Om=om, w0=w0, wa=-w0 + eps)  # s = +eps
+                c_lo, c_hi = chi2(term, lo), chi2(term, hi)
+                scale = max(1.0, np.sqrt(max(c_lo, c_hi)))
+                assert abs(c_hi - c_lo) <= 6e-3 * scale + 10.0 * eps, (
+                    name, om, w0, eps, c_lo, c_hi)
+            for k in ("w0", "wa"):
+                eps = 1e-5
+                lo = dict(nuis, Om=om, w0=w0, wa=-w0 - eps)
+                hi = dict(nuis, Om=om, w0=w0, wa=-w0 + eps)
+                g = [chi2(term, pp, k) for pp in (lo, hi)]
+                ref = max(1.0, abs(g[0]), abs(g[1]))
+                assert abs(g[0] - g[1]) <= 2e-2 * ref, (name, k, om, w0, g)
+
+
+@pytest.mark.parametrize("name", ["fs8.fs8", "joint.multiprobe", "cc.cc_union3", "cc.cc_des5y"])
+def test_w0wacdm_outside_the_flagship_family_refuses_before_building(name, monkeypatch,
+                                                                     flagship):
+    def no_build(*args, **kwargs):
+        raise AssertionError("a table was built before the refusal")
+
+    monkeypatch.setattr(temu, "table_cached", no_build)
+    monkeypatch.setattr("cosmax_torch.models.linear_chi2.table_cached", no_build)
+    with pytest.raises(NotImplementedError, match=rf"{name}.*item 9b"):
+        get_preset(name, "w0wacdm", fast=True, device="cpu")
+    # and the packer refuses such a fit by name
+    with pytest.raises(NotImplementedError, match=rf"{name}.*item 9b"):
+        fl.pack(replace(flagship["tfit"], name=name))
