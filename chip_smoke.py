@@ -50,18 +50,24 @@ raising on failure (non-zero exit):
    fused launches per step;
 12. the fast w0wacdm flagship (``bao.desi_cmb_des5y``/w0wacdm,
    ``fast=True``, the dense synthetic SN covariance), the fused kernel's
-   split-grid branch: the build time, each half's tensor-train ranks, the
-   shared and device bytes of its constants, ptxas; the kernel against its
-   plain version within 1e-4 of max|logp| at 65,536 and 262,144 walkers
-   of the bench draw, 65,536 uniform over the box, a seam batch with
-   |w0 + wa| < 1e-4 on both sides, 70 and 1 walkers (seeded out-of-box
-   and NaN rows -inf in both); each term alone within 1e-4 of its own
+   split-grid branch (its tensor-train sweep as block products on the
+   tensor cores in 3xTF32): the build time, each half's tensor-train
+   ranks, the shared and device bytes of its constants and a block's
+   shared memory, ptxas; the kernel against its plain version within 1e-4
+   of max|logp| at 65,536 and 262,144 walkers of the bench draw, 65,536
+   uniform over the box, 65,536 whose halves alternate walker by walker,
+   65,536 all in half 1, a seam batch with |w0 + wa| < 1e-4 on both
+   sides, 70 and 1 walkers (seeded out-of-box and NaN rows -inf in both),
+   and the rows the grouping by half padded on the uniform draw; each
+   term alone within 1e-4 of its own
    max|logp| (the CMB also on walkers with w0 + wa > 1.5), and a planted
    swap of the halves' select that must fail; 64 walkers over both halves
    against the port's f64 CPU fast path; ``bao.desi``,
    ``bao.desi_cmb_union3`` and ``bao.desi_cmb_pantheon`` in w0wacdm at
    4,096 walkers (bench and uniform draws); kernel and plain times with
-   the bound; ``fit.log_prob()`` end to end with its launch count; and the
+   the bound (the sweep's products at the TF32 tensor-core peak, the rest
+   at the f32 peak; the bound with every operation at the f32 peak beside it);
+   ``fit.log_prob()`` end to end with its launch count; and the
    CLI with ``--fast --model w0wacdm``, 150 walkers x 20 steps, a finite
    (150, 7) chain.
 
@@ -95,9 +101,9 @@ MP_WALKERS = 131072  # the multiprobe size of bench.py
 MP_PARITY_WALKERS = 4096
 NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
-# the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s and
-# HBM3 bytes/s
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s, dense
+# TF32 tensor-core FLOP/s and HBM3 bytes/s
+PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 
 
 def _card() -> str:
@@ -408,7 +414,7 @@ def phase_fast(card, parity_ref):
         theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
         ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
         plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
-        ops, nbytes = fl.work_per_walker(packed)
+        ops, _, nbytes = fl.work_per_walker(packed)
         bound_ms = 1e3 * max(w * ops / PEAK_F32_FLOPS,
                              (w * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES)
         print(f"phase 7: fused_log_prob at W={w} on {card}: kernel {ms:.4f} ms "
@@ -611,7 +617,7 @@ def phase_multiprobe_fast(card):
     theta = torch.as_tensor(_flagship_walkers(fit, MP_WALKERS), device="cuda")
     ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
     plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
-    ops, nbytes = fl.work_per_walker(packed)
+    ops, _, nbytes = fl.work_per_walker(packed)
     bound_ms = 1e3 * max(MP_WALKERS * ops / PEAK_F32_FLOPS,
                          (MP_WALKERS * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES)
     print(f"phase 9: fused_log_prob multiprobe at W={MP_WALKERS} on {card}: kernel {ms:.4f} ms "
@@ -681,7 +687,7 @@ def phase_multiprobe_parity(card, ref_par):
 def _ptxas_of(log, marker):
     """ptxas's register and spill lines for the kernel functions whose
     mangled name holds ``marker`` (the split grid's instance of the fused
-    kernel is the one with template argument true, ``ILb1E``)."""
+    kernel is ``fused_log_prob_split_kernel``)."""
     lines, ours = [], False
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
@@ -705,6 +711,21 @@ def _box_walkers(fit, n, seed, seam=False):
     return walkers.astype(np.float32)
 
 
+def _one_half(fit, n, seed, alternate):
+    """Walkers uniform over the box, all in half 1 (s = w0 + wa > 0), or
+    with halves alternating walker by walker (even rows half 0)."""
+    import numpy as np
+
+    box = _box_walkers(fit, 8 * n, seed)
+    s = box[:, fit.spec.names.index("w0")] + box[:, fit.spec.names.index("wa")]
+    upper = box[s > 0][:n]
+    if not alternate:
+        return np.ascontiguousarray(upper)
+    out = np.empty_like(box[:n])
+    out[0::2], out[1::2] = box[s <= 0][:(n + 1) // 2], upper[:n // 2]
+    return out
+
+
 def _halves_of(fit, theta):
     """Walkers of each half: (s <= 0, s > 0) counts, s = w0 + wa in f32."""
     s = theta[:, fit.spec.names.index("w0")] + theta[:, fit.spec.names.index("wa")]
@@ -712,16 +733,43 @@ def _halves_of(fit, theta):
     return lower, theta.shape[0] - lower
 
 
+def _group_padding(fit, theta, block=128):
+    """Rows the kernel's grouping by half adds, per half: each block of
+    ``block`` walkers runs each half's sweep over its walkers of that half
+    padded to 16 rows. Returns ((padded, computed rows) of half 0, of
+    half 1)."""
+    import numpy as np
+
+    s = (theta[:, fit.spec.names.index("w0")] + theta[:, fit.spec.names.index("wa")]).cpu()
+    upper = np.asarray(~(s <= 0))  # a NaN s takes half 1
+    upper = np.concatenate([upper, np.zeros(-len(upper) % block, bool)]).reshape(-1, block)
+    valid = np.ones(upper.size, bool)
+    valid[theta.shape[0]:] = False
+    valid = valid.reshape(-1, block)
+    out = []
+    for rows in (~upper & valid, upper & valid):
+        n = rows.sum(axis=1)
+        padded = -(-n // 16) * 16
+        out.append((int((padded - n).sum()), int(padded.sum())))
+    return tuple(out)
+
+
 def _split_bound_ms(fl, fit, packed, theta):
     """The least time for this batch: each walker's minimal work in its
-    own half, against both constant buffers read once."""
+    own half, the sweep's products at the TF32 tensor-core peak and the
+    rest at the f32 peak, against both constant buffers read once; and
+    beside it the bound with every operation at the f32 peak."""
     lower, upper = _halves_of(fit, theta)
-    ops0, nbytes = fl.work_per_walker(packed, 0)
-    ops1, _ = fl.work_per_walker(packed, 1)
+    ops0, prod0, nbytes = fl.work_per_walker(packed, 0)
+    ops1, prod1, _ = fl.work_per_walker(packed, 1)
     w = theta.shape[0]
     const_bytes = 4 * (packed.buf.numel() + packed.dev.numel())
-    return 1e3 * max((lower * ops0 + upper * ops1) / PEAK_F32_FLOPS,
-                     (w * nbytes + const_bytes) / PEAK_BYTES), (ops0, ops1)
+    bytes_s = (w * nbytes + const_bytes) / PEAK_BYTES
+    ops = lower * ops0 + upper * ops1
+    prod = lower * prod0 + upper * prod1
+    bound_ms = 1e3 * max(prod / PEAK_TF32_FLOPS + ops / PEAK_F32_FLOPS, bytes_s)
+    ffma_ms = 1e3 * max((prod + ops) / PEAK_F32_FLOPS, bytes_s)
+    return bound_ms, ffma_ms, ((ops0, prod0), (ops1, prod1))
 
 
 def phase_w0wa_fast(card, ptxas_split):
@@ -747,13 +795,17 @@ def phase_w0wa_fast(card, ptxas_split):
     print(f"phase 12: fast w0wacdm flagship bao.desi_cmb_des5y/w0wacdm (synthetic dense 1829^2 "
           f"SN) built and packed in {build_s:.2f}s: {ranks}; {4 * h['H_SIZE']} bytes of shared "
           f"constants, {4 * packed.dev.numel()} bytes of TT cores and tails in device memory, "
-          f"{2 * h['H_BOND'] * 128 * 4} bytes of sweep scratch a block; {ptxas_split}")
+          f"{fl.split_smem_bytes(h)} bytes of shared memory a block (constants, the sweep's "
+          f"{fl._stride(packed)} rows of {fl.VLD} floats, a ring of {fl.STAGES} core slices); "
+          f"{ptxas_split}")
 
     i_w0, i_wa = fit.spec.names.index("w0"), fit.spec.names.index("wa")
     batches = {
         "bench 65536": _flagship_walkers(fit, BENCH_WALKERS, seed=12),
         "bench 262144": _flagship_walkers(fit, BIG_WALKERS, seed=13),
         "uniform 65536": _box_walkers(fit, BENCH_WALKERS, seed=14),
+        "alternating 65536": _one_half(fit, BENCH_WALKERS, seed=22, alternate=True),
+        "half-1 65536": _one_half(fit, BENCH_WALKERS, seed=23, alternate=False),
         "seam 65536": _box_walkers(fit, BENCH_WALKERS, seed=15, seam=True),
         "uniform 70": _box_walkers(fit, 70, seed=16),
         "bench 1": _flagship_walkers(fit, 1, seed=17),
@@ -776,6 +828,15 @@ def phase_w0wa_fast(card, ptxas_split):
               f"half 1): max abs err {err:.3e} ({err / scale:.3e} of max|logp|); -inf rows agree")
         if label == "bench 65536":
             result["max_abs_err"] = err
+        if label == "alternating 65536" and lower != upper:
+            raise AssertionError(f"the alternating batch has {lower} + {upper} walkers in halves")
+        if label == "half-1 65536" and lower != 0:
+            raise AssertionError(f"the half-1 batch has {lower} walkers in half 0")
+    (pad0, rows0), (pad1, rows1) = _group_padding(
+        fit, torch.as_tensor(batches["uniform 65536"], device="cuda"))
+    print(f"phase 12: grouping by half on the uniform 65536 draw padded {pad0} rows of the "
+          f"{rows0} computed in half 0 ({100 * pad0 / max(rows0, 1):.2f}%) and {pad1} of {rows1} "
+          f"in half 1 ({100 * pad1 / max(rows1, 1):.2f}%)")
 
     # each term alone against its own max|logp|, on the uniform batch (both
     # halves); the CMB also on walkers with s = w0 + wa > 1.5, where the CPL
@@ -852,19 +913,22 @@ def phase_w0wa_fast(card, ptxas_split):
               f"plain at W=4096: bench {worst[0]:.3e}, uniform {worst[1]:.3e} of max|logp|")
 
     timing = {}
-    for label in ("bench 65536", "bench 262144", "uniform 65536"):
+    for label in ("bench 65536", "bench 262144", "uniform 65536", "alternating 65536",
+                  "half-1 65536"):
         theta = torch.as_tensor(np.nan_to_num(batches[label], nan=0.3), device="cuda")
         w = theta.shape[0]
         ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=5)
         plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), reps=5,
                               inner=1)
-        bound_ms, ops = _split_bound_ms(fl, fit, packed, theta)
+        bound_ms, ffma_ms, ops = _split_bound_ms(fl, fit, packed, theta)
         lower, upper = _halves_of(fit, theta)
         print(f"phase 12: fused_log_prob w0wacdm {label} ({lower} + {upper} walkers in halves "
               f"0 + 1) on {card}: kernel {ms:.4f} ms ({w / ms * 1e3:.1f} evals/s), plain "
-              f"{plain_ms:.4f} ms (CUDA events, medians); bound {bound_ms:.4f} ms ({ops[0]} and "
-              f"{ops[1]} f32 ops a walker in halves 0 and 1)")
-        timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+              f"{plain_ms:.4f} ms (CUDA events, medians); bound {bound_ms:.4f} ms (halves 0 "
+              f"and 1: {ops[0][1]} and {ops[1][1]} product ops a walker at the TF32 peak, "
+              f"{ops[0][0]} and {ops[1][0]} other ops at the f32 peak), {ffma_ms:.4f} ms with "
+              f"every op at the f32 peak")
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms)
 
     theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device="cuda")
     _reset_counts()
@@ -889,7 +953,9 @@ def phase_w0wa_fast(card, ptxas_split):
                 ms_262144=timing["bench 262144"]["ms"],
                 bound_ms_262144=timing["bench 262144"]["bound_ms"],
                 ms_uniform=timing["uniform 65536"]["ms"],
-                bound_ms_uniform=timing["uniform 65536"]["bound_ms"])
+                bound_ms_uniform=timing["uniform 65536"]["bound_ms"],
+                ms_alternating=timing["alternating 65536"]["ms"],
+                ms_half1=timing["half-1 65536"]["ms"])
 
 
 def main():
@@ -912,7 +978,7 @@ def main():
     for src, b in zip((SOURCE, FUSED_SOURCE), built):
         ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
-    ptxas_split = _ptxas_of(built[1].log, "ILb1E") or "ptxas report not found"
+    ptxas_split = _ptxas_of(built[1].log, "split_kernel") or "ptxas report not found"
 
     timing = phase_kernel(card)
     phase_anchor()

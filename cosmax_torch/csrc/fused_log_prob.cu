@@ -12,13 +12,12 @@
 //      of a node), folded straight into the Tucker factor projections
 //      wp_i = U_i^T w_i: a second pass recomputes bw/diff, so the node
 //      weights are never stored. On the split w0wacdm grid (#1b) the
-//      walker takes half 0 if s = w0 + wa <= 0, else half 1, and computes
-//      that half only (a thread branches; the value is the reference's
-//      jnp.where, cosmax/models/linear_chi2.py:575-587): the tensor-train
-//      sweep v <- w_0^T G_0, then v'[r] = sum_p sum_n v[p] w[n] G[p, n, r]
-//      for the two later cores, the weights of each (Om, wa, s) axis
-//      recomputed from bw/diff as the sweep needs them; the coefficient
-//      vector is then a = v^T tail;
+//      walker takes half 0 if s = w0 + wa <= 0, else half 1 (the
+//      reference's jnp.where, cosmax/models/linear_chi2.py:575-587), and
+//      only that half is computed for it: the tensor-train sweep v <- w_0^T
+//      G_0, then v'[r] = sum_n sum_p w[n] v[p] G[n, p, r] for the two later
+//      cores (block products on the tensor cores, see below); the
+//      coefficient vector is then a = v^T tail;
 //   3. the emulated terms, one form at a time. Each form owns a window of
 //      the core's columns, whole quads (float4) in an order the packer
 //      chose; the window is contracted a[q] = sum_jk wp1[j] wp2[k]
@@ -48,15 +47,17 @@
 // both files), 14 KB for the flagship, 45 KB for the multiprobe joint in
 // wzcdm and 80 KB in wcdm. The split grid's TT cores and tails (620 KB for
 // the w0wacdm flagship, more than a block's shared memory) stay in a
-// second buffer in device memory.
+// second buffer in device memory, each core a matrix [n r_in][r] read
+// slice by slice.
 //
 // What bounds it on the card: per walker about 9.1k f32 operations for the
 // flagship and 25k for the multiprobe joint (wzcdm; 20k of them in the
 // core contraction), about 198k (half 0) or 107k (half 1) for the w0wacdm
-// flagship, nearly all in the TT sweep, against 28-48 bytes of HBM
-// traffic (theta in, logp out). It is bound by operations (FFMA issue,
-// the loads that feed it, and the accurate transcendental sequences),
-// never by memory.
+// flagship, 184k (half 0) of them in the TT sweep's two products with
+// r_in > 1, against 28-48 bytes of HBM traffic (theta in, logp out). It is
+// bound by operations (FFMA issue, the loads that feed it, and the
+// accurate transcendental sequences; on the split grid the tensor cores'
+// TF32 rate for the sweep's products), never by memory.
 //
 // What the design does about it:
 // * One thread per walker, 128 threads a block; the block first copies the
@@ -72,19 +73,44 @@
 //   compile-time bounds with uniform guards. wp1 and wp2 stay in
 //   per-thread slices of shared memory ([j][thread], conflict-free), read
 //   back by the thread that wrote them.
-// * The TT sweep (kernel instance SPLIT) reads its cores through the
-//   read-only path (__ldg, float4): the threads of a warp on one half read
-//   one address at each step, served by L1, and both halves' cores stay
-//   resident in L2. Each step accumulates RC quads of output ranks at a
-//   time in registers, so register use stays flat in the bond rank (up to
-//   MAX_BOND); the sweep vectors live in per-thread slices of shared
-//   memory sized by the largest padded bond of the packed fit. A warp
-//   whose walkers straddle s = 0 runs both sweeps, masked.
+// * The TT sweep (the split instance, its own kernel
+//   fused_log_prob_split_kernel) runs per block, not per thread. The block
+//   first groups its walkers by half (ballots): half 0's take rows [0, c0)
+//   of the block's sweep arrays, half 1's rows [THREADS - c1, THREADS).
+//   The first step (r_in = 1), each step's barycentric weights, the tail
+//   and the forms run per walker in its own half, once for both halves;
+//   each later step is one block product per half, C[rows, r] =
+//   A[rows, n r_in] G[n r_in, r], over the half's rows padded to m-tiles
+//   of 16 (at most 15 padding rows a half, which lie on the other half's
+//   rows: read, never written), where a warp that straddled s = 0 ran
+//   both sweeps before. A[b, (m, p)] = w_m(b) v_b[p] is formed fragment
+//   by fragment from the weights [n][VLD] and the sweep vector [r_in][VLD]
+//   in shared memory, never stored. The products run on the tensor cores
+//   (mma.sync m16n8k8 TF32, f32 accumulation) in 3xTF32: each operand x =
+//   hi + lo with hi = tf32(x), lo = tf32(x - hi) (rounded to nearest,
+//   ties away, as cvt.rna.tf32.f32), and the sum of a_hi b_hi + a_hi b_lo
+//   + a_lo b_hi keeps f32 accuracy (one pass of TF32 keeps ~3 digits, too
+//   few for the reference-centred forms). G streams through a ring of
+//   STAGES shared-memory slices of KSLICE rows by cp.async, so each slice
+//   is read from L2 once per block of THREADS walkers, not once per warp;
+//   B's hi/lo split is done at fragment load. A warp owns m-tiles warp and
+//   warp + 4 and all n-tiles of a column pass (NCOL columns; a half of one
+//   or two m-tiles is spread over all warps by n-tiles), so its
+//   accumulators stay in registers for the whole K loop; the tile counts
+//   are compile-time in the slice's code (an instance per count), so the
+//   slice is straight-line code whose tiles' mma interleave. The tensor
+//   cores' f32 adds truncate: each slice sums from zero and is added to
+//   the accumulators with rounding FADDs. A product of one column pass
+//   writes its output over its input,
+//   which keeps the flagship's block at 76 KB of shared memory and 168
+//   registers: three blocks an SM.
 // * Accurate libm functions and IEEE division and square root (no
 //   --use_fast_math): the CMB term divides theta* by its sigma ~ 2.6e-6,
 //   and the quasar term takes 22 logf a walker.
 // * The ragged last block is masked; each thread reads and writes only its
-//   own walker, so a NaN walker stays in its row.
+//   own walker, so a NaN walker stays in its row (on the split grid a
+//   product's rows are independent, and only a walker's own row of C is
+//   written).
 // Maxima such as MAX_RANK are compile-time; the packer refuses larger fits.
 
 #include <cuda_runtime.h>
@@ -106,9 +132,34 @@ constexpr int THREADS = 128;
 // windows of the rank-9/10 linear forms in one chunk; the fastest of 3-8
 // on the flagship and the multiprobe joint (fused_ab.py, PERF.md)
 constexpr int QC = 5;
-// output-rank quads of a TT step accumulated together (acc[RC]): 8 was 7%
-// faster than 4 and 10% faster than 2 on the w0wacdm flagship (fused_ab.py)
+// output-rank quads of the first TT step accumulated together (acc[RC])
 constexpr int RC = 8;
+// the split grid's block products: A's rows (the block's walkers) at a
+// stride of VLD floats, G staged in slices of KSLICE rows of one column
+// pass (at most NCOL columns) at a stride of SLD floats, in a ring of
+// STAGES slices. VLD and SLD are 8 mod 32, so that the fragments' shared
+// loads (lanes 4 g + t at row t, column g) fall on 32 banks.
+constexpr int VLD = 136;
+constexpr int KSLICE = 32;
+constexpr int NCOL = 56;
+constexpr int SLD = 72;
+constexpr int STAGES = 2;
+// k-steps of 8 unrolled together in a slice: the slice's code is an
+// instance per tile count, so its size counts against the instruction cache
+constexpr int KUNROLL = 2;
+constexpr int MIN_RIN = 8;  // a block product's r_in (the packer pads smaller bonds)
+// zero rows after the n rows of weights: the nodes m >= n of G's padding
+// rows (up to KSLICE - 1 of them) read weight 0, without a test
+constexpr int WPAD = 4;
+constexpr int WARPS = THREADS / 32;
+constexpr int MT_WARP = THREADS / 16 / WARPS;  // m-tiles of 16 rows a warp
+// blocks of the split instance an SM should hold (registers capped to fit;
+// the flagship's shared memory, 76 KB a block, fits three)
+constexpr int SPLIT_BLOCKS = 3;
+static_assert(VLD >= THREADS && VLD % 32 == 8 && SLD >= NCOL && SLD % 32 == 8, "bank layout");
+static_assert(KSLICE % 8 == 0 && NCOL % 8 == 0 && STAGES >= 2, "tile shapes");
+static_assert(MIN_RIN >= 8, "a k-step of 8 columns wraps r_in at most once");
+static_assert(WPAD * MIN_RIN >= KSLICE, "G's padding rows lie on the zero rows of weights");
 
 // header slots (cosmax_torch/ops/kernels/fused_log_prob.py: HEADER)
 constexpr int H_MAGIC = 0;
@@ -142,7 +193,7 @@ constexpr int H_OFF_CMB = 27;
 constexpr int H_I_WA = 28;
 constexpr int H_SPLIT = 29;
 constexpr int H_OFF_HALVES = 30;
-constexpr int H_BOND = 31;
+constexpr int H_VROWS = 31;
 
 // one half of the split grid (HALF)
 // (per core i = 0, 1, 2 the slots T_PERM0 + i, T_AX0 + i, T_N0 + i,
@@ -284,8 +335,8 @@ __device__ void project_axis(float x, const float* nodes, const float* bw, const
 // projections formed once per (j, k) and chunk (the core is [r1][r2][nq]
 // float4s, so a chunk's loads lie together at compile-time offsets);
 // consume(i, a[q0 + i]) then takes each quad of the chunk in order. wp1 and
-// wp2 are the thread's slices of shared memory, at [j * THREADS].
-template <typename Consume>
+// wp2 are the thread's slices of shared memory, at [j * S].
+template <int S = THREADS, typename Consume>
 __device__ __forceinline__ void contract_window(const float4* core, int nq, int q0, int n, int r1,
                                                 int r2, const float* wp1, const float* wp2,
                                                 Consume&& consume) {
@@ -295,10 +346,10 @@ __device__ __forceinline__ void contract_window(const float4* core, int nq, int 
 #pragma unroll
     for (int c = 0; c < QC; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int j = 0; j < r1; ++j) {
-      const float w1 = wp1[j * THREADS];
+      const float w1 = wp1[j * S];
       const float4* row = core + j * r2 * nq + q0 + c0;
       for (int k = 0; k < r2; ++k, row += nq) {
-        const float cw = w1 * wp2[k * THREADS];
+        const float cw = w1 * wp2[k * S];
 #pragma unroll
         for (int c = 0; c < QC; ++c) {
           if (c < nc) {
@@ -394,17 +445,12 @@ __device__ float cmb_chi2(const float* c, const float* th, float h0, float om, f
   return chi2;
 }
 
-// one tensor-train step: v_out[r] = sum_n w[n] sum_p v_in[p] G[n][p][r] for
-// the nq output quads of r, where w are the barycentric weights of x on the
-// n nodes (a one-hot within 1e-14 of a node), recomputed from bw/diff per
-// chunk of RC quads so that they are never stored. G is [n][rin][4 nq] in
-// device memory, read as float4 through the read-only path. v_in and v_out
-// are the thread's slices of shared memory, at [p * THREADS].
-__device__ __forceinline__ void tt_step(const float4* __restrict__ g, int nq, int rin, float x,
-                                        const float* nodes, const float* bw, int n,
-                                        const float* v_in, float* v_out) {
+// the barycentric sum of x on the n nodes, and how many nodes lie within
+// 1e-14 of x (then the weights are a one-hot)
+__device__ __forceinline__ float bary_sum(float x, const float* nodes, const float* bw, int n,
+                                          int& n_near) {
   float sum = 0.0f;
-  int n_near = 0;
+  n_near = 0;
   for (int m = 0; m < n; ++m) {
     const float d = x - nodes[m];
     if (fabsf(d) < 1e-14f) {
@@ -413,40 +459,289 @@ __device__ __forceinline__ void tt_step(const float4* __restrict__ g, int nq, in
       sum += bw[m] / d;
     }
   }
+  return sum;
+}
+
+__device__ __forceinline__ float bary_weight(float x, float node, float bw, float sum, int n_near) {
+  const float d = x - node;
+  const bool near = fabsf(d) < 1e-14f;
+  return n_near > 0 ? (near ? 1.0f : 0.0f) : (bw / d) / sum;
+}
+
+// the first tensor-train step of one walker: v[r] = sum_n w[n] G[n][r] for
+// the nq output quads of r, the weights recomputed per chunk of RC quads so
+// that they are never stored. G is [n][4 nq] in device memory, read as
+// float4 through the read-only path; v is the walker's column of the
+// block's sweep vectors, at [r * VLD].
+__device__ __forceinline__ void tt_first(const float4* __restrict__ g, int nq, float x,
+                                         const float* nodes, const float* bw, int n, float* v) {
+  int n_near;
+  const float sum = bary_sum(x, nodes, bw, n, n_near);
   for (int q0 = 0; q0 < nq; q0 += RC) {
     const int nc = min(RC, nq - q0);
     float4 acc[RC];
 #pragma unroll
     for (int c = 0; c < RC; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int m = 0; m < n; ++m) {
-      const float d = x - nodes[m];
-      const bool near = fabsf(d) < 1e-14f;
-      const float wm = n_near > 0 ? (near ? 1.0f : 0.0f) : (bw[m] / d) / sum;
-      const float4* row = g + m * rin * nq + q0;
-      for (int p = 0; p < rin; ++p, row += nq) {
-        const float cw = wm * v_in[p * THREADS];
+      const float wm = bary_weight(x, nodes[m], bw[m], sum, n_near);
+      const float4* row = g + m * nq + q0;
 #pragma unroll
-        for (int c = 0; c < RC; ++c) {
-          if (c < nc) {
-            const float4 v = __ldg(row + c);
-            acc[c].x = fmaf(cw, v.x, acc[c].x);
-            acc[c].y = fmaf(cw, v.y, acc[c].y);
-            acc[c].z = fmaf(cw, v.z, acc[c].z);
-            acc[c].w = fmaf(cw, v.w, acc[c].w);
-          }
+      for (int c = 0; c < RC; ++c) {
+        if (c < nc) {
+          const float4 u = __ldg(row + c);
+          acc[c].x = fmaf(wm, u.x, acc[c].x);
+          acc[c].y = fmaf(wm, u.y, acc[c].y);
+          acc[c].z = fmaf(wm, u.z, acc[c].z);
+          acc[c].w = fmaf(wm, u.w, acc[c].w);
         }
       }
     }
 #pragma unroll
     for (int c = 0; c < RC; ++c) {
       if (c < nc) {
-        float* o = v_out + 4 * (q0 + c) * THREADS;
+        float* o = v + 4 * (q0 + c) * VLD;
         o[0] = acc[c].x;
-        o[THREADS] = acc[c].y;
-        o[2 * THREADS] = acc[c].z;
-        o[3 * THREADS] = acc[c].w;
+        o[VLD] = acc[c].y;
+        o[2 * VLD] = acc[c].z;
+        o[3 * VLD] = acc[c].w;
       }
     }
+  }
+}
+
+// the walker's barycentric weights of x on the n nodes, at w[m * VLD]
+__device__ __forceinline__ void bary_weights(float x, const float* nodes, const float* bw, int n,
+                                             float* w) {
+  int n_near;
+  const float sum = bary_sum(x, nodes, bw, n, n_near);
+  for (int m = 0; m < n; ++m) w[m * VLD] = bary_weight(x, nodes[m], bw[m], sum, n_near);
+}
+
+// 16 bytes from device memory into shared memory, asynchronously (L2 only)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: the bits of cvt.rna.tf32.f32 for a finite x, in two integer
+// operations (sm_90 has no such cvt; ptxas expands it into a sequence
+// that also keeps infinities)
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to f32 accuracy: hi = tf32(x), lo = tf32(x - hi), as TF32
+// bit patterns
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a b on the tensor cores: a 16 x 8 (row-major fragment), b 8 x 8
+// (column-major), c 16 x 8 f32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the operands of one later tensor-train step as a block product: the
+// weights w [n + WPAD][VLD] and the sweep vector v_in [r_in][VLD] of A, and this
+// lane's two columns of A in the current k-step of 8, k = m r_in + p at
+// k0 + tg and k0 + tg + 4 (node m, input rank p)
+struct StepA {
+  const float* w;
+  const float* v_in;
+  int rin;
+  int m0, p0, m1, p1;
+  // the next k-step: each p moves 8 on and wraps at most once (r_in >= 8)
+  __device__ __forceinline__ void advance() {
+    p0 += 8;
+    p1 += 8;
+    const bool wrap0 = p0 >= rin;
+    const bool wrap1 = p1 >= rin;
+    p0 = wrap0 ? p0 - rin : p0;
+    p1 = wrap1 ? p1 - rin : p1;
+    m0 += wrap0;
+    m1 += wrap1;
+  }
+};
+
+// one staged slice of G (KSLICE rows) for a warp's MT m-tiles and NT
+// n-tiles, both compile-time so that the slice is one straight-line block:
+// A's fragments formed from w and v_in and split at once, B's read from the
+// stage and split, then the three passes of 3xTF32 (small terms first);
+// the code is straight-line, so the scheduler interleaves the tiles'
+// independent mma. The tensor cores add in f32 with their operands aligned and truncated, not
+// rounded: over a whole K of ~2,000 the bias reached 1e-4 of logp on
+// bao.desi, so the slice's sums start from zero and are added to acc with
+// rounding FADDs. st points at the stage's row tg, column gr; row0 is the
+// lane's first row.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_slice(const float* st, int row0, StepA& a,
+                                          float (&acc)[MT_WARP][NCOL / 8][4]) {
+  float part[MT][NT][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) part[t][j][0] = part[t][j][1] = part[t][j][2] = part[t][j][3] = 0.0f;
+#pragma unroll KUNROLL
+  for (int kk = 0; kk < KSLICE; kk += 8) {
+    // A: rows row and row + 8, columns k = tg and tg + 4 (the rows of G
+    // that pad it to whole slices meet the zero rows of w, m >= n)
+    const float* w0 = a.w + a.m0 * VLD;
+    const float* w1 = a.w + a.m1 * VLD;
+    const float* v0 = a.v_in + a.p0 * VLD;
+    const float* v1 = a.v_in + a.p1 * VLD;
+    unsigned ahi[MT][4], alo[MT][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const int row = row0 + 16 * WARPS * t;
+      split_tf32(w0[row] * v0[row], ahi[t][0], alo[t][0]);
+      split_tf32(w0[row + 8] * v0[row + 8], ahi[t][1], alo[t][1]);
+      split_tf32(w1[row] * v1[row], ahi[t][2], alo[t][2]);
+      split_tf32(w1[row + 8] * v1[row + 8], ahi[t][3], alo[t][3]);
+    }
+    a.advance();
+    // B: one n-tile at a time, its fragments live only for its own mma
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      unsigned bhi0, blo0, bhi1, blo1;
+      split_tf32(st[kk * SLD + 8 * j], bhi0, blo0);
+      split_tf32(st[(kk + 4) * SLD + 8 * j], bhi1, blo1);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) mma_tf32(part[t][j], alo[t], bhi0, bhi1);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) mma_tf32(part[t][j], ahi[t], blo0, blo1);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) mma_tf32(part[t][j], ahi[t], bhi0, bhi1);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] += part[t][j][e];
+}
+
+// mma_slice for the pass's n-tile count nt (1 to NCOL / 8)
+template <int MT, int NT = 1>
+__device__ __forceinline__ void mma_slice_nt(int nt, const float* st, int row0, StepA& a,
+                                             float (&acc)[MT_WARP][NCOL / 8][4]) {
+  if constexpr (NT < NCOL / 8) {
+    if (nt != NT) {
+      mma_slice_nt<MT, NT + 1>(nt, st, row0, a, acc);
+      return;
+    }
+  }
+  mma_slice<MT, NT>(st, row0, a, acc);
+}
+
+// one later tensor-train step as a block product over one half's rows
+// [lo, hi) (lo = 0, or hi = THREADS), in m-tiles of 16 rows whose padding
+// rows lie on the other half's rows: v_out[r][b] = sum_{m, p} (w[m][b] v_in[p][b])
+// G[m r_in + p][r] for r < rout, in 3xTF32 on the tensor cores. G is
+// [kp][np] in device memory (kp = n r_in padded to KSLICE rows of zeros, np
+// = rout padded to 8), streamed through the ring by cp.async, NCOL columns
+// a pass. A warp owns the m-tiles warp and warp + WARPS, or in a half of
+// one or two m-tiles one m-tile and a share of the n-tiles. v_out may be
+// v_in when np <= NCOL (one pass). Every thread of the block calls it (it
+// holds the barriers).
+__device__ __forceinline__ void block_step(const float* __restrict__ g, int n, int rin, int rout,
+                                           int lo, int hi, const float* w, const float* v_in,
+                                           float* v_out, float* ring) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int gr = (tid & 31) >> 2;  // the fragments' row (A, C) or column (B) in the tile
+  const int tg = tid & 3;          // ... and column (A) or row (B)
+  // m-tiles of 16 rows over [lo, hi), from row 0 up or from THREADS down
+  const int mt = (hi - lo + 15) >> 4;
+  const int base = lo == 0 ? 0 : THREADS - 16 * mt;
+  // the warp's share: m-tiles warp and warp + WARPS, all n-tiles; a half of
+  // one or two m-tiles is spread over every warp, each taking one m-tile
+  // and a part of the n-tiles
+  const int parts = mt > 2 ? 1 : WARPS / mt;
+  const int part = mt > 2 ? 0 : warp / mt;
+  const int row0 = base + (mt > 2 ? warp : warp % mt) * 16 + gr;
+  const int mtiles = mt > 2 ? (warp < mt) + (warp + WARPS < mt) : 1;
+  const int np = (rout + 7) & ~7;
+  const int nslices = (n * rin + KSLICE - 1) / KSLICE;
+  for (int c0 = 0; c0 < np; c0 += NCOL) {
+    const int nt = min(NCOL, np - c0) >> 3;
+    const int j0 = part * nt / parts;  // the warp's n-tiles [j0, j0 + ntw)
+    const int ntw = (part + 1) * nt / parts - j0;
+    const int tiles = ntw > 0 ? mtiles : 0;
+    const int chunks = 2 * nt;  // 16-byte chunks of a slice row
+    auto issue = [&](int sl) {
+      float* dst = ring + (sl % STAGES) * (KSLICE * SLD);
+      const float* src = g + static_cast<long long>(sl) * KSLICE * np + c0;
+      for (int c = tid; c < KSLICE * chunks; c += THREADS) {
+        const int r = c / chunks;
+        const int q = c - r * chunks;
+        cp_async16(dst + r * SLD + 4 * q, src + r * np + 4 * q);
+      }
+    };
+#pragma unroll
+    for (int sl = 0; sl < STAGES - 1; ++sl) {
+      if (sl < nslices) issue(sl);
+      cp_async_commit();
+    }
+    float acc[MT_WARP][NCOL / 8][4];
+#pragma unroll
+    for (int t = 0; t < MT_WARP; ++t)
+#pragma unroll
+      for (int j = 0; j < NCOL / 8; ++j)
+        acc[t][j][0] = acc[t][j][1] = acc[t][j][2] = acc[t][j][3] = 0.0f;
+    // k = tg and tg + 4 lie on node 0 (r_in >= 8)
+    StepA a{w, v_in, rin, 0, tg, 0, tg + 4};
+    for (int sl = 0; sl < nslices; ++sl) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // slice sl landed for all; slice sl - 1's stage is free
+      if (sl + STAGES - 1 < nslices) issue(sl + STAGES - 1);
+      cp_async_commit();
+      const float* st = ring + (sl % STAGES) * (KSLICE * SLD) + tg * SLD + 8 * j0 + gr;
+      if (tiles == 2) {
+        mma_slice_nt<2>(ntw, st, row0, a, acc);
+      } else if (tiles == 1) {
+        mma_slice_nt<1>(ntw, st, row0, a, acc);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with v_in and w: v_out may be v_in
+    // C: rows row and row + 8, columns 2 tg and 2 tg + 1; only the half's
+    // own rows [lo, hi) are written
+#pragma unroll
+    for (int t = 0; t < MT_WARP; ++t) {
+      const int row = row0 + 16 * WARPS * t;
+      const bool in0 = lo <= row && row < hi;
+      const bool in8 = lo <= row + 8 && row + 8 < hi;
+#pragma unroll
+      for (int j = 0; j < NCOL / 8; ++j) {
+        const int col = c0 + 8 * (j0 + j) + 2 * tg;
+        if (t < tiles && j < ntw && col < rout) {
+          if (in0) v_out[col * VLD + row] = acc[t][j][0];
+          if (in8) v_out[col * VLD + row + 8] = acc[t][j][2];
+        }
+        if (t < tiles && j < ntw && col + 1 < rout) {
+          if (in0) v_out[(col + 1) * VLD + row] = acc[t][j][1];
+          if (in8) v_out[(col + 1) * VLD + row + 8] = acc[t][j][3];
+        }
+      }
+    }
+    __syncthreads();  // v_out complete; the ring free again
   }
 }
 
@@ -533,15 +828,42 @@ __device__ __forceinline__ void eval_forms(const float* s, const float* forms, i
   }
 }
 
-// SPLIT: the split w0wacdm grid, a TT sweep per walker over ``tt``;
-// otherwise the native grid's Tucker core in shared memory. ``stride``:
-// floats of each of the two per-thread scratch slices.
+// the walker's row in the block's sweep, and each half's walker count:
+// ballots per warp, the warps' counts through shared memory. Half 0's
+// walkers take rows [0, count0), half 1's rows [THREADS - count1, THREADS).
+// mine is the walker's half, or -1 for a thread past the last walker.
+__device__ __forceinline__ int group_rows(int mine, int& count0, int& count1) {
+  __shared__ int s_count[2][WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned in0 = __ballot_sync(0xffffffffu, mine == 0);
+  const unsigned in1 = __ballot_sync(0xffffffffu, mine == 1);
+  if (lane == 0) {
+    s_count[0][warp] = __popc(in0);
+    s_count[1][warp] = __popc(in1);
+  }
+  __syncthreads();
+  int before = 0;
+  count0 = count1 = 0;
+  for (int k = 0; k < WARPS; ++k) {
+    count0 += s_count[0][k];
+    count1 += s_count[1][k];
+    if (k < warp && mine >= 0) before += s_count[mine][k];
+  }
+  const int index = before + __popc((mine == 0 ? in0 : in1) & ((1u << lane) - 1u));
+  return mine == 0 ? index : THREADS - count1 + index;
+}
+
+// SPLIT: the split w0wacdm grid, the TT sweep of each half as block
+// products over ``tt``; otherwise the native grid's Tucker core in shared
+// memory. ``stride``: on the native grid the floats of each of the two
+// per-thread scratch slices; on the split grid the rows of VLD floats of the
+// sweep's weights and vectors (the node count, WPAD and H_VROWS).
 template <bool SPLIT>
-__global__ void __launch_bounds__(THREADS)
-fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
-                      const float* __restrict__ tt, int stride,
-                      const float* __restrict__ theta, float* __restrict__ out,
-                      long long W, int D) {
+__device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts, int n_consts,
+                                               const float* __restrict__ tt, int stride,
+                                               const float* __restrict__ theta,
+                                               float* __restrict__ out, long long W, int D) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   for (int i = threadIdx.x; i < n_consts; i += THREADS) s[i] = consts[i];
@@ -549,10 +871,13 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
 
   const int tid = threadIdx.x;
   const long long w = static_cast<long long>(blockIdx.x) * THREADS + tid;
-  if (w >= W) return;  // the ragged last block; no barrier follows
-  const float* th = theta + w * D;
-  float* s_wp1 = s + ((n_consts + 3) & ~3);  // [stride][THREADS]
-  float* s_wp2 = s_wp1 + (SPLIT ? stride : MAX_RANK) * THREADS;
+  // the ragged last block: the native grid returns at once (no barrier
+  // follows); on the split grid a thread past the end takes part in the
+  // block's barriers on a copy of the last walker and writes nothing
+  if (!SPLIT && w >= W) return;
+  const float* th = theta + (SPLIT ? min(w, W - 1) : w) * D;
+  float* s_wp1 = s + ((n_consts + 3) & ~3);  // [stride][THREADS], or the sweep's [stride][VLD]
+  float* s_wp2 = s_wp1 + MAX_RANK * THREADS;
 
   // 1. derived parameters
   const int model = static_cast<int>(s[H_MODEL]);
@@ -570,34 +895,71 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
   float log_norm = 0.0f;
 
   if constexpr (SPLIT) {
-    // 2. the walker's half, its TT sweep into the thread's slices
+    // 2. the walkers grouped by half (a NaN s takes half 1, as jnp.where)
     const float sv = w0 + wa;
-    const float* hb = s + static_cast<int>(s[H_OFF_HALVES]) + (sv <= 0.0f ? 0 : HALF_STRIDE);
+    const int mine = w < W ? (sv <= 0.0f ? 0 : 1) : -1;
+    const int n = static_cast<int>(s[H_N1]);  // every axis of the split grid
+    const int vrows = stride - n - WPAD;
     const float* bw = s + static_cast<int>(s[H_OFF_BW1]);
-    float* va = s_wp1 + tid;
-    float* vb = s_wp2 + tid;
-    const float* v_in = hb + T_ONE;  // the first core's input: 1
-    int rin = 1;
-    for (int i = 0; i < 3; ++i) {
-      const int r = static_cast<int>(hb[T_R1 + i]);
-      const int axis = static_cast<int>(hb[T_PERM0 + i]);  // 0 Om, 1 wa, 2 s
-      float* v_out = (i == 1) ? vb : va;
-      tt_step(reinterpret_cast<const float4*>(tt + static_cast<int>(hb[T_G0 + i])),
-              (r + 3) >> 2, rin, axis == 0 ? om : (axis == 1 ? wa : sv),
-              s + static_cast<int>(hb[T_AX0 + i]), bw, static_cast<int>(hb[T_N0 + i]), v_in,
-              v_out);
-      v_in = v_out;
-      rin = r;
+    float* s_w = s_wp1;                     // [n + WPAD][VLD] the weights of one step
+    float* s_v = s_w + (n + WPAD) * VLD;    // [vrows][VLD] the sweep vectors
+    float* ring = s_w + stride * VLD;       // [STAGES][KSLICE][SLD] slices of G
+    for (int i = tid; i < WPAD * VLD; i += THREADS) s_w[n * VLD + i] = 0.0f;
+    int count0, count1;
+    const int pos = group_rows(mine, count0, count1);  // its barrier publishes the zeros
+    const float* halves = s + static_cast<int>(s[H_OFF_HALVES]);
+    const float* hm = halves + (mine > 0 ? HALF_STRIDE : 0);  // the walker's own half
+    const bool live = mine >= 0;
+    auto coord = [&](int i) {  // the walker's core i's axis: 0 Om, 1 wa, 2 s
+      const int axis = static_cast<int>(hm[T_PERM0 + i]);
+      return axis == 0 ? om : (axis == 1 ? wa : sv);
+    };
+    // the first step per walker, each in its own half, into the front of
+    // s_v; then per later step each walker's weights, and each half's block
+    // product over its rows: half 0 rows [0, count0), half 1 rows
+    // [THREADS - count1, THREADS), a product's padding rows lying on the
+    // other half's rows (read, never written). A product of one column
+    // pass writes its output over its input, a wider one at the other end
+    // of s_v.
+    if (live) {
+      tt_first(reinterpret_cast<const float4*>(tt + static_cast<int>(hm[T_G0])),
+               ((static_cast<int>(hm[T_R1]) + 7) & ~7) >> 2, coord(0),
+               s + static_cast<int>(hm[T_AX0]), bw, n, s_v + pos);
+    }
+    float* v0 = s_v;  // each half's sweep vectors
+    float* v1 = s_v;
+#pragma unroll 1
+    for (int i = 1; i < 3; ++i) {
+      if (live) bary_weights(coord(i), s + static_cast<int>(hm[T_AX0 + i]), bw, n, s_w + pos);
+      __syncthreads();
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {  // one call site: the products' code is large
+        const int count = h == 0 ? count0 : count1;
+        if (count == 0) continue;
+        const float* hb = halves + h * HALF_STRIDE;
+        const int r = static_cast<int>(hb[T_R1 + i]);
+        const int np = (r + 7) & ~7;
+        float* v_in = h == 0 ? v0 : v1;
+        float* v_out = np <= NCOL ? v_in : (v_in == s_v ? s_v + (vrows - np) * VLD : s_v);
+        block_step(tt + static_cast<int>(hb[T_G0 + i]), n, static_cast<int>(hb[T_R1 + i - 1]), r,
+                   h == 0 ? 0 : THREADS - count, h == 0 ? count : THREADS, s_w, v_in, v_out,
+                   ring);
+        v0 = h == 0 ? v_out : v0;
+        v1 = h == 0 ? v1 : v_out;
+      }
     }
     // 3. the emulated terms, each window a = v^T tail over its quads
-    const float4* tail = reinterpret_cast<const float4*>(tt + static_cast<int>(hb[T_TAIL]));
-    const int nq = static_cast<int>(hb[T_NQ]);
-    const int r3 = static_cast<int>(hb[T_R3]);
-    const float* one = hb + T_ONE;
-    eval_forms(s, s + static_cast<int>(hb[T_OFF_FORMS]), n_forms, th, h0, t, chi2, log_norm,
-               [&](int q0, int n, auto&& consume) {
-                 contract_window(tail, nq, q0, n, r3, 1, va, one, consume);
-               });
+    if (live) {
+      const float4* tail = reinterpret_cast<const float4*>(tt + static_cast<int>(hm[T_TAIL]));
+      const int nq = static_cast<int>(hm[T_NQ]);
+      const int r3 = static_cast<int>(hm[T_R3]);
+      const float* one = hm + T_ONE;
+      const float* v = (mine > 0 ? v1 : v0) + pos;
+      eval_forms(s, s + static_cast<int>(hm[T_OFF_FORMS]), n_forms, th, h0, t, chi2, log_norm,
+                 [&](int q0, int nw, auto&& consume) {
+                   contract_window<VLD>(tail, nq, q0, nw, r3, 1, v, one, consume);
+                 });
+    }
   } else {
     // 2. barycentric weights folded into the factor projections
     const int r1 = static_cast<int>(s[H_R1]);
@@ -636,23 +998,55 @@ fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
     const float v = th[d];
     ok = ok && lo[d] < v && v < lo[D + d];
   }
+  if (SPLIT && w >= W) return;
   out[w] = ok ? ll : -INFINITY;
+}
+
+// the two instances as kernels: the split one with its registers capped so
+// that SPLIT_BLOCKS blocks fit an SM
+__global__ void __launch_bounds__(THREADS)
+fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
+                      const float* __restrict__ theta, float* __restrict__ out, long long W,
+                      int D) {
+  fused_log_prob<false>(consts, n_consts, nullptr, MAX_RANK, theta, out, W, D);
+}
+
+__global__ void __launch_bounds__(THREADS, SPLIT_BLOCKS)
+fused_log_prob_split_kernel(const float* __restrict__ consts, int n_consts,
+                            const float* __restrict__ tt, int stride,
+                            const float* __restrict__ theta, float* __restrict__ out,
+                            long long W, int D) {
+  fused_log_prob<true>(consts, n_consts, tt, stride, theta, out, W, D);
+}
+
+// dynamic shared memory of a launch: the constants, then the per-thread
+// slices (native grid) or the sweep's rows and the ring of G (split grid)
+template <bool SPLIT>
+size_t smem_bytes(int n_consts, int stride) {
+  const size_t scratch = SPLIT ? static_cast<size_t>(stride) * VLD + STAGES * KSLICE * SLD
+                               : 2u * static_cast<size_t>(stride) * THREADS;
+  return (static_cast<size_t>((n_consts + 3) & ~3) + scratch) * sizeof(float);
 }
 
 template <bool SPLIT>
 int launch(const float* consts, int n_consts, const float* tt, int stride, const float* theta,
            float* out, long long W, int D, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>((n_consts + 3) & ~3) * sizeof(float) +
-                      2u * static_cast<size_t>(stride) * THREADS * sizeof(float);
+  const size_t smem = smem_bytes<SPLIT>(n_consts, stride);
+  const void* kernel = SPLIT ? reinterpret_cast<const void*>(fused_log_prob_split_kernel)
+                             : reinterpret_cast<const void*>(fused_log_prob_kernel);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_log_prob_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const long long blocks = (W + THREADS - 1) / THREADS;
-  fused_log_prob_kernel<SPLIT><<<static_cast<unsigned int>(blocks), THREADS, smem, stream>>>(
-      consts, n_consts, tt, stride, theta, out, W, D);
+  const unsigned int blocks = static_cast<unsigned int>((W + THREADS - 1) / THREADS);
+  if constexpr (SPLIT) {
+    fused_log_prob_split_kernel<<<blocks, THREADS, smem, stream>>>(consts, n_consts, tt, stride,
+                                                                   theta, out, W, D);
+  } else {
+    fused_log_prob_kernel<<<blocks, THREADS, smem, stream>>>(consts, n_consts, theta, out, W,
+                                                             D);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,7 +1055,9 @@ int launch(const float* consts, int n_consts, const float* tt, int stride, const
 // Plain C entry point for ctypes. Pointers are device pointers; `stream` is
 // a cudaStream_t. `tt` is the split grid's TT buffer (null on a native
 // grid), `split` 1 for the split grid, `stride` the floats of each of the
-// two per-thread scratch slices (MAX_RANK, or the largest padded bond).
+// two per-thread scratch slices (MAX_RANK) on the native grid, or on the
+// split grid the rows of the sweep's weights and vectors (H_N1 + WPAD +
+// H_VROWS).
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for sizes above the compiled maxima. The caller
 // guarantees W >= 1 and contiguous f32 inputs.
@@ -669,7 +1065,8 @@ extern "C" int cosmax_fused_log_prob_f32(const float* consts, int n_consts, cons
                                          int split, int stride, const float* theta, float* out,
                                          long long W, int D, void* stream) {
   if (n_consts > MAX_FLOATS || D > MAX_DIM || D < 1 || (split != 0 && split != 1) ||
-      stride < 1 || stride > (split ? MAX_BOND : MAX_RANK) || (split && tt == nullptr)) {
+      stride < 1 || stride > (split ? MAX_NODES + WPAD + 2 * MAX_BOND : MAX_RANK) ||
+      (split && tt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,8 +1,9 @@
 """The fused fast log-prob: logp[W] for walkers theta[W, D] of a fast preset.
 
 The card's implementation is the hand-written CUDA kernel in
-``cosmax_torch/csrc/fused_log_prob.cu``, one thread per walker. It
-replaces the TPU kernel ``cosmax/ops/pallas/megakernel.py::blocked_log_prob``
+``cosmax_torch/csrc/fused_log_prob.cu``, one thread per walker (on the
+split w0wacdm grid the tensor-train sweep runs as block products on the
+tensor cores). It replaces the TPU kernel ``cosmax/ops/pallas/megakernel.py::blocked_log_prob``
 (the source note there says what bounds it on an H100 and how the design
 answers that). This module holds
 
@@ -42,10 +43,12 @@ r2, 4 nq].
 
 The split w0wacdm grid: each walker takes half 0 if s = w0 + wa <= 0,
 else half 1, and computes that half only. Its coefficient vector comes
-from the tensor-train sweep v <- w_0^T G_0, v'[r] = sum_p sum_n v[p] w[n]
-G[p, n, r] over the later cores, a = v^T tail; each core is stored
-[n][r_prev][r padded to quads], the tail [r_last, 4 nq] with its columns
-ordered form by form as the Tucker core's.
+from the tensor-train sweep v <- w_0^T G_0, v'[r] = sum_n sum_p w[n] v[p]
+G[n, p, r] over the later cores, a = v^T tail; each core is stored as
+the matrix [n r_prev][r] of the kernel's block product, its rows padded
+with zeros to whole slices of KSLICE and its columns to a multiple of 8,
+the tail [r_last, 4 nq] with its columns ordered form by form as the
+Tucker core's.
 
 The buffer is in the fit's dtype: float32 on the card (the f64 build
 constants cast once, as the per-term path casts them), float64 for the
@@ -80,6 +83,23 @@ MAX_K = 32  # values of a lift form (quasar bins)
 MAX_GL = 64  # nodes of each CMB quadrature
 MAX_FLOATS = 40960  # constant-buffer floats (160 KB of shared memory)
 MAX_DEV_FLOATS = 1 << 24  # device-buffer floats (offsets are exact in f32)
+# The split grid's block products (the kernel's values too): the sweep's
+# rows at a stride of VLD floats, the cores staged in slices of KSLICE rows
+# and column passes of at most NCOL columns at a stride of SLD floats, in a
+# ring of STAGES slices; each core is stored [n r_in padded to KSLICE rows]
+# [r padded to 8], a bond into a block product at least MIN_RIN. A block
+# may hold MAX_SMEM bytes of shared memory (H100), GROUP_BYTES of them the
+# per-warp half counts.
+THREADS = 128
+VLD = 136
+KSLICE = 32
+NCOL = 56
+SLD = 72
+STAGES = 2
+MIN_RIN = 8
+WPAD = 4  # zero rows of weights under the padding rows of a core
+MAX_SMEM = 232448
+GROUP_BYTES = 2 * (THREADS // 32) * 4
 
 # Header slots of the buffer (floats holding small integers or values).
 HEADER = dict(
@@ -88,7 +108,7 @@ HEADER = dict(
     H_NQ=14, H_RALL=15, H_NFORMS=16, H_HAS_CMB=17, H_OFF_BOUNDS=18,
     H_OFF_AX1=19, H_OFF_AX2=20, H_OFF_BW1=21, H_OFF_BW2=22, H_OFF_U1=23,
     H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27, H_I_WA=28, H_SPLIT=29,
-    H_OFF_HALVES=30, H_BOND=31,
+    H_OFF_HALVES=30, H_VROWS=31,
 )
 HEADER_SIZE = 32
 MAGIC = 20260.0
@@ -278,8 +298,25 @@ def _by_cols(table, cols):
     return np.concatenate([table, np.zeros(table.shape[:-1] + (1,))], axis=-1)[..., cols]
 
 
-def _quads(r):
-    return -(-r // 4) * 4
+def _pad8(r):
+    return -(-r // 8) * 8
+
+
+def _vrows(t):
+    """Rows of a half's sweep vectors in the kernel's shared memory: a
+    block step of one column pass (at most NCOL) writes its output over
+    its input, a wider one at the other end of the rows."""
+    r1, r2, r3 = (_pad8(int(t[f"T_R{i}"])) for i in (1, 2, 3))
+    return max(r1, *(max(a, b) if b <= NCOL else a + b for a, b in ((r1, r2), (r2, r3))))
+
+
+def split_smem_bytes(hdr) -> int:
+    """Shared memory of one block of the split grid's kernel instance: the
+    constants, the weights of one step and the sweep vectors ([n + WPAD +
+    H_VROWS][VLD]), the ring of core slices, and the half counts."""
+    rows = int(hdr["H_N1"]) + WPAD + int(hdr["H_VROWS"])
+    floats = -(-int(hdr["H_SIZE"]) // 4) * 4 + rows * VLD + STAGES * KSLICE * SLD
+    return 4 * floats + GROUP_BYTES
 
 
 def pack(fit) -> Packed:
@@ -434,14 +471,19 @@ def pack(fit) -> Packed:
             r_prev = 1
             for i, g in enumerate(cores):
                 g3 = g[None] if i == 0 else g  # [r_prev, n, r]
-                r = g3.shape[2]
-                if r > MAX_BOND:
-                    _refuse(f"a tensor-train bond of rank {r} (at most {MAX_BOND})",
+                if g3.shape[2] > MAX_BOND:
+                    _refuse(f"a tensor-train bond of rank {g3.shape[2]} (at most {MAX_BOND})",
                             _ITEM_KERNEL)
-                # [n][r_prev][r padded to quads]: the kernel's loads, one
-                # node and input rank at a time, are float4 rows
-                stored = np.zeros((g3.shape[1], r_prev, _quads(r)))
-                stored[:, :, :r] = np.transpose(g3, (1, 0, 2))
+                # the block products take r_in >= 8: a smaller bond into
+                # one is padded with zeros (the same tensor train)
+                r = max(g3.shape[2], MIN_RIN) if i < 2 else g3.shape[2]
+                # [n r_prev][r]: row m r_prev + p, the block product's k;
+                # whole slices of rows, columns to a multiple of 8
+                full = np.zeros((g3.shape[1], r_prev, _pad8(r)))
+                full[:, :g3.shape[0], :g3.shape[2]] = np.transpose(g3, (1, 0, 2))
+                k = g3.shape[1] * r_prev
+                stored = np.zeros((-(-k // KSLICE) * KSLICE, _pad8(r)))
+                stored[:k] = full.reshape(k, -1)
                 t[f"T_PERM{i}"] = perm[i]
                 t[f"T_AX{i}"] = (hdr["H_OFF_AX1"], hdr["H_OFF_AX2"], ax_s)[perm[i]]
                 t[f"T_N{i}"] = g3.shape[1]
@@ -467,7 +509,7 @@ def pack(fit) -> Packed:
         forms = per_half[0][0]
         hdr.update(
             H_NAXES=3, H_N1=len(axes0[0]), H_N2=len(axes0[1]), H_SPLIT=1,
-            H_BOND=max(_quads(int(t[f"T_R{i}"])) for t in half_layouts for i in (1, 2, 3)),
+            H_VROWS=max(_vrows(t) for t in half_layouts),
         )
 
     cmb = {}
@@ -504,6 +546,9 @@ def pack(fit) -> Packed:
     hdr.update(H_SIZE=size, H_NFORMS=len(forms), H_HAS_CMB=int(bool(cmb)))
     if size > MAX_FLOATS:
         _refuse(f"a constant buffer of {size} floats (at most {MAX_FLOATS})", _ITEM_KERNEL)
+    if split and split_smem_bytes(hdr) > MAX_SMEM:
+        _refuse(f"a block of {split_smem_bytes(hdr)} bytes of shared memory (at most "
+                f"{MAX_SMEM})", _ITEM_KERNEL)
     flat = np.concatenate(chunks)
     for k, v in hdr.items():
         flat[HEADER[k]] = v
@@ -581,9 +626,10 @@ def _tt_coeff(packed, h, coords):
     r_prev = 1
     for i in range(3):
         n, r = lay[f"T_N{i}"], lay[f"T_R{i + 1}"]
-        rq = -(-r // 4) * 4
-        g = _seg(dev, lay[f"T_G{i}"], n * r_prev * rq, (n, r_prev, rq))
-        g = g[:, :, :r].permute(1, 0, 2)  # [r_prev, n, r]
+        k = n * r_prev
+        kp = -(-k // KSLICE) * KSLICE
+        g = _seg(dev, lay[f"T_G{i}"], kp * _pad8(r), (kp, _pad8(r)))
+        g = g[:k, :r].reshape(n, r_prev, r).permute(1, 0, 2)  # [r_prev, n, r]
         cores.append(g[0] if i == 0 else g)
         axis = lay[f"T_PERM{i}"]
         perm.append(axis)
@@ -780,19 +826,25 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
     from cosmax_torch.ops.kernels.build import load_kernel
 
     fn = _entry(load_kernel("fused_log_prob").lib)
-    # per-thread scratch of shared memory: two projections of at most
-    # MAX_RANK (Tucker) or two sweep vectors of the largest padded bond
-    stride = int(packed.hdr["H_BOND"]) if split else MAX_RANK
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(packed.buf.data_ptr(), packed.buf.numel(),
-                 packed.dev.data_ptr() if split else None, int(split), stride,
+                 packed.dev.data_ptr() if split else None, int(split), _stride(packed),
                  theta.data_ptr(), out.data_ptr(), w, packed.dim, stream)
     if err != 0:
         raise RuntimeError(f"fused_log_prob kernel launch failed: cudaError {err}")
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _stride(packed: Packed) -> int:
+    """The kernel's scratch argument: the floats of each of two per-thread
+    slices of shared memory (Tucker: the two projections of at most
+    MAX_RANK), or the rows of VLD floats of the split grid's weights and
+    sweep vectors."""
+    h = packed.hdr
+    return int(h["H_N1"]) + WPAD + int(h["H_VROWS"]) if h["H_SPLIT"] else MAX_RANK
 
 
 def _entry(lib: ctypes.CDLL):
@@ -810,16 +862,19 @@ def _entry(lib: ctypes.CDLL):
 
 
 def work_per_walker(packed: Packed, half: int = 0) -> tuple:
-    """(f32 operations, bytes) per walker of the fused log-prob, counted
-    from the packed sizes: an FMA is 2 operations, every other
-    arithmetic operation (division, square root, exp, log, pow) 1. Only
-    the columns the forms use count, not the zero padding; on the split
-    grid, a walker of ``half`` (the minimal sweep of that half's tensor
-    train, as ``emu_core.eval_flops`` counts it). Bytes are theta read
-    once and logp written once; the constant buffers (read once per
-    call) are left out of the per-walker count."""
+    """(f32 operations, product operations, bytes) per walker of the
+    fused log-prob, counted from the packed sizes: an FMA is 2
+    operations, every other arithmetic operation (division, square root,
+    exp, log, pow) 1. Product operations are the split grid's tensor-train
+    steps with r_in > 1, 2 n r_in r each, which the kernel runs as block
+    products on the tensor cores (0 on a native grid); f32 operations are
+    all the rest. Only the columns the forms use count, not the zero
+    padding; on the split grid, a walker of ``half`` (the minimal sweep of
+    that half's tensor train, as ``emu_core.eval_flops`` counts it). Bytes
+    are theta read once and logp written once; the constant buffers (read
+    once per call) are left out of the per-walker count."""
     h = packed.hdr
-    ops = 10  # derived parameters and the bounds test
+    ops, product = 10, 0  # derived parameters and the bounds test
     if not h["H_SPLIT"]:
         forms = packed.forms
         for i in (1, 2)[:int(h["H_NAXES"])]:
@@ -835,8 +890,11 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
         for i in range(3):
             n, r = lay[f"T_N{i}"], lay[f"T_R{i + 1}"]
             ops += 8 * n  # barycentric sum and weights
-            # v' = v (w . G): 2 n r_prev r, and r_prev r for the weights
-            ops += 2 * n * r if i == 0 else 2 * n * r_prev * r + 2 * r_prev * r
+            if i == 0:
+                ops += 2 * n * r
+            else:  # v' = v (w . G): the product, and r_prev r for the weights
+                product += 2 * n * r_prev * r
+                ops += 2 * r_prev * r
             r_prev = r
         ops += 2 * r_prev * lay["T_RALL"]  # a = v^T tail, the columns the forms use
     for f in forms:
@@ -858,4 +916,4 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
         # the observables and 3 x 3
         cpl = 5 if h["H_SPLIT"] else 0
         ops += 30 + n_rs * (33 + cpl) + n_dc * (29 + cpl) + 40
-    return int(ops), 4 * (packed.dim + 1)
+    return int(ops), int(product), 4 * (packed.dim + 1)

@@ -14,7 +14,9 @@ fast ``joint.multiprobe``/wzcdm and the fast w0wacdm flagship (all with
 the dense synthetic SN covariance), packs them with the tree's own packer
 and times its own kernel: CUDA events, median of 20 samples of 20 calls,
 at 65,536 and 262,144 flagship walkers, 131,072 multiprobe walkers and
-65,536 w0wacdm walkers, walkers drawn as ``chip_smoke.py`` draws them. Each ``--variant NAME=VALUE`` also
+65,536 and 262,144 w0wacdm walkers, walkers drawn near the box centre as
+``chip_smoke.py``'s bench draw, and 65,536 w0wacdm walkers uniform over
+the prior box (both halves of the split grid). Each ``--variant NAME=VALUE`` also
 builds that tree's source with the line ``constexpr int NAME = ...;``
 set to VALUE (where the tree's source has that constant), and times it
 in the same process, interleaved with the tree's own kernel (forward,
@@ -34,8 +36,13 @@ import subprocess
 import sys
 import time
 
-SIZES = (("bao.desi_cmb_des5y", "wzcdm", 65536), ("bao.desi_cmb_des5y", "wzcdm", 262144),
-         ("joint.multiprobe", "wzcdm", 131072), ("bao.desi_cmb_des5y", "w0wacdm", 65536))
+# (preset, model, walkers, draw): "bench" near the box centre, "uniform" over the box
+SIZES = (("bao.desi_cmb_des5y", "wzcdm", 65536, "bench"),
+         ("bao.desi_cmb_des5y", "wzcdm", 262144, "bench"),
+         ("joint.multiprobe", "wzcdm", 131072, "bench"),
+         ("bao.desi_cmb_des5y", "w0wacdm", 65536, "bench"),
+         ("bao.desi_cmb_des5y", "w0wacdm", 262144, "bench"),
+         ("bao.desi_cmb_des5y", "w0wacdm", 65536, "uniform"))
 
 
 def _median_ms(fn, reps=20, inner=20):
@@ -112,15 +119,18 @@ def run_tree(tree, variants):
                      out.data_ptr(), theta.shape[0], packed.dim, stream)
         else:
             split = int(packed.hdr["H_SPLIT"])
+            if hasattr(fl, "_stride"):
+                stride = fl._stride(packed)
+            else:  # a tree of the per-thread sweep: the largest padded bond
+                stride = int(packed.hdr["H_BOND"]) if split else fl.MAX_RANK
             err = fn(packed.buf.data_ptr(), packed.buf.numel(),
-                     packed.dev.data_ptr() if split else None, split,
-                     int(packed.hdr["H_BOND"]) if split else fl.MAX_RANK,
+                     packed.dev.data_ptr() if split else None, split, stride,
                      theta.data_ptr(), out.data_ptr(), theta.shape[0], packed.dim, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
     fits = {}
-    for preset, model, _ in SIZES:
+    for preset, model, _, _ in SIZES:
         if (preset, model) not in fits:
             try:
                 fits[preset, model] = get_preset(preset, model, fast=True, synthetic_sys=True,
@@ -128,21 +138,27 @@ def run_tree(tree, variants):
             except (KeyError, ValueError, NotImplementedError):
                 fits[preset, model] = None  # the tree does not have this preset
     results = {k: {} for k in kernels}
-    for preset, model, w in SIZES:
+    for preset, model, w, draw in SIZES:
         fit = fits[preset, model]
         if fit is None:
             continue
         packed = fl.pack(fit)
         rng = np.random.default_rng(0)
         lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
-        walkers = 0.5 * (lo + hi) + 0.05 * (hi - lo) * rng.standard_normal((w, fit.spec.dim))
+        if draw == "bench":
+            walkers = 0.5 * (lo + hi) + 0.05 * (hi - lo) * rng.standard_normal((w, fit.spec.dim))
+        else:
+            walkers = lo + (hi - lo) * rng.uniform(0.0, 1.0, (w, fit.spec.dim))
         theta = torch.as_tensor(walkers.astype(np.float32), device="cuda")
         want = fl.fused_log_prob_reference(packed, theta)
-        scale = float(want.abs().max())
+        fin = torch.isfinite(want)
+        scale = float(want[fin].abs().max())
         out = torch.empty(w, device="cuda")
         for key, (lib, _) in kernels.items():
             call(lib, packed, theta, out)
-            err = float((out - want).abs().max())
+            if not torch.equal(torch.isfinite(out), fin):
+                raise AssertionError(f"{tree} {key} {preset}/{model} W={w}: -inf rows differ")
+            err = float((out[fin] - want[fin]).abs().max())
             if not err <= 1e-4 * scale:
                 raise AssertionError(f"{tree} {key} {preset}/{model} W={w}: {err / scale:.3e}")
         order = list(kernels) + list(kernels)[::-1]
@@ -150,6 +166,7 @@ def run_tree(tree, variants):
             lib = kernels[key][0]
             ms = _median_ms(lambda: call(lib, packed, theta, out))
             label = preset if model == "wzcdm" else f"{preset}/{model}"
+            label += "" if draw == "bench" else f" {draw}"
             results[key].setdefault(f"{label}@{w}", []).append(ms)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout

@@ -316,8 +316,9 @@ def test_wrapper_checks_and_work_count(flagship):
         fl.fused_log_prob(packed, torch.zeros(3, 5, dtype=F64))
     with pytest.raises(ValueError, match="constants on"):
         fl.fused_log_prob(packed, torch.zeros(3, 6, device="meta"))
-    ops, nbytes = fl.work_per_walker(packed)
-    assert nbytes == 28 and 5000 < ops < 20000  # the flagship: ~8.5k, theta + logp
+    ops, product, nbytes = fl.work_per_walker(packed)
+    # the flagship: ~8.5k, no tensor-core product; theta + logp
+    assert nbytes == 28 and 5000 < ops < 20000 and product == 0
 
 
 def test_kernel_source_agrees_with_the_packer():
@@ -331,11 +332,19 @@ def test_kernel_source_agrees_with_the_packer():
         for k, v in table.items():
             assert consts[k] == v, k
     for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_BOND", "MAX_RALL", "MAX_FORMS", "MAX_K",
-              "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE"):
+              "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE",
+              "THREADS", "VLD", "KSLICE", "NCOL", "SLD", "STAGES", "MIN_RIN", "WPAD"):
         assert consts[k] == getattr(fl, k), k
     # the split grid's header slots and its per-half block, whose per-core
     # slots the kernel indexes from T_PERM0, T_AX0, T_N0, T_G0 and T_R1
-    assert {"H_I_WA", "H_SPLIT", "H_OFF_HALVES", "H_BOND"} <= set(fl.HEADER)
+    assert {"H_I_WA", "H_SPLIT", "H_OFF_HALVES", "H_VROWS"} <= set(fl.HEADER)
+    # the block's half counts: int s_count[2][WARPS], WARPS = THREADS / 32
+    assert "__shared__ int s_count[2][WARPS];" in src and "WARPS = THREADS / 32;" in src
+    assert fl.GROUP_BYTES == 2 * (fl.THREADS // 32) * 4
+    # the largest split fit the kernel takes still fits a block: 64 nodes,
+    # every bond MAX_BOND, and a constant buffer of the flagship's size
+    worst = dict(H_N1=fl.MAX_NODES, H_VROWS=2 * fl.MAX_BOND, H_SIZE=1000)
+    assert fl.split_smem_bytes(worst) <= fl.MAX_SMEM
     assert max(fl.HEADER.values()) < fl.HEADER_SIZE
     for k, v in fl.HALF.items():
         assert consts[k] == v, k

@@ -210,8 +210,8 @@ def test_packer_takes_the_12_new_configurations(fast, monkeypatch):
             assert max(h["H_R1"], h["H_R2"]) <= fl.MAX_RANK
             assert h["H_I_H0"] == (-1 if name == "fs8.fs8" else fit.spec.names.index("H0"))
             assert h["H_HAS_CMB"] == (name == "joint.multiprobe")
-            ops, nbytes = fl.work_per_walker(packed)
-            assert nbytes == 4 * (fit.spec.dim + 1) and ops > 0
+            ops, product, nbytes = fl.work_per_walker(packed)
+            assert nbytes == 4 * (fit.spec.dim + 1) and ops > 0 and product == 0
     # w0wacdm refuses before any table is built
     def no_build(*args, **kwargs):
         raise AssertionError("a table was built before the refusal")

@@ -16,6 +16,13 @@ train, the fused log-prob's split-grid branch) against the JAX package.
 * a port of ``test_w0wacdm_seam_continuity`` (tests/test_linear_chi2.py)
   on the flagship's emulated SN and BAO terms: chi^2 and its gradient,
   through torch.autograd, across s = 0;
+* the split kernel's numerics on the CPU: its sweep as block products in
+  3xTF32 (each operand split into two TF32 parts, rounded to nearest with
+  ties away, as ``cvt.rna.tf32.f32``) within 2e-5 of max|logp| of the f64
+  plain version; and the grouping by half, through the plain version: on
+  a batch whose walkers alternate halves and on one all in half 1, each
+  walker's logp is the one it gets alone; bonds padded with zeros to the
+  block products' least r_in leave logp as it was;
 * the w0wacdm presets outside the flagship family refuse before any
   table is built.
 
@@ -202,13 +209,118 @@ def test_fused_plain_matches_make_log_prob_at_70_walkers(flagship):
     assert bool(torch.all(lp[70:] == -torch.inf))
     np.testing.assert_allclose(lp[:70].numpy(), fused.numpy(), rtol=1e-12, atol=0)
 
-    ops0, nbytes = fl.work_per_walker(packed, 0)
-    ops1, _ = fl.work_per_walker(packed, 1)
+    ops0, prod0, nbytes = fl.work_per_walker(packed, 0)
+    ops1, prod1, _ = fl.work_per_walker(packed, 1)
     assert nbytes == 4 * (len(names) + 1)
-    # the TT sweep of each half, as emu_core.eval_flops counts it
+    # the TT sweep of each half, as emu_core.eval_flops counts it; the
+    # products with r_in > 1 (the tensor cores' share) 2 n r_in r each
     _, halves = tfit.terms[0].meta["linear_chi2"].bundle.finalized()
-    for ops, half in ((ops0, halves[0]), (ops1, halves[1])):
-        assert temu.eval_flops(half["rep"]) < ops < temu.eval_flops(half["rep"]) + 6000
+    for ops, prod, half in ((ops0, prod0, halves[0]), (ops1, prod1, halves[1])):
+        total = ops + prod
+        assert temu.eval_flops(half["rep"]) < total < temu.eval_flops(half["rep"]) + 6000
+        cores = half["rep"][2]
+        assert prod == sum(2 * g.shape[0] * g.shape[1] * g.shape[2] for g in cores[1:])
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: the bit pattern of cvt.rna.tf32.f32."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _sweep_tf32(packed, h, coords, passes):
+    """The split kernel's sweep of half ``h`` in float32, from the
+    packed device buffer: the first step per walker, each later step the
+    product A G with A[b, (m, p)] = w_m(b) v_b[p] formed in f32, either in
+    3xTF32 (``passes`` 3: a_lo b_hi + a_hi b_lo + a_hi b_hi) or in one TF32
+    pass; then a = v^T tail."""
+    lay, buf, dev = packed.halves[h], packed.buf, packed.dev
+    n_nodes = packed.hdr["H_N1"]
+    bw = buf[packed.hdr["H_OFF_BW1"]:packed.hdr["H_OFF_BW1"] + n_nodes]
+    r_prev, v = 1, None
+    for i in range(3):
+        n, r = lay[f"T_N{i}"], lay[f"T_R{i + 1}"]
+        k, kp, np8 = n * r_prev, -(-n * r_prev // fl.KSLICE) * fl.KSLICE, -(-r // 8) * 8
+        g = dev[lay[f"T_G{i}"]:lay[f"T_G{i}"] + kp * np8].reshape(kp, np8)[:k, :r]
+        nodes = buf[lay[f"T_AX{i}"]:lay[f"T_AX{i}"] + n]
+        w = temu.bary_vector(coords[lay[f"T_PERM{i}"]], nodes, bw)
+        if i == 0:
+            v = w @ g
+        else:
+            a = (w[:, :, None] * v[:, None, :]).reshape(-1, k)
+            a_hi, g_hi = _tf32(a), _tf32(g)
+            v = a_hi @ g_hi
+            if passes == 3:
+                v = _tf32(a - a_hi) @ g_hi + a_hi @ _tf32(g - g_hi) + v
+        r_prev = r
+    tail = dev[lay["T_TAIL"]:lay["T_TAIL"] + r_prev * 4 * lay["T_NQ"]].reshape(r_prev, -1)
+    return v @ tail
+
+
+def test_split_sweep_in_3xtf32_keeps_f32_accuracy(flagship, monkeypatch):
+    """The kernel's tensor-core sweep, emulated: 3xTF32 stays within 2e-5
+    of max|logp| of the f64 plain version on the 70 walkers over both
+    halves (one TF32 pass, printed beside it, is not asserted)."""
+    tfit = flagship["tfit"]
+    names = list(tfit.spec.names)
+    theta = torch.as_tensor(_thetas(tfit.spec.bounds, names, seed=1, n=70))
+    packed = fl.pack(tfit)
+    want = fl.fused_log_prob_reference(packed, theta).numpy()
+    p32 = replace(packed, buf=packed.buf.float(), dev=packed.dev.float())
+    assert bool(np.isfinite(want).all())
+    scale = np.max(np.abs(want))
+    near = slice(0, 35)  # the bench-like walkers of half 0, |logp| far smaller
+    errs = {}
+    for passes in (3, 1):
+        monkeypatch.setattr(fl, "_tt_coeff", lambda p, h, c: _sweep_tf32(p, h, c, passes))
+        got = fl.fused_log_prob_reference(p32, theta.float()).double().numpy()
+        err = np.abs(got - want)
+        errs[passes] = (err.max() / scale, err[near].max() / np.max(np.abs(want[near])))
+    print(f"3xTF32 sweep vs f64: {errs[3][0]:.3e} of max|logp| ({errs[3][1]:.3e} on the 35 "
+          f"half-0 walkers of their own); one TF32 pass: {errs[1][0]:.3e} ({errs[1][1]:.3e})")
+    assert errs[3][0] <= 2e-5 and errs[3][1] <= 2e-5, errs
+
+
+def test_packer_pads_small_bonds_with_zeros(flagship, monkeypatch):
+    """The kernel's block products take r_in >= MIN_RIN; the packer pads a
+    smaller bond with zeros, the same tensor train: raised here to 24, the
+    first bond of each half (17, 13) is padded and logp does not move."""
+    tfit = flagship["tfit"]
+    theta = torch.as_tensor(_thetas(tfit.spec.bounds, list(tfit.spec.names), seed=1, n=70))
+    packed = fl.pack(tfit)
+    want = fl.fused_log_prob_reference(packed, theta).numpy()
+    monkeypatch.setattr(fl, "MIN_RIN", 24)
+    padded = fl.pack(tfit)
+    for lay, plain in zip(padded.halves, packed.halves):
+        assert plain["T_R1"] < 24 == lay["T_R1"] and lay["T_R2"] == plain["T_R2"]
+    np.testing.assert_allclose(fl.fused_log_prob_reference(padded, theta).numpy(), want,
+                               rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("batch", ["alternating", "half 1"])
+def test_grouping_by_half_keeps_each_walker_its_row(flagship, batch):
+    """A batch whose walkers alternate halves, and one all in half 1: each
+    walker's logp equals the one it gets alone (the plain version; the
+    kernel groups a block's walkers by half the same way)."""
+    tfit = flagship["tfit"]
+    names = list(tfit.spec.names)
+    lo, hi = tfit.spec.bounds[:, 0], tfit.spec.bounds[:, 1]
+    box = lo + (hi - lo) * np.random.default_rng(9).uniform(0.02, 0.98, (400, len(lo)))
+    s = box[:, names.index("w0")] + box[:, names.index("wa")]
+    if batch == "alternating":
+        walkers = np.stack([box[s <= 0][:12], box[s > 0][:12]], axis=1).reshape(24, -1)
+    else:
+        walkers = box[s > 0][:24]
+    theta = torch.as_tensor(walkers)
+    s_t = theta[:, names.index("w0")] + theta[:, names.index("wa")]
+    halves = (s_t > 0).long().tolist()
+    assert halves == ([0, 1] * 12 if batch == "alternating" else [1] * 24)
+    packed = fl.pack(tfit)
+    together = fl.fused_log_prob(packed, theta).numpy()
+    alone = np.array([float(fl.fused_log_prob(packed, theta[i:i + 1])[0]) for i in range(24)])
+    assert np.all(np.isfinite(together))
+    # one walker against a batch: BLAS may block the products otherwise
+    np.testing.assert_allclose(together, alone, rtol=1e-12, atol=0)
 
 
 def test_w0wacdm_seam_continuity(flagship):
