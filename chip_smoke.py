@@ -8,7 +8,8 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from ``cosmax_torch/csrc`` (one nvcc each, in
+2. build both CUDA kernels from ``cosmax_torch/csrc`` and three variants
+   of the fused one's source for phase 12 (one nvcc each, all in
    parallel) and print each ptxas report;
 3. the kernel against its plain PyTorch version at the flagship shape
    (65,536 walkers x N = 1829) and at ragged shapes, rtol 5e-5, with a
@@ -58,10 +59,15 @@ raising on failure (non-zero exit):
    uniform over the box, 65,536 whose halves alternate walker by walker,
    65,536 all in half 1, a seam batch with |w0 + wa| < 1e-4 on both
    sides, 70 and 1 walkers (seeded out-of-box and NaN rows -inf in both),
-   and the rows the grouping by half padded on the uniform draw; each
-   term alone within 1e-4 of its own
-   max|logp| (the CMB also on walkers with w0 + wa > 1.5), and a planted
-   swap of the halves' select that must fail; 64 walkers over both halves
+   65,536 bench-style walkers about a centre in half 1, blocks of 112 +
+   16 and 96 + 32 walkers a half, and the rows the grouping by half
+   padded on the uniform draw; each term alone within 1e-4 of its own
+   max|logp| (the CMB also on walkers with w0 + wa > 1.5); the terms the
+   sweep feeds each alone on the bench draws of both halves, where two
+   planted faults in the sweep's 3xTF32 (one TF32 pass, a_lo b_hi
+   dropped) must fail; the kernel built with NCOL = 16 (the column passes
+   of bonds wider than NCOL) against its plain version; a planted swap of
+   the halves' select that must fail; 64 walkers over both halves
    against the port's f64 CPU fast path; ``bao.desi``,
    ``bao.desi_cmb_union3`` and ``bao.desi_cmb_pantheon`` in w0wacdm at
    4,096 walkers (bench and uniform draws); kernel and plain times with
@@ -104,6 +110,16 @@ W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s, dense
 # TF32 tensor-core FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
+# variants of the fused kernel's source, built beside it (phase 2) for
+# phase 12, each as (text, replacement) edits: two planted faults that its
+# checks must catch (one TF32 pass, or one of the two small terms of
+# 3xTF32 dropped), and a narrow column pass that makes the flagship's
+# bonds (at most 56 columns) take the kernel's path for bonds wider than
+# NCOL: several column passes, v_out at the far end of the sweep's rows
+LO_MMA = ("mma_tf32(part[t][j], alo[t], bhi0, bhi1);", "mma_tf32(part[t][j], ahi[t], blo0, blo1);")
+PLANTED = {"one TF32 pass": tuple((m, "(void)0;") for m in LO_MMA),
+           "a_lo b_hi dropped": ((LO_MMA[0], "(void)0;"),)}
+NARROW_NCOL = 16
 
 
 def _card() -> str:
@@ -479,12 +495,29 @@ def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast
     return launches
 
 
-def _fused_vs_plain(fl, packed, theta):
-    """(max abs err, max|logp|) of the fused kernel against its plain
-    version on the same walkers; raises unless their -inf rows agree."""
+def _launch_variant(fl, lib, packed, theta):
+    """logp of the split grid from a variant library of the fused kernel,
+    launched straight through its C entry (not the wrapper, so the launch
+    counts of the main path stay as they are)."""
     import torch
 
-    got = fl.fused_log_prob(packed, theta)
+    out = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
+    err = fl._entry(lib)(packed.buf.data_ptr(), packed.buf.numel(), packed.dev.data_ptr(), 1,
+                         fl._stride(packed), theta.data_ptr(), out.data_ptr(), theta.shape[0],
+                         packed.dim, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused kernel variant launch failed: cudaError {err}")
+    return out
+
+
+def _fused_vs_plain(fl, packed, theta, lib=None):
+    """(max abs err, max|logp|) of the fused kernel (or of the variant
+    library ``lib``) against its plain version on the same walkers;
+    raises unless their -inf rows agree."""
+    import torch
+
+    got = fl.fused_log_prob(packed, theta) if lib is None else _launch_variant(
+        fl, lib, packed, theta)
     want = fl.fused_log_prob_reference(packed, theta)
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
@@ -697,6 +730,63 @@ def _ptxas_of(log, marker):
     return "; ".join(lines)
 
 
+def _start_variants():
+    """Write each variant of the fused kernel's source (PLANTED, and NCOL
+    set to NARROW_NCOL) under ``build/chip_smoke_variants/`` and start one
+    nvcc for each. Returns {name: (process, library path)}."""
+    from cosmax_torch.ops.kernels import build
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    ncol = f"constexpr int NCOL = {fl.NCOL};"
+    variants = dict(PLANTED, **{f"NCOL={NARROW_NCOL}": (
+        (ncol, f"constexpr int NCOL = {NARROW_NCOL};"),)})
+    src = (build.CSRC / "fused_log_prob.cu").read_text()
+    out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    try:
+        for i, (name, edits) in enumerate(variants.items()):
+            text = src
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise AssertionError(f"variant {name}: {old!r} is not once in {FUSED_SOURCE}")
+                text = text.replace(old, new)
+            cu = out_dir / f"fused_log_prob_variant{i}.cu"
+            cu.write_text(text)
+            so = cu.with_suffix(".so")
+            jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                                            str(cu)], stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True), so)
+    except BaseException:
+        _stop(jobs)
+        raise
+    return jobs
+
+
+def _stop(jobs):
+    for proc, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finish_variants(jobs):
+    """{name: (library, ptxas line of the split kernel)} once every
+    variant's nvcc has ended; raises if one failed."""
+    import ctypes
+
+    libs = {}
+    try:
+        for name, (proc, so) in jobs.items():
+            _, log = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for the {name} variant:\n{log}")
+            libs[name] = (ctypes.CDLL(str(so)), _ptxas_of(log, "split_kernel"))
+    finally:
+        _stop(jobs)
+    return libs
+
+
 def _box_walkers(fit, n, seed, seam=False):
     """Walkers uniform over the prior box; ``seam`` puts each on the
     split grid's seam, w0 + wa within 1e-4 of 0 on either side."""
@@ -723,6 +813,44 @@ def _one_half(fit, n, seed, alternate):
         return np.ascontiguousarray(upper)
     out = np.empty_like(box[:n])
     out[0::2], out[1::2] = box[s <= 0][:(n + 1) // 2], upper[:n // 2]
+    return out
+
+
+def _half1_walkers(fit, n, seed):
+    """Walkers drawn as the bench draw, but about a centre in half 1 (w0 =
+    -1, wa = 1.3: s = w0 + wa = 0.3), those inside the box with s > 0 in
+    f32 kept. Half 1's walkers hold |logp| ~ 1e7 from the CMB, so the
+    terms the sweep feeds are held each alone, at their own scale."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+    mid, span = 0.5 * (lo + hi), 0.05 * (hi - lo)
+    i_w0, i_wa = fit.spec.names.index("w0"), fit.spec.names.index("wa")
+    mid[i_w0], mid[i_wa] = -1.0, 1.3
+    draw = (mid + span * rng.standard_normal((2 * n, fit.spec.dim))).astype(np.float32)
+    keep = (draw[:, i_w0] + draw[:, i_wa] > 0) & np.all((lo < draw) & (draw < hi), axis=1)
+    return np.ascontiguousarray(draw[keep][:n])
+
+
+def _mixed_blocks(lower, upper, c1, block=128):
+    """Blocks of ``block`` walkers, each its last ``c1`` rows from
+    ``upper`` (half 1) and the rest from ``lower`` (half 0)."""
+    import numpy as np
+
+    out = lower.copy().reshape(-1, block, lower.shape[1])
+    out[:, block - c1:] = upper[:out.shape[0] * c1].reshape(out.shape[0], c1, -1)
+    return np.ascontiguousarray(out.reshape(lower.shape))
+
+
+def _sweep_terms(fl, packed, theta, lib=None):
+    """Each emulated term alone (the terms the tensor-train sweep feeds),
+    the kernel or the variant library ``lib`` against the plain version:
+    [(err / the term's own max|logp|, term index)]."""
+    out = []
+    for i in range(len(packed.forms)):
+        err, scale, _ = _fused_vs_plain(fl, _term_alone(fl, packed, i), theta, lib)
+        out.append((err / scale, i))
     return out
 
 
@@ -772,9 +900,9 @@ def _split_bound_ms(fl, fit, packed, theta):
     return bound_ms, ffma_ms, ((ops0, prod0), (ops1, prod1))
 
 
-def phase_w0wa_fast(card, ptxas_split):
+def phase_w0wa_fast(card, ptxas_split, variants):
     """Phase 12: the fused kernel's split-grid branch on the fast w0wacdm
-    flagship."""
+    flagship. ``variants``: the variant libraries of ``_finish_variants``."""
     import numpy as np
     import torch
 
@@ -806,10 +934,15 @@ def phase_w0wa_fast(card, ptxas_split):
         "uniform 65536": _box_walkers(fit, BENCH_WALKERS, seed=14),
         "alternating 65536": _one_half(fit, BENCH_WALKERS, seed=22, alternate=True),
         "half-1 65536": _one_half(fit, BENCH_WALKERS, seed=23, alternate=False),
+        "half-1 bench 65536": _half1_walkers(fit, BENCH_WALKERS, seed=24),
         "seam 65536": _box_walkers(fit, BENCH_WALKERS, seed=15, seam=True),
         "uniform 70": _box_walkers(fit, 70, seed=16),
         "bench 1": _flagship_walkers(fit, 1, seed=17),
     }
+    # blocks holding 16 or 32 half-1 walkers each (7 + 1 and 6 + 2 m-tiles)
+    for c1 in (16, 32):
+        batches[f"mixed {128 - c1}+{c1} 65536"] = _mixed_blocks(
+            batches["bench 65536"], batches["half-1 bench 65536"], c1)
     result = {}
     for label, walkers in batches.items():
         w = walkers.shape[0]
@@ -830,8 +963,8 @@ def phase_w0wa_fast(card, ptxas_split):
             result["max_abs_err"] = err
         if label == "alternating 65536" and lower != upper:
             raise AssertionError(f"the alternating batch has {lower} + {upper} walkers in halves")
-        if label == "half-1 65536" and lower != 0:
-            raise AssertionError(f"the half-1 batch has {lower} walkers in half 0")
+        if label.startswith("half-1") and lower != 0:
+            raise AssertionError(f"the {label} batch has {lower} walkers in half 0")
     (pad0, rows0), (pad1, rows1) = _group_padding(
         fit, torch.as_tensor(batches["uniform 65536"], device="cuda"))
     print(f"phase 12: grouping by half on the uniform 65536 draw padded {pad0} rows of the "
@@ -866,6 +999,59 @@ def phase_w0wa_fast(card, ptxas_split):
                  f"{err / scale:.3e} (of {scale:.4g})")
     print(f"phase 12: fused kernel vs plain, each term alone at W={BENCH_WALKERS} uniform (of "
           f"its own max|logp|): {'; '.join(parts)}")
+
+    # the terms the sweep feeds, each alone at its own scale, on a bench
+    # draw in each half: the whole logp of half 1 is the CMB's ~1e7, under
+    # whose 1e-4 any sweep error would pass. Two planted faults in the
+    # sweep's 3xTF32 must fail this check on each of the two draws.
+    draws = {k: torch.as_tensor(batches[k], device="cuda")
+             for k in ("bench 65536", "half-1 bench 65536")}
+    parts = []
+    for label, theta in draws.items():
+        worst = _sweep_terms(fl, packed, theta)
+        for rel, i in worst:
+            if not rel <= FUSED_RTOL:
+                raise AssertionError(f"w0wacdm {names[i]} alone at {label}: {rel:.3e}")
+        parts.append(f"{label} " + ", ".join(f"{names[i]} {rel:.3e}" for rel, i in worst))
+    print(f"phase 12: fused kernel vs plain, the sweep's terms alone (of their own max|logp|): "
+          f"{'; '.join(parts)}")
+    for name in PLANTED:
+        lib = variants[name][0]
+        parts = []
+        for label, theta in draws.items():
+            rel, i = max(_sweep_terms(fl, packed, theta, lib))
+            if rel <= FUSED_RTOL:
+                raise AssertionError(f"the sweep's terms alone missed the planted fault {name!r} "
+                                     f"at {label}: {rel:.3e}")
+            parts.append(f"{label} at {rel:.3e} ({names[i]})")
+        print(f"phase 12: planted fault {name!r} in the sweep caught: {'; '.join(parts)} "
+              f"(limit {FUSED_RTOL:g})")
+
+    # the column passes of a bond wider than NCOL, on the flagship: the
+    # kernel built with NCOL = NARROW_NCOL, the buffer packed for it
+    lib, ptxas = variants[f"NCOL={NARROW_NCOL}"]
+    ncol = fl.NCOL
+    fl.NCOL = NARROW_NCOL
+    try:
+        narrow = fl.pack(fit)
+    finally:
+        fl.NCOL = ncol
+    passes = "; ".join(
+        f"half {k}: " + ", ".join(str(-(-fl._pad8(lay[f"T_R{j}"]) // NARROW_NCOL)) for j in (2, 3))
+        for k, lay in enumerate(narrow.halves))
+    parts = []
+    for label in ("bench 65536", "uniform 65536", "half-1 bench 65536"):
+        theta = torch.as_tensor(batches[label], device="cuda")
+        err, scale, _ = _fused_vs_plain(fl, narrow, theta, lib)
+        worst = max(_sweep_terms(fl, narrow, theta, lib)) if label != "uniform 65536" else None
+        if not err <= FUSED_RTOL * scale or (worst and not worst[0] <= FUSED_RTOL):
+            raise AssertionError(f"NCOL={NARROW_NCOL} variant vs plain at {label}: "
+                                 f"{err / scale:.3e}, terms alone {worst}")
+        parts.append(f"{label} {err / scale:.3e}" + (
+            f" (terms alone <= {worst[0]:.3e})" if worst else ""))
+    print(f"phase 12: the kernel with NCOL = {NARROW_NCOL} (column passes of steps 2 and 3: "
+          f"{passes}; {narrow.hdr['H_VROWS']} rows of sweep vectors, against "
+          f"{h['H_VROWS']}) vs plain, of max|logp|: {'; '.join(parts)}; {ptxas}")
 
     # the planted fault: the halves' select swapped in a copy of the buffer
     swapped = packed.buf.clone()
@@ -914,7 +1100,8 @@ def phase_w0wa_fast(card, ptxas_split):
 
     timing = {}
     for label in ("bench 65536", "bench 262144", "uniform 65536", "alternating 65536",
-                  "half-1 65536"):
+                  "half-1 65536", "half-1 bench 65536", "mixed 112+16 65536",
+                  "mixed 96+32 65536"):
         theta = torch.as_tensor(np.nan_to_num(batches[label], nan=0.3), device="cuda")
         w = theta.shape[0]
         ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=5)
@@ -955,7 +1142,10 @@ def phase_w0wa_fast(card, ptxas_split):
                 ms_uniform=timing["uniform 65536"]["ms"],
                 bound_ms_uniform=timing["uniform 65536"]["bound_ms"],
                 ms_alternating=timing["alternating 65536"]["ms"],
-                ms_half1=timing["half-1 65536"]["ms"])
+                ms_half1=timing["half-1 65536"]["ms"],
+                ms_half1_bench=timing["half-1 bench 65536"]["ms"],
+                ms_mixed_112_16=timing["mixed 112+16 65536"]["ms"],
+                ms_mixed_96_32=timing["mixed 96+32 65536"]["ms"])
 
 
 def main():
@@ -973,8 +1163,15 @@ def main():
 
     disable_tf32()
     t_start = time.perf_counter()
-    built = load_kernels(["whitened_chi2", "fused_log_prob"])
-    print(f"phase 2: built both kernels in {time.perf_counter() - t_start:.2f}s (in parallel)")
+    jobs = _start_variants()
+    try:
+        built = load_kernels(["whitened_chi2", "fused_log_prob"])
+    except BaseException:
+        _stop(jobs)
+        raise
+    variants = _finish_variants(jobs)
+    print(f"phase 2: built both kernels and {len(variants)} variants of the fused one in "
+          f"{time.perf_counter() - t_start:.2f}s (in parallel)")
     for src, b in zip((SOURCE, FUSED_SOURCE), built):
         ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
@@ -989,7 +1186,7 @@ def main():
     mp_ref, mp_fused = phase_multiprobe_fast(card)
     mp_parity_launches = phase_multiprobe_parity(card, mp_ref)
     mp_cli_launches = phase_cli(card, "phase 11", "joint.multiprobe", 256, 11, fast=True)
-    w0wa = phase_w0wa_fast(card, ptxas_split)
+    w0wa = phase_w0wa_fast(card, ptxas_split, variants)
     w0wa_cli_launches = phase_cli(card, "phase 12", walkers=150, dim=7, fast=True,
                                   model="w0wacdm")
     print(f"phases 2-12 took {time.perf_counter() - t_start:.1f}s on {card}")

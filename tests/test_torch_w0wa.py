@@ -19,8 +19,11 @@ train, the fused log-prob's split-grid branch) against the JAX package.
 * the split kernel's numerics on the CPU: its sweep as block products in
   3xTF32 (each operand split into two TF32 parts, rounded to nearest with
   ties away, as ``cvt.rna.tf32.f32``) within 2e-5 of max|logp| of the f64
-  plain version; and the grouping by half, through the plain version: on
-  a batch whose walkers alternate halves and on one all in half 1, each
+  plain version; on a model of the tensor cores' truncating f32 adds,
+  bao.desi holds the card's limit against the f32 plain version with the
+  kernel's per-slice flush and breaks it without; and the grouping by
+  half, through the plain version: on a batch whose walkers alternate
+  halves and on one all in half 1, each
   walker's logp is the one it gets alone; bonds padded with zeros to the
   block products' least r_in leave logp as it was;
 * the w0wacdm presets outside the flagship family refuse before any
@@ -228,12 +231,11 @@ def _tf32(x):
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _sweep_tf32(packed, h, coords, passes):
-    """The split kernel's sweep of half ``h`` in float32, from the
-    packed device buffer: the first step per walker, each later step the
-    product A G with A[b, (m, p)] = w_m(b) v_b[p] formed in f32, either in
-    3xTF32 (``passes`` 3: a_lo b_hi + a_hi b_lo + a_hi b_hi) or in one TF32
-    pass; then a = v^T tail."""
+def _sweep(packed, h, coords, product):
+    """The split kernel's sweep of half ``h`` in float32, from the packed
+    device buffer: the first step per walker, each later step
+    ``product(a, g)`` with A[b, (m, p)] = w_m(b) v_b[p] formed in f32 and
+    G [n r_in, r]; then a = v^T tail."""
     lay, buf, dev = packed.halves[h], packed.buf, packed.dev
     n_nodes = packed.hdr["H_N1"]
     bw = buf[packed.hdr["H_OFF_BW1"]:packed.hdr["H_OFF_BW1"] + n_nodes]
@@ -247,14 +249,20 @@ def _sweep_tf32(packed, h, coords, passes):
         if i == 0:
             v = w @ g
         else:
-            a = (w[:, :, None] * v[:, None, :]).reshape(-1, k)
-            a_hi, g_hi = _tf32(a), _tf32(g)
-            v = a_hi @ g_hi
-            if passes == 3:
-                v = _tf32(a - a_hi) @ g_hi + a_hi @ _tf32(g - g_hi) + v
+            v = product((w[:, :, None] * v[:, None, :]).reshape(-1, k), g)
         r_prev = r
     tail = dev[lay["T_TAIL"]:lay["T_TAIL"] + r_prev * 4 * lay["T_NQ"]].reshape(r_prev, -1)
     return v @ tail
+
+
+def _tf32_product(a, g, passes):
+    """a g in 3xTF32 (``passes`` 3: a_lo b_hi + a_hi b_lo + a_hi b_hi) or
+    in one TF32 pass, each pass an f32 matmul."""
+    a_hi, g_hi = _tf32(a), _tf32(g)
+    v = a_hi @ g_hi
+    if passes == 3:
+        v = _tf32(a - a_hi) @ g_hi + a_hi @ _tf32(g - g_hi) + v
+    return v
 
 
 def test_split_sweep_in_3xtf32_keeps_f32_accuracy(flagship, monkeypatch):
@@ -272,13 +280,87 @@ def test_split_sweep_in_3xtf32_keeps_f32_accuracy(flagship, monkeypatch):
     near = slice(0, 35)  # the bench-like walkers of half 0, |logp| far smaller
     errs = {}
     for passes in (3, 1):
-        monkeypatch.setattr(fl, "_tt_coeff", lambda p, h, c: _sweep_tf32(p, h, c, passes))
+        monkeypatch.setattr(fl, "_tt_coeff", lambda p, h, c: _sweep(
+            p, h, c, lambda a, g: _tf32_product(a, g, passes)))
         got = fl.fused_log_prob_reference(p32, theta.float()).double().numpy()
         err = np.abs(got - want)
         errs[passes] = (err.max() / scale, err[near].max() / np.max(np.abs(want[near])))
     print(f"3xTF32 sweep vs f64: {errs[3][0]:.3e} of max|logp| ({errs[3][1]:.3e} on the 35 "
           f"half-0 walkers of their own); one TF32 pass: {errs[1][0]:.3e} ({errs[1][1]:.3e})")
     assert errs[3][0] <= 2e-5 and errs[3][1] <= 2e-5, errs
+
+
+# The tensor cores' f32 adds, modelled: an mma's eight TF32 products are
+# exact; they and the accumulator are aligned to the largest of the nine,
+# cut toward zero to MMA_BITS bits below its leading bit, summed, and the
+# sum is cut toward zero to MMA_BITS bits. The adder's width is not
+# published: with 22 bits the model drifts over a whole K as much as an
+# H100 was measured to without the per-slice flush (PERF.md); with 24
+# bits it drifts several times less.
+MMA_BITS = 22
+
+
+def _cut(x, like):
+    """x cut toward zero to MMA_BITS bits below the leading bit of |like|."""
+    q = torch.ldexp(torch.ones_like(x), torch.frexp(like).exponent - MMA_BITS)
+    return torch.trunc(x / q) * q
+
+
+def _mma(c, a, b):
+    """c + a b of one m16n8k8 TF32 mma, as modelled above: c [B, N] f32,
+    a [B, 8] and b [8, N] TF32 values."""
+    terms = torch.cat([c.double()[..., None], a.double()[:, None, :] * b.double().T[None]], -1)
+    s = _cut(terms, terms.abs().amax(-1, keepdim=True)).sum(-1)
+    return _cut(s, s).float()
+
+
+def _mma_product(a, g, flush):
+    """a g as the kernel runs it, on the model of the tensor cores: 3xTF32
+    over k-steps of 8 (a_lo b_hi, a_hi b_lo, a_hi b_hi, each an mma), K
+    padded with zeros to slices of KSLICE rows whose sums start from zero
+    and are added to the accumulators in rounded f32 (``flush``, as the
+    kernel does), or accumulated in the mma over the whole K."""
+    kp = -(-a.shape[1] // fl.KSLICE) * fl.KSLICE
+    a = torch.nn.functional.pad(a, (0, kp - a.shape[1]))
+    g = torch.nn.functional.pad(g, (0, 0, 0, kp - g.shape[0]))
+    a_hi, g_hi = _tf32(a), _tf32(g)
+    a_lo, g_lo = _tf32(a - a_hi), _tf32(g - g_hi)
+    v = torch.zeros(a.shape[0], g.shape[1])
+    for k0 in range(0, kp, fl.KSLICE):
+        part = torch.zeros_like(v) if flush else v
+        for kk in range(k0, k0 + fl.KSLICE, 8):
+            ks = slice(kk, kk + 8)
+            for x, y in ((a_lo, g_hi), (a_hi, g_lo), (a_hi, g_hi)):
+                part = _mma(part, x[:, ks], y[ks])
+        v = v + part if flush else part
+    return v
+
+
+def test_split_sweep_flushes_the_tensor_cores_truncating_sums(monkeypatch):
+    """On the tensor-core model, bao.desi in w0wacdm (where the card
+    showed the drift) at 1,024 bench walkers, held as phase 12 of
+    chip_smoke.py holds the kernel, against the f32 plain version at 1e-4
+    of max|logp|: the kernel's per-slice flush passes, and the mma
+    accumulating over the whole K fails."""
+    fit = get_preset("bao.desi", "w0wacdm", fast=True, device="cpu", dtype=F64)
+    packed = fl.pack(fit)
+    p32 = replace(packed, buf=packed.buf.float(), dev=packed.dev.float())
+    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+    rng = np.random.default_rng(7)
+    walkers = 0.5 * (lo + hi) + 0.05 * (hi - lo) * rng.standard_normal((1024, len(lo)))
+    theta = torch.as_tensor(walkers.astype(np.float32))
+    want = fl.fused_log_prob_reference(p32, theta)
+    assert bool(torch.isfinite(want).all())
+    scale = float(want.abs().max())
+    errs = {}
+    for flush in (True, False):
+        monkeypatch.setattr(fl, "_tt_coeff", lambda p, h, c: _sweep(
+            p, h, c, lambda a, g: _mma_product(a, g, flush)))
+        got = fl.fused_log_prob_reference(p32, theta)
+        errs[flush] = float((got - want).abs().max()) / scale
+    print(f"tensor-core model ({MMA_BITS} bits) vs the f32 plain version: {errs[True]:.3e} of "
+          f"max|logp| with the per-slice flush, {errs[False]:.3e} without")
+    assert errs[True] <= 1e-4 < errs[False], errs
 
 
 def test_packer_pads_small_bonds_with_zeros(flagship, monkeypatch):
