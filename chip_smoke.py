@@ -8,9 +8,9 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from ``cosmax_torch/csrc`` and three variants
-   of the fused one's source for phase 12 (one nvcc each, all in
-   parallel) and print each ptxas report;
+2. build both CUDA kernels from ``cosmax_torch/csrc`` and five variants
+   of the fused one's source for phases 7, 9 and 12 (one nvcc each, all
+   in parallel) and print each ptxas report;
 3. the kernel against its plain PyTorch version at the flagship shape
    (65,536 walkers x N = 1829) and at ragged shapes, rtol 5e-5, with a
    NaN row kept to its own row; kernel and plain times (CUDA events,
@@ -25,20 +25,29 @@ raising on failure (non-zero exit):
    flagship: finite chain, acceptance in (0, 1), and the kernel's launch
    count over that run;
 7. the fast flagship (``fast=True``, the same dense synthetic SN
-   covariance): the fused log-prob kernel against its plain version at
-   65,536, 262,144, 70 and 1 walkers within 1e-4 of max|logp| (seeded
-   out-of-box and NaN rows -inf in both), 64 walkers against the port's
-   f64 CPU fast path, kernel and plain times (CUDA events, median of 20),
-   a profile of one call, and the kernel launched by ``fit.log_prob()``;
+   covariance), the fused kernel's Tucker instance (its core contraction a
+   block product on the tensor cores in 3xTF32): its ptxas line, shared
+   memory a block and blocks an SM; the kernel against its plain version
+   at 65,536, 262,144, 65,573 (a ragged last block), 70 and 1 walkers
+   within 1e-4 of max|logp| (seeded out-of-box and NaN rows -inf in both),
+   each term alone within 1e-4 of its own max|logp|, where two planted
+   faults in the contraction's 3xTF32 (one TF32 pass, a_lo b_hi dropped)
+   must fail; the other flagship-family presets in lcdm, wcdm and wzcdm
+   (with their shared memory and blocks an SM), 64 walkers against the
+   port's f64 CPU fast path, kernel and plain times (CUDA events, median
+   of 20) with the bound (the contraction's products at the TF32 peak,
+   the all-f32 bound beside it), a profile of one call, and the kernel
+   launched by ``fit.log_prob()``;
 8. the CLI with ``--fast``, 150 walkers x 20 steps: finite chain,
    acceptance in (0, 1), at least two fused launches per step;
 9. the fast multiprobe joint (``joint.multiprobe``/wzcdm, ``fast=True``,
    the dense synthetic SN covariance): its build, ranks and constants;
-   the fused kernel against its plain version at 131,072, 70 and 1
-   walkers within 1e-4 of max|logp| (a seeded out-of-box ``s`` and a NaN
+   the fused kernel against its plain version at 131,072, 65,573, 70 and
+   1 walkers within 1e-4 of max|logp| (a seeded out-of-box ``s`` and a NaN
    row -inf in both), each of its terms alone at 131,072 walkers within
    1e-4 of that term's own max|logp| (and a quasar lift with its B_t
-   zeroed must fail that check), on all 12 configurations of ``joint.multiprobe``,
+   zeroed, and the two planted 3xTF32 faults of phase 7, must fail that
+   check), on all 12 configurations of ``joint.multiprobe``,
    ``fs8.fs8``, ``cc.cc_union3`` and ``cc.cc_des5y`` at 4,096 walkers,
    64 walkers against the port's f64 CPU fast path (and the gap to its
    parity path), kernel and plain times at 131,072 walkers with the
@@ -56,7 +65,8 @@ raising on failure (non-zero exit):
    ranks, the shared and device bytes of its constants and a block's
    shared memory, ptxas; the kernel against its plain version within 1e-4
    of max|logp| at 65,536 and 262,144 walkers of the bench draw, 65,536
-   uniform over the box, 65,536 whose halves alternate walker by walker,
+   uniform over the box, 65,573 of the bench draw (a ragged last block),
+   65,536 whose halves alternate walker by walker,
    65,536 all in half 1, a seam batch with |w0 + wa| < 1e-4 on both
    sides, 70 and 1 walkers (seeded out-of-box and NaN rows -inf in both),
    65,536 bench-style walkers about a centre in half 1, blocks of 112 +
@@ -119,7 +129,13 @@ PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 LO_MMA = ("mma_tf32(part[t][j], alo[t], bhi0, bhi1);", "mma_tf32(part[t][j], ahi[t], blo0, blo1);")
 PLANTED = {"one TF32 pass": tuple((m, "(void)0;") for m in LO_MMA),
            "a_lo b_hi dropped": ((LO_MMA[0], "(void)0;"),)}
+# the same two faults in the Tucker instance's contraction (phases 7 and 9)
+TUCKER_LO_MMA = ("mma_tf32(d[t][jj], alo[s][t], bhi0, bhi1);",
+                 "mma_tf32(d[t][jj], ahi[s][t], blo0, blo1);")
+TUCKER_PLANTED = {"Tucker one TF32 pass": tuple((m, "(void)0;") for m in TUCKER_LO_MMA),
+                  "Tucker a_lo b_hi dropped": ((TUCKER_LO_MMA[0], "(void)0;"),)}
 NARROW_NCOL = 16
+RAGGED = BENCH_WALKERS + 37  # a last block of 37 walkers
 
 
 def _card() -> str:
@@ -340,8 +356,64 @@ def phase_flagship(card):
     return ref
 
 
-def phase_fast(card, parity_ref):
-    """Phase 7: the fused log-prob kernel on the fast flagship."""
+def _tucker_bound_ms(fl, packed, w):
+    """The least time for ``w`` walkers of a native-grid fit: the
+    contraction's products at the TF32 tensor-core peak and the rest at the
+    f32 peak, against theta, logp and the constants read once; and beside
+    it the bound with every operation at the f32 peak."""
+    ops, prod, nbytes = fl.work_per_walker(packed)
+    bytes_s = (w * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES
+    bound_ms = 1e3 * max(w * (prod / PEAK_TF32_FLOPS + ops / PEAK_F32_FLOPS), bytes_s)
+    ffma_ms = 1e3 * max(w * (prod + ops) / PEAK_F32_FLOPS, bytes_s)
+    return bound_ms, ffma_ms, ops, prod, nbytes
+
+
+def _layout(fl, packed):
+    """The Tucker instance's shared memory and occupancy for ``packed``."""
+    h = packed.hdr
+    smem, blocks = fl.occupancy(packed)
+    return (f"core [{h['H_KO']} x {h['H_KI']}][{h['H_LDB']}], {smem} bytes of shared memory a "
+            f"block, {blocks} blocks an SM")
+
+
+def _terms_alone(fl, packed, theta, names, label, variants):
+    """Each term alone (the emulated ones, then the CMB) against its own
+    max|logp|, and each planted fault of TUCKER_PLANTED caught by the
+    emulated terms alone: the printed parts."""
+    parts = []
+    for i in [*range(len(packed.forms)), None]:
+        err, scale, _ = _fused_vs_plain(fl, _term_alone(fl, packed, i), theta)
+        name = "cmb" if i is None else names[i]
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"{label}: fused kernel vs plain, {name} alone: {err / scale:.3e}")
+        parts.append(f"{name} {err / scale:.3e} (of {scale:.4g})")
+    for fault in TUCKER_PLANTED:
+        rel, i = max(_sweep_terms(fl, packed, theta, variants[fault][0]))
+        if rel <= FUSED_RTOL:
+            raise AssertionError(f"{label}: the terms alone missed the planted fault {fault!r}: "
+                                 f"{rel:.3e}")
+        parts.append(f"planted {fault!r} caught at {rel:.3e} ({names[i]})")
+    return parts
+
+
+def _ragged_rows(fl, packed, theta):
+    """Max abs err of the kernel against its plain version over the rows of
+    the ragged last block."""
+    import torch
+
+    tail = theta.shape[0] % 128
+    got = fl.fused_log_prob(packed, theta)[-tail:]
+    want = fl.fused_log_prob_reference(packed, theta)[-tail:]
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError("the ragged last block's -inf rows differ")
+    return tail, float((got[fin] - want[fin]).abs().max())
+
+
+def phase_fast(card, parity_ref, ptxas_tucker, variants):
+    """Phase 7: the fused log-prob kernel on the fast flagship. ``variants``:
+    the variant libraries of ``_finish_variants``."""
     import numpy as np
     import torch
 
@@ -356,10 +428,11 @@ def phase_fast(card, parity_ref):
     h = packed.hdr
     print(f"phase 7: fast flagship bao.desi_cmb_des5y/wzcdm (synthetic dense 1829^2 SN) built "
           f"and packed in {build_s:.2f}s: Tucker ranks ({h['H_R1']}, {h['H_R2']}), "
-          f"R_all {h['H_RALL']}, {h['H_NFORMS']} forms, {h['H_SIZE']} constants")
+          f"R_all {h['H_RALL']}, {h['H_NFORMS']} forms, {h['H_SIZE']} constants; "
+          f"{_layout(fl, packed)}; {ptxas_tucker}")
 
     # the kernel against its plain version; seeded bad rows are -inf in both
-    for w in (BENCH_WALKERS, BIG_WALKERS, 70, 1):
+    for w in (BENCH_WALKERS, BIG_WALKERS, RAGGED, 70, 1):
         walkers = _flagship_walkers(fit, w, seed=w)
         if w >= 4:
             walkers[1, 2] = 0.95  # Om beyond its bound (0.1, 0.6)
@@ -369,14 +442,25 @@ def phase_fast(card, parity_ref):
             raise AssertionError(f"bad rows not exactly the -inf rows at W={w}")
         if not err <= FUSED_RTOL * scale:
             raise AssertionError(f"fused kernel vs plain at W={w}: {err:.3e} > 1e-4 of {scale:.3e}")
+        ragged = ""
+        if w == RAGGED:
+            tail, tail_err = _ragged_rows(fl, packed, torch.as_tensor(walkers, device="cuda"))
+            ragged = f"; the ragged last block's {tail} rows {tail_err / scale:.3e}"
         print(f"phase 7: fused kernel vs plain at W={w}: max abs err {err:.3e} "
-              f"({err / scale:.3e} of max|logp|); -inf rows agree")
+              f"({err / scale:.3e} of max|logp|); -inf rows agree{ragged}")
         if w == BENCH_WALKERS:
             max_abs_err = err
 
+    # each term alone, and the planted faults of the contraction's 3xTF32
+    names = [t.name for t in fit.terms if "compression" not in t.meta]
+    theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS, seed=3), device="cuda")
+    parts = _terms_alone(fl, packed, theta, names, "phase 7", variants)
+    print(f"phase 7: each term alone at W={BENCH_WALKERS} (of its own max|logp|, limit "
+          f"{FUSED_RTOL:g}): {'; '.join(parts)}")
+
     # every other branch of the kernel: each ported fast preset and model
     for name in ("bao.desi", "bao.desi_cmb_des5y", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon"):
-        worst = 0.0
+        worst, layouts = 0.0, []
         for model in ("lcdm", "wcdm", "wzcdm"):
             other = get_preset(name, model, fast=True, device="cuda")
             p = fl.pack(other)
@@ -385,8 +469,9 @@ def phase_fast(card, parity_ref):
             if not err <= FUSED_RTOL * scale:
                 raise AssertionError(f"fused kernel vs plain on {name}/{model}: {err / scale:.3e}")
             worst = max(worst, err / scale)
+            layouts.append(f"{model}: {_layout(fl, p)}")
         print(f"phase 7: fused kernel vs plain on {name} (lcdm, wcdm, wzcdm) at W=4096: "
-              f"worst {worst:.3e} of max|logp|")
+              f"worst {worst:.3e} of max|logp|; {'; '.join(layouts)}")
 
     # 64 walkers against the port's f64 CPU fast path and parity path
     walkers = _flagship_walkers(fit, 64)
@@ -430,15 +515,14 @@ def phase_fast(card, parity_ref):
         theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
         ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
         plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
-        ops, _, nbytes = fl.work_per_walker(packed)
-        bound_ms = 1e3 * max(w * ops / PEAK_F32_FLOPS,
-                             (w * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES)
+        bound_ms, ffma_ms, ops, prod, nbytes = _tucker_bound_ms(fl, packed, w)
         print(f"phase 7: fused_log_prob at W={w} on {card}: kernel {ms:.4f} ms "
               f"({w / ms * 1e3:.1f} evals/s), plain {plain_ms:.4f} ms "
               f"({w / plain_ms * 1e3:.1f} evals/s) (median of 20 samples of 20 calls, "
-              f"CUDA events); "
-              f"bound {bound_ms:.4f} ms ({ops} f32 ops and {nbytes} bytes per walker)")
-        timing[w] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+              f"CUDA events); bound {bound_ms:.4f} ms ({prod} product ops a walker at the TF32 "
+              f"peak, {ops} other ops at the f32 peak, {nbytes} bytes), {ffma_ms:.4f} ms with "
+              f"every op at the f32 peak")
+        timing[w] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms)
 
     theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device="cuda")
     calls = 20
@@ -457,7 +541,8 @@ def phase_fast(card, parity_ref):
     else:
         print("phase 7: torch.profiler recorded no device time (not measured)")
     return dict(max_abs_err=max_abs_err, **timing[BENCH_WALKERS], bound_by="operations",
-                library_ms=None)
+                library_ms=None, ms_262144=timing[BIG_WALKERS]["ms"],
+                bound_ms_262144=timing[BIG_WALKERS]["bound_ms"])
 
 
 def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast=False,
@@ -496,15 +581,17 @@ def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast
 
 
 def _launch_variant(fl, lib, packed, theta):
-    """logp of the split grid from a variant library of the fused kernel,
-    launched straight through its C entry (not the wrapper, so the launch
-    counts of the main path stay as they are)."""
+    """logp from a variant library of the fused kernel, launched straight
+    through its C entry (not the wrapper, so the launch counts of the main
+    path stay as they are)."""
     import torch
 
+    split = int(packed.hdr["H_SPLIT"])
     out = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
-    err = fl._entry(lib)(packed.buf.data_ptr(), packed.buf.numel(), packed.dev.data_ptr(), 1,
-                         fl._stride(packed), theta.data_ptr(), out.data_ptr(), theta.shape[0],
-                         packed.dim, torch.cuda.current_stream().cuda_stream)
+    err = fl._entry(lib)(packed.buf.data_ptr(), packed.buf.numel(),
+                         packed.dev.data_ptr() if split else None, split, fl._stride(packed),
+                         theta.data_ptr(), out.data_ptr(), theta.shape[0], packed.dim,
+                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused kernel variant launch failed: cudaError {err}")
     return out
@@ -555,7 +642,7 @@ def _term_alone(fl, packed, i):
                                halves=tuple(halves))
 
 
-def phase_multiprobe_fast(card):
+def phase_multiprobe_fast(card, variants):
     """Phase 9: the fused kernel on the fast multiprobe joint."""
     import numpy as np
     import torch
@@ -573,10 +660,11 @@ def phase_multiprobe_fast(card):
                       zip([t for t in fit.terms if "compression" not in t.meta], packed.forms))
     print(f"phase 9: fast joint.multiprobe/wzcdm (synthetic dense 1829^2 SN) built and packed "
           f"in {build_s:.2f}s: Tucker ranks ({h['H_R1']}, {h['H_R2']}), R_all {h['H_RALL']} "
-          f"({h['H_NQ']} quads), {h['H_NFORMS']} forms ({kinds}), {h['H_SIZE']} constants")
+          f"({h['H_NQ']} quads), {h['H_NFORMS']} forms ({kinds}), {h['H_SIZE']} constants; "
+          f"{_layout(fl, packed)}")
 
     i_s = fit.spec.names.index("s")
-    for w in (MP_WALKERS, 70, 1):
+    for w in (MP_WALKERS, RAGGED, 70, 1):
         walkers = _flagship_walkers(fit, w, seed=w)
         if w >= 4:
             walkers[1, i_s] = 1.7  # the quasar scatter beyond its bound (0, 1.5)
@@ -586,8 +674,12 @@ def phase_multiprobe_fast(card):
             raise AssertionError(f"bad rows not exactly the -inf rows at W={w}")
         if not err <= FUSED_RTOL * scale:
             raise AssertionError(f"fused kernel vs plain at W={w}: {err:.3e} > 1e-4 of {scale:.3e}")
+        ragged = ""
+        if w == RAGGED:
+            tail, tail_err = _ragged_rows(fl, packed, torch.as_tensor(walkers, device="cuda"))
+            ragged = f"; the ragged last block's {tail} rows {tail_err / scale:.3e}"
         print(f"phase 9: fused kernel vs plain at W={w}: max abs err {err:.3e} "
-              f"({err / scale:.3e} of max|logp|); -inf rows agree")
+              f"({err / scale:.3e} of max|logp|); -inf rows agree{ragged}")
         if w == MP_WALKERS:
             max_abs_err = err
             theta_big = torch.as_tensor(walkers, device="cuda")
@@ -615,11 +707,17 @@ def phase_multiprobe_fast(card):
             if planted <= FUSED_RTOL:
                 raise AssertionError(f"the term-alone check missed a zeroed lift: {planted:.3e}")
             parts[-1] += f", zeroed B_t caught at {planted:.3e}"
+    for fault in TUCKER_PLANTED:
+        rel, i = max(_sweep_terms(fl, packed, theta_big, variants[fault][0]))
+        if rel <= FUSED_RTOL:
+            raise AssertionError(f"phase 9: the terms alone missed the planted fault {fault!r}: "
+                                 f"{rel:.3e}")
+        parts.append(f"planted {fault!r} caught at {rel:.3e} ({names[i]})")
     print(f"phase 9: fused kernel vs plain, each term alone at W={MP_WALKERS} (of its own "
           f"max|logp|): {'; '.join(parts)}")
 
     for name in NEW_FAST:
-        worst = 0.0
+        worst, layouts = 0.0, []
         for model in ("lcdm", "wcdm", "wzcdm"):
             other = get_preset(name, model, fast=True, device="cuda")
             p = fl.pack(other)
@@ -628,8 +726,9 @@ def phase_multiprobe_fast(card):
             if not err <= FUSED_RTOL * scale:
                 raise AssertionError(f"fused kernel vs plain on {name}/{model}: {err / scale:.3e}")
             worst = max(worst, err / scale)
+            layouts.append(f"{model}: {_layout(fl, p)}")
         print(f"phase 9: fused kernel vs plain on {name} (lcdm, wcdm, wzcdm) at W=4096: "
-              f"worst {worst:.3e} of max|logp|")
+              f"worst {worst:.3e} of max|logp|; {'; '.join(layouts)}")
 
     walkers = _flagship_walkers(fit, 64)
     lp32 = log_prob(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
@@ -650,13 +749,12 @@ def phase_multiprobe_fast(card):
     theta = torch.as_tensor(_flagship_walkers(fit, MP_WALKERS), device="cuda")
     ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
     plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
-    ops, _, nbytes = fl.work_per_walker(packed)
-    bound_ms = 1e3 * max(MP_WALKERS * ops / PEAK_F32_FLOPS,
-                         (MP_WALKERS * nbytes + 4 * packed.buf.numel()) / PEAK_BYTES)
+    bound_ms, ffma_ms, ops, prod, nbytes = _tucker_bound_ms(fl, packed, MP_WALKERS)
     print(f"phase 9: fused_log_prob multiprobe at W={MP_WALKERS} on {card}: kernel {ms:.4f} ms "
           f"({MP_WALKERS / ms * 1e3:.1f} evals/s), plain {plain_ms:.4f} ms (median of 20 "
-          f"samples of 20 calls, CUDA events); bound {bound_ms:.4f} ms ({ops} f32 ops and "
-          f"{nbytes} bytes per walker)")
+          f"samples of 20 calls, CUDA events); bound {bound_ms:.4f} ms ({prod} product ops a "
+          f"walker at the TF32 peak, {ops} other ops at the f32 peak, {nbytes} bytes), "
+          f"{ffma_ms:.4f} ms with every op at the f32 peak")
 
     _reset_counts()
     lp = log_prob(theta)
@@ -675,7 +773,7 @@ def phase_multiprobe_fast(card):
           f"kernel launch per call; end to end {MP_WALKERS / dt:.1f} evals/s "
           f"({1e3 * dt:.4f} ms per call, host clock, mean of {reps}) on {card}")
     return ref_par, dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         log_prob_launches=launched)
+                         bound_ms_ffma=ffma_ms, log_prob_launches=launched)
 
 
 def phase_multiprobe_parity(card, ref_par):
@@ -731,14 +829,15 @@ def _ptxas_of(log, marker):
 
 
 def _start_variants():
-    """Write each variant of the fused kernel's source (PLANTED, and NCOL
-    set to NARROW_NCOL) under ``build/chip_smoke_variants/`` and start one
-    nvcc for each. Returns {name: (process, library path)}."""
+    """Write each variant of the fused kernel's source (PLANTED,
+    TUCKER_PLANTED, and NCOL set to NARROW_NCOL) under
+    ``build/chip_smoke_variants/`` and start one nvcc for each. Returns
+    {name: (process, library path)}."""
     from cosmax_torch.ops.kernels import build
     from cosmax_torch.ops.kernels import fused_log_prob as fl
 
     ncol = f"constexpr int NCOL = {fl.NCOL};"
-    variants = dict(PLANTED, **{f"NCOL={NARROW_NCOL}": (
+    variants = dict(PLANTED, **TUCKER_PLANTED, **{f"NCOL={NARROW_NCOL}": (
         (ncol, f"constexpr int NCOL = {NARROW_NCOL};"),)})
     src = (build.CSRC / "fused_log_prob.cu").read_text()
     out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
@@ -844,7 +943,8 @@ def _mixed_blocks(lower, upper, c1, block=128):
 
 
 def _sweep_terms(fl, packed, theta, lib=None):
-    """Each emulated term alone (the terms the tensor-train sweep feeds),
+    """Each emulated term alone (the terms the contraction or the
+    tensor-train sweep feeds),
     the kernel or the variant library ``lib`` against the plain version:
     [(err / the term's own max|logp|, term index)]."""
     out = []
@@ -932,6 +1032,7 @@ def phase_w0wa_fast(card, ptxas_split, variants):
         "bench 65536": _flagship_walkers(fit, BENCH_WALKERS, seed=12),
         "bench 262144": _flagship_walkers(fit, BIG_WALKERS, seed=13),
         "uniform 65536": _box_walkers(fit, BENCH_WALKERS, seed=14),
+        f"bench {RAGGED}": _flagship_walkers(fit, RAGGED, seed=25),
         "alternating 65536": _one_half(fit, BENCH_WALKERS, seed=22, alternate=True),
         "half-1 65536": _one_half(fit, BENCH_WALKERS, seed=23, alternate=False),
         "half-1 bench 65536": _half1_walkers(fit, BENCH_WALKERS, seed=24),
@@ -1176,14 +1277,15 @@ def main():
         ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
     ptxas_split = _ptxas_of(built[1].log, "split_kernel") or "ptxas report not found"
+    ptxas_tucker = _ptxas_of(built[1].log, "fused_log_prob_kernel") or "ptxas report not found"
 
     timing = phase_kernel(card)
     phase_anchor()
     parity_ref = phase_flagship(card)
     launches = phase_cli(card, "phase 6")
-    fused = phase_fast(card, parity_ref)
+    fused = phase_fast(card, parity_ref, ptxas_tucker, variants)
     fused_launches = phase_cli(card, "phase 8", fast=True)
-    mp_ref, mp_fused = phase_multiprobe_fast(card)
+    mp_ref, mp_fused = phase_multiprobe_fast(card, variants)
     mp_parity_launches = phase_multiprobe_parity(card, mp_ref)
     mp_cli_launches = phase_cli(card, "phase 11", "joint.multiprobe", 256, 11, fast=True)
     w0wa = phase_w0wa_fast(card, ptxas_split, variants)

@@ -10,7 +10,8 @@
 //      fit may sample no H0 at all, then nothing reads it);
 //   2. barycentric weights on each Chebyshev axis (a one-hot within 1e-14
 //      of a node), folded straight into the Tucker factor projections
-//      wp_i = U_i^T w_i: a second pass recomputes bw/diff, so the node
+//      wp_i = U_i^T w_i in one pass over the nodes (the sum of the
+//      unnormalised weights divided out once at the end), so the node
 //      weights are never stored. On the split w0wacdm grid (#1b) the
 //      walker takes half 0 if s = w0 + wa <= 0, else half 1 (the
 //      reference's jnp.where, cosmax/models/linear_chi2.py:575-587), and
@@ -19,11 +20,11 @@
 //      cores (block products on the tensor cores, see below); the
 //      coefficient vector is then a = v^T tail;
 //   3. the emulated terms, one form at a time. Each form owns a window of
-//      the core's columns, whole quads (float4) in an order the packer
-//      chose; the window is contracted a[q] = sum_jk wp1[j] wp2[k]
-//      core[j, k, q] up to QC quads at a time and each quad reduced at
-//      once, so only the chunk and the form's running sums stay live, never
-//      the whole a[R_all]:
+//      the core's columns, whole quads in an order the packer chose; the
+//      window is contracted a[q] = sum_jk wp1[j] wp2[k] core[j, k, q] (on
+//      the native grid by the warp's block product, at most NCOLT columns
+//      a pass; on the split grid QC quads at a time from the tail) and each
+//      quad reduced at once, so never the whole a[R_all] is held:
 //      * linear (BAO, SN, CC): quads of two (base, Or-delta) pairs,
 //        e = beta s (a + Or/OR_REF a_d) - ba_ref, chi2 = c_ref - 2 e.v_ref
 //        + e.e, plus g.S g - 2 g.q_ref + 2 e.P g where the form has
@@ -50,29 +51,47 @@
 // second buffer in device memory, each core a matrix [n r_in][r] read
 // slice by slice.
 //
-// What bounds it on the card: per walker about 9.1k f32 operations for the
-// flagship and 25k for the multiprobe joint (wzcdm; 20k of them in the
-// core contraction), about 198k (half 0) or 107k (half 1) for the w0wacdm
-// flagship, 184k (half 0) of them in the TT sweep's two products with
-// r_in > 1, against 28-48 bytes of HBM traffic (theta in, logp out). It is
-// bound by operations (FFMA issue, the loads that feed it, and the
-// accurate transcendental sequences; on the split grid the tensor cores'
-// TF32 rate for the sweep's products), never by memory.
+// What bounds it on the card: per walker about 8.9k operations for the
+// flagship and 24.8k for the multiprobe joint (wzcdm; 4.9k and 19.7k of
+// them the core contraction's products), about 198k (half 0) or 107k (half
+// 1) for the w0wacdm flagship, 184k (half 0) of them in the TT sweep's two
+// products with r_in > 1, against 28-48 bytes of HBM traffic (theta in,
+// logp out). It is bound by operations (the tensor cores' TF32 rate for
+// the products; FFMA issue, the loads that feed it and the accurate
+// transcendental sequences for the rest), never by memory. With the
+// contraction as FFMA, one thread per walker, the flagship's walker took
+// ~21k instructions: ~8.3k the CMB's 72 nodes, ~7.8k the projections' two
+// passes of IEEE divisions, ~3.9k the contraction (PERF.md).
 //
 // What the design does about it:
-// * One thread per walker, 128 threads a block; the block first copies the
-//   constant buffer into shared memory. Every contraction then reads one
-//   shared address across the warp (a broadcast, no bank conflicts), and
-//   the core as float4.
-// * Register pressure stays flat in R_all: a form's window is contracted
-//   QC quads at a time (acc[QC], float4) and each quad is consumed at
-//   once, so the live state is the chunk and the form's sums (dmu[MAX_K]
-//   for a lift). The weight wp1[j] wp2[k] is formed once per (j, k) and
-//   chunk, so the contraction costs r1 r2 a chunk for the weights and
-//   2 r1 r2 a column. Loops over those arrays unroll to
-//   compile-time bounds with uniform guards. wp1 and wp2 stay in
-//   per-thread slices of shared memory ([j][thread], conflict-free), read
-//   back by the thread that wrote them.
+// * One thread per walker, 128 threads a block (256 in the Tucker
+//   instance); the block first copies the constant buffer into shared
+//   memory.
+// * The Tucker instance (fused_log_prob_kernel) contracts on the tensor
+//   cores, per warp: its 32 walkers' projections go to the warp's slices
+//   of shared memory, the outer factor w1 [KO][WLD] and the inner one w2
+//   [KI][WLD] (the axis the packer chose, its rank padded to k-steps of 8),
+//   and each column pass of a form's window is C[32, 8 NT] = sum_j w1[j]
+//   D_j with D_j = W2[32, KI] B_j[KI, 8 NT], B_j the rows j KI.. of the
+//   core stored as the matrix [KO KI][H_LDB] (its row stride 8 or 24 mod
+//   32: the fragments fall on 32 banks). Each D_j is a product on the
+//   tensor cores, mma.sync m16n8k8 in 3xTF32 as the split grid's sweep,
+//   from zero over its one or two k-steps, with A = W2 split once a pass;
+//   w1[j] scales its rows into C's registers by FFMA (rounded f32, so the
+//   tensor cores' truncating adds never run long). That forms no
+//   Kronecker product A[b, (j, p)] = w1[j] w2[p]: its products and splits
+//   took half a k-step's instructions (PERF.md). C lands in the warp's
+//   buffer [column][CLD], from which each walker reduces the quads of its
+//   own row. Only warp barriers are needed, so a thread past
+//   the last walker takes part on a copy of it, and the warps of a block
+//   run unsynchronised. The CMB's integrands are written in a, one square
+//   root and one IEEE division a node (q_of_a).
+// * Register pressure stays flat in R_all: a window is contracted one
+//   column pass (at most NCOLT columns) at a time and each quad is
+//   consumed at once, so the live state is the pass and the form's sums
+//   (dmu[MAX_K] for a lift). On the split grid the tail is contracted QC
+//   quads at a time (acc[QC], float4) from per-thread slices of the sweep
+//   vectors.
 // * The TT sweep (the split instance, its own kernel
 //   fused_log_prob_split_kernel) runs per block, not per thread. The block
 //   first groups its walkers by half (ballots): half 0's take rows [0, c0)
@@ -107,10 +126,10 @@
 // * Accurate libm functions and IEEE division and square root (no
 //   --use_fast_math): the CMB term divides theta* by its sigma ~ 2.6e-6,
 //   and the quasar term takes 22 logf a walker.
-// * The ragged last block is masked; each thread reads and writes only its
-//   own walker, so a NaN walker stays in its row (on the split grid a
-//   product's rows are independent, and only a walker's own row of C is
-//   written).
+// * The ragged last block is masked: a thread past the end computes a copy
+//   of the last walker and writes nothing. Each thread reads and writes
+//   only its own walker, so a NaN walker stays in its row (a product's rows
+//   are independent, and a walker reads only its own row of C).
 // Maxima such as MAX_RANK are compile-time; the packer refuses larger fits.
 
 #include <cuda_runtime.h>
@@ -156,7 +175,32 @@ constexpr int MT_WARP = THREADS / 16 / WARPS;  // m-tiles of 16 rows a warp
 // blocks of the split instance an SM should hold (registers capped to fit;
 // the flagship's shared memory, 76 KB a block, fits three)
 constexpr int SPLIT_BLOCKS = 3;
+// timing probes of the Tucker instance, built only by `fused_ab.py --variant
+// PROBE=n` (0 is the kernel): bit 1 leaves out the CMB, bit 2 the core
+// contraction (each quad of a window takes wp1[0] wp2[0]), bit 4 the
+// weights' projection (each wp[j] takes the coordinate); what is left out
+// is the part's time. A probe computes another function, so fused_ab.py
+// does not hold it against the plain version.
+constexpr int PROBE = 0;
+// the Tucker instance's contraction, block products per warp over its 32
+// walkers: the projections at a stride of WLD floats a row, C [column][CLD],
+// column passes of at most NCOLT columns (wider passes took more registers
+// and time, PERF.md). WLD is 8 mod 32 and 2 CLD 8 mod 32, so that A's
+// fragments and C's stores (lanes 4 g + t at row g, column t or 2 t) fall
+// on 32 banks.
+constexpr int WLD = 40;
+constexpr int CLD = 36;
+constexpr int NCOLT = 24;
+// the Tucker instance's warps a block (8 share one copy of the constants:
+// the multiprobe's 73 KB leave room for 3 blocks of 4 warps, 2 of 8), and
+// the warps an SM should hold (its registers capped to 128 to fit)
+constexpr int TUCKER_WARPS = 8;
+constexpr int TUCKER_SM_WARPS = 16;
+constexpr int TUCKER_THREADS = 32 * TUCKER_WARPS;
 static_assert(VLD >= THREADS && VLD % 32 == 8 && SLD >= NCOL && SLD % 32 == 8, "bank layout");
+static_assert(WLD >= 32 && WLD % 32 == 8 && CLD >= 32 && CLD % 16 == 4 && NCOLT % 8 == 0,
+              "bank layout of the Tucker contraction");
+static_assert(MAX_RANK == 16, "ranks pad to 8 or 16: one or two k-steps");
 static_assert(KSLICE % 8 == 0 && NCOL % 8 == 0 && STAGES >= 2, "tile shapes");
 static_assert(MIN_RIN >= 8, "a k-step of 8 columns wraps r_in at most once");
 static_assert(WPAD * MIN_RIN >= KSLICE, "G's padding rows lie on the zero rows of weights");
@@ -194,6 +238,10 @@ constexpr int H_I_WA = 28;
 constexpr int H_SPLIT = 29;
 constexpr int H_OFF_HALVES = 30;
 constexpr int H_VROWS = 31;
+constexpr int H_KO = 32;
+constexpr int H_KI = 33;
+constexpr int H_LDB = 34;
+constexpr int H_INNER = 35;
 
 // one half of the split grid (HALF)
 // (per core i = 0, 1, 2 the slots T_PERM0 + i, T_AX0 + i, T_N0 + i,
@@ -279,55 +327,105 @@ constexpr int C_NODES = 20;
 constexpr float C_KM_S = 299792.458f;
 constexpr float OR_REF = 2e-4f;
 constexpr float PI = 3.14159265358979f;
+constexpr float LN2 = 0.693147180559945f;
 
-// E(z) with radiation; o_r = 0 gives the radiation-free E exactly. SPLIT:
-// w0wacdm (CPL), else the flat lcdm (0), wcdm (1) and wzcdm (2) families
-template <bool SPLIT>
-__device__ __forceinline__ float e_of_z(float z, float om, float o_r, float w0, float wa,
-                                        int model) {
+// E(z) of w0wacdm (CPL) with radiation; o_r = 0 gives the radiation-free E
+// exactly
+__device__ __forceinline__ float e_cpl(float z, float om, float o_r, float w0, float wa) {
   const float opz = 1.0f + z;
   const float cubed = opz * opz * opz;
-  float rho = 1.0f;
-  if constexpr (SPLIT) {  // up to ~1e27 at z* for s = w0 + wa near 2, inside f32
-    rho = expf(3.0f * (1.0f + w0 + wa) * logf(opz) - 3.0f * wa * z / opz);
-  } else if (model == 1) {
-    rho = expf(3.0f * (1.0f + w0) * logf(opz));
-  } else if (model == 2) {
-    rho = expf(2.0f * (1.0f + w0) * logf(2.0f * cubed / (1.0f + cubed)));
-  }
+  // up to ~1e27 at z* for s = w0 + wa near 2, inside f32
+  const float rho = expf(3.0f * (1.0f + w0 + wa) * logf(opz) - 3.0f * wa * z / opz);
   const float ode = 1.0f - om - o_r;
   return sqrtf(o_r * cubed * opz + om * cubed + ode * rho);
 }
 
+// q = a^4 E(a)^2 = o_r + a (om + a^3 ode rho(a)) for the flat lcdm (MODEL
+// 0), wcdm (1) and wzcdm (2) families, with ln_a = ln a (read by wcdm
+// only): the r_s integrand c / (a^2 E sqrt(3 (1 + Rb a))) is then
+// c / sqrt(q 3 (1 + Rb a)), and the D_C integrand c / (a E) is c a / sqrt(q),
+// one square root and one division a node and no 1 / a; wzcdm's
+// ln(2 (1 + z)^3 / (1 + (1 + z)^3)) is ln 2 - ln(1 + a^3), without a division
+template <int MODEL>
+__device__ __forceinline__ float q_of_a(float a, float ln_a, float om, float o_r, float w0) {
+  const float a3 = a * a * a;
+  float rho = 1.0f;
+  if constexpr (MODEL == 1) {
+    rho = expf(-3.0f * (1.0f + w0) * ln_a);
+  } else if constexpr (MODEL == 2) {
+    rho = expf(2.0f * (1.0f + w0) * (LN2 - logf(1.0f + a3)));
+  }
+  return fmaf(a, fmaf(a3, (1.0f - om - o_r) * rho, om), o_r);
+}
+
+// the native grid's CMB integrals rs += r_s(z*) h0 and dm += D_C(z*) h0 by GL
+// in a (nodes t_rs, weights w_rs on [0, 1]) and in ln a from u0 = ln a* up
+// to 0, one loop per model so that a node computes its own model's density
+// only
+template <int MODEL>
+__device__ __forceinline__ void cmb_integrals(const float* t_rs, const float* w_rs, int n_rs,
+                                              const float* t_dc, const float* w_dc, int n_dc,
+                                              float a_end, float u0, float rb, float om,
+                                              float o_r, float w0, float& rs, float& dm) {
+  for (int i = 0; i < n_rs; ++i) {
+    const float a = a_end * t_rs[i];
+    const float q = q_of_a<MODEL>(a, MODEL == 1 ? logf(a) : 0.0f, om, o_r, w0);
+    rs += C_KM_S / sqrtf(q * (3.0f * fmaf(rb, a, 1.0f))) * (a_end * w_rs[i]);
+  }
+  for (int i = 0; i < n_dc; ++i) {
+    const float u = u0 * (1.0f - t_dc[i]);
+    const float a = expf(u);
+    dm += C_KM_S * a / sqrtf(q_of_a<MODEL>(a, u, om, o_r, w0)) * (-u0 * w_dc[i]);
+  }
+}
+
 // barycentric weights of x on one axis, projected on the Tucker factor
-// u [n, r]: wp[j] = sum_m u[m, j] w_m, stored at wp_out[j * THREADS]
+// u [n, R] (its rank padded with zero columns to R = 8 or 16) in one pass
+// over the nodes: wp[j] = sum_m u[m, j] t_m / sum_m t_m with t_m = bw[m] /
+// (x - node m), one division a node and one reciprocal of the sum (row m
+// of u where x lies within 1e-14 of node m), stored at wp_out[j * WLD] for
+// j < rows (<= R)
+template <int R>
 __device__ void project_axis(float x, const float* nodes, const float* bw, const float* u,
-                             int n, int r, float* wp_out) {
+                             int n, int rows, float* wp_out) {
+  float wp[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) wp[j] = 0.0f;
   float sum = 0.0f;
-  int n_near = 0;
+  int near = -1;
   for (int m = 0; m < n; ++m) {
     const float d = x - nodes[m];
     if (fabsf(d) < 1e-14f) {
-      ++n_near;
-    } else {
-      sum += bw[m] / d;
+      near = m;
+      continue;
+    }
+    const float tm = bw[m] / d;
+    sum += tm;
+    const float4* um = reinterpret_cast<const float4*>(u + m * R);
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const float4 v = um[j];
+      wp[4 * j] = fmaf(v.x, tm, wp[4 * j]);
+      wp[4 * j + 1] = fmaf(v.y, tm, wp[4 * j + 1]);
+      wp[4 * j + 2] = fmaf(v.z, tm, wp[4 * j + 2]);
+      wp[4 * j + 3] = fmaf(v.w, tm, wp[4 * j + 3]);
     }
   }
-  float wp[MAX_RANK];
+  const float inv = 1.0f / sum;
+  const float* un = u + max(near, 0) * R;
 #pragma unroll
-  for (int j = 0; j < MAX_RANK; ++j) wp[j] = 0.0f;
-  for (int m = 0; m < n; ++m) {
-    const float d = x - nodes[m];
-    const bool near = fabsf(d) < 1e-14f;
-    const float wm = n_near > 0 ? (near ? 1.0f : 0.0f) : (bw[m] / d) / sum;
-    const float* um = u + m * r;
-#pragma unroll
-    for (int j = 0; j < MAX_RANK; ++j)
-      if (j < r) wp[j] = fmaf(um[j], wm, wp[j]);
+  for (int j = 0; j < R; ++j)
+    if (j < rows) wp_out[j * WLD] = near >= 0 ? un[j] : wp[j] * inv;
+}
+
+// project_axis for a factor of rank r (its stored width (r + 7) & ~7)
+__device__ __forceinline__ void project(float x, const float* nodes, const float* bw,
+                                        const float* u, int n, int r, int rows, float* wp_out) {
+  if (r <= 8) {
+    project_axis<8>(x, nodes, bw, u, n, rows, wp_out);
+  } else {
+    project_axis<16>(x, nodes, bw, u, n, rows, wp_out);
   }
-#pragma unroll
-  for (int j = 0; j < MAX_RANK; ++j)
-    if (j < r) wp_out[j * THREADS] = wp[j];
 }
 
 // the quads [q0, q0 + n) of the coefficient vector, QC at a time:
@@ -335,8 +433,9 @@ __device__ void project_axis(float x, const float* nodes, const float* bw, const
 // projections formed once per (j, k) and chunk (the core is [r1][r2][nq]
 // float4s, so a chunk's loads lie together at compile-time offsets);
 // consume(i, a[q0 + i]) then takes each quad of the chunk in order. wp1 and
-// wp2 are the thread's slices of shared memory, at [j * S].
-template <int S = THREADS, typename Consume>
+// wp2 are the thread's slices of shared memory, at [j * S]. (The split
+// grid's tail a = v^T tail: r2 = 1, S = VLD.)
+template <int S, typename Consume>
 __device__ __forceinline__ void contract_window(const float4* core, int nq, int q0, int n, int r1,
                                                 int r2, const float* wp1, const float* wp2,
                                                 Consume&& consume) {
@@ -399,26 +498,36 @@ __device__ float cmb_chi2(const float* c, const float* th, float h0, float om, f
   const float* t_dc = w_rs + n_rs;
   const float* w_dc = t_dc + n_dc;
 
-  // r_s(z*) = int_0^{a*} c da / (a^2 H sqrt(3 (1 + Rb a))), GL in a
+  // r_s(z*) = int_0^{a*} c da / (a^2 H sqrt(3 (1 + Rb a))), GL in a, and
+  // D_C(z*) = int_{ln a*}^0 c du / (a H), GL in ln a
   const float rb = 3.0f * wb / c[C_OG4];
   const float a_end = 1.0f / (1.0f + zs);
   float rs = 0.0f;
-  for (int i = 0; i < n_rs; ++i) {
-    const float a = a_end * t_rs[i];
-    const float ez = e_of_z<SPLIT>(1.0f / a - 1.0f, om, o_r, w0, wa, model);
-    const float integ = C_KM_S / (a * a * ez * sqrtf(3.0f * (1.0f + rb * a)));
-    rs += integ * (a_end * w_rs[i]);
+  float dm = 0.0f;
+  if constexpr (SPLIT) {
+    for (int i = 0; i < n_rs; ++i) {
+      const float a = a_end * t_rs[i];
+      const float ez = e_cpl(1.0f / a - 1.0f, om, o_r, w0, wa);
+      const float integ = C_KM_S / (a * a * ez * sqrtf(3.0f * (1.0f + rb * a)));
+      rs += integ * (a_end * w_rs[i]);
+    }
+    const float u0 = logf(1.0f / (1.0f + zs));
+    for (int i = 0; i < n_dc; ++i) {
+      const float a = expf(u0 * (1.0f - t_dc[i]));
+      const float ez = e_cpl(1.0f / a - 1.0f, om, o_r, w0, wa);
+      dm += C_KM_S / (a * ez) * (-u0 * w_dc[i]);
+    }
+  } else {
+    const float u0 = logf(1.0f / (1.0f + zs));
+    if (model == 1) {
+      cmb_integrals<1>(t_rs, w_rs, n_rs, t_dc, w_dc, n_dc, a_end, u0, rb, om, o_r, w0, rs, dm);
+    } else if (model == 2) {
+      cmb_integrals<2>(t_rs, w_rs, n_rs, t_dc, w_dc, n_dc, a_end, u0, rb, om, o_r, w0, rs, dm);
+    } else {
+      cmb_integrals<0>(t_rs, w_rs, n_rs, t_dc, w_dc, n_dc, a_end, u0, rb, om, o_r, w0, rs, dm);
+    }
   }
   rs = rs / h0;
-
-  // D_C(z*) = int_{ln a*}^0 c du / (a H), GL in ln a
-  const float u0 = logf(1.0f / (1.0f + zs));
-  float dm = 0.0f;
-  for (int i = 0; i < n_dc; ++i) {
-    const float a = expf(u0 * (1.0f - t_dc[i]));
-    const float ez = e_of_z<SPLIT>(1.0f / a - 1.0f, om, o_r, w0, wa, model);
-    dm += C_KM_S / (a * ez) * (-u0 * w_dc[i]);
-  }
   dm = dm / h0;
 
   float o0, o1, o2;
@@ -650,6 +759,111 @@ __device__ __forceinline__ void mma_slice_nt(int nt, const float* st, int row0, 
   mma_slice<MT, NT>(st, row0, a, acc);
 }
 
+// one column pass of the Tucker contraction for the warp's 32 walkers (row
+// b = lane b), C[b][c] = sum_{j < ko} w1[j][b] D_j[b][c] with D_j[b][c] =
+// sum_{p < ki} w2[p][b] core[j ki + p][c], for the pass's 8 NT columns c. Each
+// D_j is a block product on the tensor cores in 3xTF32 as the split grid's
+// sweep: A = w2 (the inner factor, its fragments read and split once a
+// pass), B the core's rows j ki.. in shared memory (row stride ldb, 8 or 24
+// mod 32, so that the fragments fall on 32 banks) split at load, summed from
+// zero over its KS k-steps and added to C's registers by an FFMA with the
+// row's w1[j] (rounded f32, as the sweep's per-slice flush). b points at the
+// pass's first column of core row 0; C is the warp's buffer [column][CLD].
+template <int NT, int KS>
+__device__ __forceinline__ void tucker_tiles(const float* b, int ldb, int ko, const float* w1,
+                                             const float* w2, float* c) {
+  constexpr int ki = 8 * KS;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // the fragments' row (A, C) or column (B) in the tile
+  const int tg = lane & 3;   // ... and column (A) or row (B)
+  // A: w2 at rows gr, gr + 8 of m-tile t and columns tg, tg + 4 of each of
+  // the inner axis's KS k-steps
+  unsigned ahi[KS][2][4], alo[KS][2][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float* p = w2 + (8 * s + tg) * WLD + 16 * t + gr;
+      split_tf32(p[0], ahi[s][t][0], alo[s][t][0]);
+      split_tf32(p[8], ahi[s][t][1], alo[s][t][1]);
+      split_tf32(p[4 * WLD], ahi[s][t][2], alo[s][t][2]);
+      split_tf32(p[4 * WLD + 8], ahi[s][t][3], alo[s][t][3]);
+    }
+  }
+    float acc[2][NT][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj)
+      acc[t][jj][0] = acc[t][jj][1] = acc[t][jj][2] = acc[t][jj][3] = 0.0f;
+  for (int j = 0; j < ko; ++j) {
+    float d[2][NT][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) d[t][jj][0] = d[t][jj][1] = d[t][jj][2] = d[t][jj][3] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const float* bk = b + (j * ki + 8 * s + tg) * ldb + gr;
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) {
+        unsigned bhi0, blo0, bhi1, blo1;
+        split_tf32(bk[8 * jj], bhi0, blo0);
+        split_tf32(bk[4 * ldb + 8 * jj], bhi1, blo1);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) mma_tf32(d[t][jj], alo[s][t], bhi0, bhi1);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) mma_tf32(d[t][jj], ahi[s][t], blo0, blo1);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) mma_tf32(d[t][jj], ahi[s][t], bhi0, bhi1);
+      }
+    }
+    // C += w1[j] D_j: D's rows gr, gr + 8 of m-tile t
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float u0 = w1[j * WLD + 16 * t + gr];
+      const float u8 = w1[j * WLD + 16 * t + gr + 8];
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) {
+        acc[t][jj][0] = fmaf(u0, d[t][jj][0], acc[t][jj][0]);
+        acc[t][jj][1] = fmaf(u0, d[t][jj][1], acc[t][jj][1]);
+        acc[t][jj][2] = fmaf(u8, d[t][jj][2], acc[t][jj][2]);
+        acc[t][jj][3] = fmaf(u8, d[t][jj][3], acc[t][jj][3]);
+      }
+    }
+  }
+  // C: rows gr, gr + 8 of m-tile t, columns 2 tg, 2 tg + 1 of n-tile jj
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      float* cc = c + (8 * jj + 2 * tg) * CLD + 16 * t + gr;
+      cc[0] = acc[t][jj][0];
+      cc[CLD] = acc[t][jj][1];
+      cc[8] = acc[t][jj][2];
+      cc[CLD + 8] = acc[t][jj][3];
+    }
+  }
+}
+
+// tucker_tiles for the pass's n-tile count nt (1 to NCOLT / 8) and the
+// inner axis's ki = 8 or 16 rows
+template <int NT = 1>
+__device__ __forceinline__ void tucker_tiles_nt(int nt, const float* b, int ldb, int ko, int ki,
+                                                const float* w1, const float* w2, float* c) {
+  if constexpr (NT < NCOLT / 8) {
+    if (nt != NT) {
+      tucker_tiles_nt<NT + 1>(nt, b, ldb, ko, ki, w1, w2, c);
+      return;
+    }
+  }
+  if (ki == 8) {
+    tucker_tiles<NT, 1>(b, ldb, ko, w1, w2, c);
+  } else {
+    tucker_tiles<NT, 2>(b, ldb, ko, w1, w2, c);
+  }
+}
+
 // one later tensor-train step as a block product over one half's rows
 // [lo, hi) (lo = 0, or hi = THREADS), in m-tiles of 16 rows whose padding
 // rows lie on the other half's rows: v_out[r][b] = sum_{m, p} (w[m][b] v_in[p][b])
@@ -856,28 +1070,35 @@ __device__ __forceinline__ int group_rows(int mine, int& count0, int& count1) {
 
 // SPLIT: the split w0wacdm grid, the TT sweep of each half as block
 // products over ``tt``; otherwise the native grid's Tucker core in shared
-// memory. ``stride``: on the native grid the floats of each of the two
-// per-thread scratch slices; on the split grid the rows of VLD floats of the
+// memory. ``stride``: on the native grid the rows of WLD floats of a warp's
+// projections (H_KO + H_KI); on the split grid the rows of VLD floats of the
 // sweep's weights and vectors (the node count, WPAD and H_VROWS).
 template <bool SPLIT>
 __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts, int n_consts,
                                                const float* __restrict__ tt, int stride,
                                                const float* __restrict__ theta,
                                                float* __restrict__ out, long long W, int D) {
+  constexpr int BLOCK = SPLIT ? THREADS : TUCKER_THREADS;
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < n_consts; i += THREADS) s[i] = consts[i];
+  if constexpr (SPLIT) {
+    for (int i = threadIdx.x; i < n_consts; i += THREADS) s[i] = consts[i];
+  } else {  // 16 bytes a load (the buffer starts on 16 bytes, as the wrapper checks)
+    const float4* c4 = reinterpret_cast<const float4*>(consts);
+    for (int i = threadIdx.x; i < n_consts / 4; i += BLOCK) smem4[i] = c4[i];
+    for (int i = (n_consts & ~3) + threadIdx.x; i < n_consts; i += BLOCK) s[i] = consts[i];
+  }
   __syncthreads();
 
   const int tid = threadIdx.x;
-  const long long w = static_cast<long long>(blockIdx.x) * THREADS + tid;
-  // the ragged last block: the native grid returns at once (no barrier
-  // follows); on the split grid a thread past the end takes part in the
-  // block's barriers on a copy of the last walker and writes nothing
-  if (!SPLIT && w >= W) return;
-  const float* th = theta + (SPLIT ? min(w, W - 1) : w) * D;
-  float* s_wp1 = s + ((n_consts + 3) & ~3);  // [stride][THREADS], or the sweep's [stride][VLD]
-  float* s_wp2 = s_wp1 + MAX_RANK * THREADS;
+  const long long w = static_cast<long long>(blockIdx.x) * BLOCK + tid;
+  // the ragged last block: a thread past the end takes part in its warp's
+  // products (and on the split grid in the block's barriers) on a copy of
+  // the last walker, and writes nothing
+  const float* th = theta + min(w, W - 1) * D;
+  // per warp [stride][WLD] projections and [NCOLT][CLD] C (native grid), or
+  // the sweep's [stride][VLD] rows (split grid)
+  float* scratch = s + ((n_consts + 3) & ~3);
 
   // 1. derived parameters
   const int model = static_cast<int>(s[H_MODEL]);
@@ -901,7 +1122,7 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
     const int n = static_cast<int>(s[H_N1]);  // every axis of the split grid
     const int vrows = stride - n - WPAD;
     const float* bw = s + static_cast<int>(s[H_OFF_BW1]);
-    float* s_w = s_wp1;                     // [n + WPAD][VLD] the weights of one step
+    float* s_w = scratch;                   // [n + WPAD][VLD] the weights of one step
     float* s_v = s_w + (n + WPAD) * VLD;    // [vrows][VLD] the sweep vectors
     float* ring = s_w + stride * VLD;       // [STAGES][KSLICE][SLD] slices of G
     for (int i = tid; i < WPAD * VLD; i += THREADS) s_w[n * VLD + i] = 0.0f;
@@ -961,31 +1182,66 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
                  });
     }
   } else {
-    // 2. barycentric weights folded into the factor projections
+    // 2. barycentric weights folded into the factor projections, each
+    // walker's into its row of its warp's slices: the outer factor w1
+    // [ko][WLD] and the inner one w2 [ki][WLD] (the axis H_INNER, its rank
+    // padded with zeros to whole k-steps; one axis: w1 = 1)
+    const int lane = tid & 31;
+    const int ko = static_cast<int>(s[H_KO]);
+    const int ki = static_cast<int>(s[H_KI]);
+    float* w1 = scratch + (tid >> 5) * (stride * WLD + NCOLT * CLD);
+    float* w2 = w1 + ko * WLD;
+    float* cbuf = w1 + stride * WLD;
     const int r1 = static_cast<int>(s[H_R1]);
     const int r2 = static_cast<int>(s[H_R2]);
-    project_axis(om, s + static_cast<int>(s[H_OFF_AX1]), s + static_cast<int>(s[H_OFF_BW1]),
-                 s + static_cast<int>(s[H_OFF_U1]), static_cast<int>(s[H_N1]), r1, s_wp1 + tid);
-    if (static_cast<int>(s[H_NAXES]) > 1) {
-      project_axis(w0, s + static_cast<int>(s[H_OFF_AX2]), s + static_cast<int>(s[H_OFF_BW2]),
-                   s + static_cast<int>(s[H_OFF_U2]), static_cast<int>(s[H_N2]), r2,
-                   s_wp2 + tid);
+    const bool two = static_cast<int>(s[H_NAXES]) > 1;
+    const bool inner1 = !two || static_cast<int>(s[H_INNER]) == 1;
+    float* wp_om = (inner1 ? w2 : w1) + lane;
+    float* wp_w0 = (inner1 ? w1 : w2) + lane;
+    if (!two) w1[lane] = 1.0f;
+    if constexpr (PROBE & 4) {
+      for (int j = 0; j < (inner1 ? ki : r1); ++j) wp_om[j * WLD] = om;
+      for (int j = 0; two && j < (inner1 ? r2 : ki); ++j) wp_w0[j * WLD] = w0;
     } else {
-      s_wp2[tid] = 1.0f;  // one axis: core [r1, 1, R]
+      project(om, s + static_cast<int>(s[H_OFF_AX1]), s + static_cast<int>(s[H_OFF_BW1]),
+              s + static_cast<int>(s[H_OFF_U1]), static_cast<int>(s[H_N1]), r1,
+              inner1 ? ki : r1, wp_om);
+      if (two) {
+        project(w0, s + static_cast<int>(s[H_OFF_AX2]), s + static_cast<int>(s[H_OFF_BW2]),
+                s + static_cast<int>(s[H_OFF_U2]), static_cast<int>(s[H_N2]), r2,
+                inner1 ? r2 : ki, wp_w0);
+      }
     }
-    // 3. the emulated terms, each contracted and reduced over its own window
-    const float4* core = reinterpret_cast<const float4*>(s + static_cast<int>(s[H_OFF_CORE]));
-    const int nq = static_cast<int>(s[H_NQ]);
-    const float* wp1 = s_wp1 + tid;
-    const float* wp2 = s_wp2 + tid;
+    __syncwarp();
+    // 3. the emulated terms, each window contracted in column passes of at
+    // most NCOLT columns by the warp's block product into C, each walker
+    // then reducing the quads of its own row
+    const float* core = s + static_cast<int>(s[H_OFF_CORE]);
+    const int ldb = static_cast<int>(s[H_LDB]);
     eval_forms(s, s + static_cast<int>(s[H_OFF_FORMS]), n_forms, th, h0, t, chi2, log_norm,
-               [&](int q0, int n, auto&& consume) {
-                 contract_window(core, nq, q0, n, r1, r2, wp1, wp2, consume);
+               [&](int q0, int nq, auto&& consume) {
+                 const int end = 4 * (q0 + nq);
+                 for (int c0 = 4 * q0; c0 < end; c0 += NCOLT) {
+                   const int ncol = min(NCOLT, end - c0);
+                   __syncwarp();  // the warp converged for its mma.sync
+                   if constexpr (PROBE & 2) {
+                     for (int i = 0; i < ncol; ++i) cbuf[i * CLD + lane] = w1[lane] * w2[lane];
+                   } else {
+                     tucker_tiles_nt((ncol + 7) >> 3, core + c0, ldb, ko, ki, w1, w2, cbuf);
+                   }
+                   __syncwarp();
+                   for (int i = 0; i < ncol; i += 4) {
+                     const float* ci = cbuf + i * CLD + lane;
+                     consume((c0 - 4 * q0 + i) >> 2,
+                             make_float4(ci[0], ci[CLD], ci[2 * CLD], ci[3 * CLD]));
+                   }
+                   __syncwarp();  // C free for the next pass
+                 }
                });
   }
 
   // 4. the compressed CMB
-  if (s[H_HAS_CMB] != 0.0f) {
+  if (s[H_HAS_CMB] != 0.0f && (SPLIT || !(PROBE & 1))) {
     chi2 += cmb_chi2<SPLIT>(s + static_cast<int>(s[H_OFF_CMB]), th, h0, om, o_r, w0, wa,
                             model);
   }
@@ -998,17 +1254,17 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
     const float v = th[d];
     ok = ok && lo[d] < v && v < lo[D + d];
   }
-  if (SPLIT && w >= W) return;
+  if (w >= W) return;
   out[w] = ok ? ll : -INFINITY;
 }
 
 // the two instances as kernels: the split one with its registers capped so
 // that SPLIT_BLOCKS blocks fit an SM
-__global__ void __launch_bounds__(THREADS)
-fused_log_prob_kernel(const float* __restrict__ consts, int n_consts,
+__global__ void __launch_bounds__(TUCKER_THREADS, TUCKER_SM_WARPS / TUCKER_WARPS)
+fused_log_prob_kernel(const float* __restrict__ consts, int n_consts, int stride,
                       const float* __restrict__ theta, float* __restrict__ out, long long W,
                       int D) {
-  fused_log_prob<false>(consts, n_consts, nullptr, MAX_RANK, theta, out, W, D);
+  fused_log_prob<false>(consts, n_consts, nullptr, stride, theta, out, W, D);
 }
 
 __global__ void __launch_bounds__(THREADS, SPLIT_BLOCKS)
@@ -1019,57 +1275,87 @@ fused_log_prob_split_kernel(const float* __restrict__ consts, int n_consts,
   fused_log_prob<true>(consts, n_consts, tt, stride, theta, out, W, D);
 }
 
-// dynamic shared memory of a launch: the constants, then the per-thread
-// slices (native grid) or the sweep's rows and the ring of G (split grid)
+// dynamic shared memory of a launch: the constants, then per warp its
+// projections and C (native grid) or the sweep's rows and the ring of G
+// (split grid)
 template <bool SPLIT>
 size_t smem_bytes(int n_consts, int stride) {
   const size_t scratch = SPLIT ? static_cast<size_t>(stride) * VLD + STAGES * KSLICE * SLD
-                               : 2u * static_cast<size_t>(stride) * THREADS;
+                               : TUCKER_WARPS * (static_cast<size_t>(stride) * WLD + NCOLT * CLD);
   return (static_cast<size_t>((n_consts + 3) & ~3) + scratch) * sizeof(float);
+}
+
+// the instance's kernel and its dynamic shared memory, the kernel's limit
+// raised where that exceeds 48 KB
+template <bool SPLIT>
+cudaError_t prepare(int n_consts, int stride, size_t& smem, const void*& kernel) {
+  smem = smem_bytes<SPLIT>(n_consts, stride);
+  kernel = SPLIT ? reinterpret_cast<const void*>(fused_log_prob_split_kernel)
+                 : reinterpret_cast<const void*>(fused_log_prob_kernel);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <bool SPLIT>
 int launch(const float* consts, int n_consts, const float* tt, int stride, const float* theta,
            float* out, long long W, int D, cudaStream_t stream) {
-  const size_t smem = smem_bytes<SPLIT>(n_consts, stride);
-  const void* kernel = SPLIT ? reinterpret_cast<const void*>(fused_log_prob_split_kernel)
-                             : reinterpret_cast<const void*>(fused_log_prob_kernel);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned int blocks = static_cast<unsigned int>((W + THREADS - 1) / THREADS);
+  size_t smem;
+  const void* kernel;
+  const cudaError_t err = prepare<SPLIT>(n_consts, stride, smem, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int block = SPLIT ? THREADS : TUCKER_THREADS;
+  const unsigned int blocks = static_cast<unsigned int>((W + block - 1) / block);
   if constexpr (SPLIT) {
     fused_log_prob_split_kernel<<<blocks, THREADS, smem, stream>>>(consts, n_consts, tt, stride,
                                                                    theta, out, W, D);
   } else {
-    fused_log_prob_kernel<<<blocks, THREADS, smem, stream>>>(consts, n_consts, theta, out, W,
-                                                             D);
+    fused_log_prob_kernel<<<blocks, TUCKER_THREADS, smem, stream>>>(consts, n_consts, stride,
+                                                                    theta, out, W, D);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_args(int n_consts, int D, int split, int stride) {
+  return n_consts > MAX_FLOATS || D > MAX_DIM || D < 1 || (split != 0 && split != 1) ||
+         stride < 1 || stride > (split ? MAX_NODES + WPAD + 2 * MAX_BOND : 2 * MAX_RANK);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers; `stream` is
 // a cudaStream_t. `tt` is the split grid's TT buffer (null on a native
-// grid), `split` 1 for the split grid, `stride` the floats of each of the
-// two per-thread scratch slices (MAX_RANK) on the native grid, or on the
-// split grid the rows of the sweep's weights and vectors (H_N1 + WPAD +
-// H_VROWS).
+// grid), `split` 1 for the split grid, `stride` the rows of WLD floats of a
+// warp's projections on the native grid (H_KO + H_KI), or on the split grid
+// the rows of the sweep's weights and vectors (H_N1 + WPAD + H_VROWS).
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for sizes above the compiled maxima. The caller
 // guarantees W >= 1 and contiguous f32 inputs.
 extern "C" int cosmax_fused_log_prob_f32(const float* consts, int n_consts, const float* tt,
                                          int split, int stride, const float* theta, float* out,
                                          long long W, int D, void* stream) {
-  if (n_consts > MAX_FLOATS || D > MAX_DIM || D < 1 || (split != 0 && split != 1) ||
-      stride < 1 || stride > (split ? MAX_NODES + WPAD + 2 * MAX_BOND : MAX_RANK) ||
-      (split && tt == nullptr)) {
+  if (bad_args(n_consts, D, split, stride) || (split && tt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return split ? launch<true>(consts, n_consts, tt, stride, theta, out, W, D, st)
                : launch<false>(consts, n_consts, tt, stride, theta, out, W, D, st);
+}
+
+// For reports: the dynamic shared memory of one block (bytes) and the
+// blocks an SM holds at once, of the launch that cosmax_fused_log_prob_f32
+// makes with these arguments. Returns a cudaError_t (0 on success).
+extern "C" int cosmax_fused_log_prob_occupancy(int n_consts, int split, int stride,
+                                               int* smem_bytes_out, int* blocks_per_sm) {
+  if (bad_args(n_consts, 1, split, stride)) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  const void* kernel;
+  cudaError_t err = split ? prepare<true>(n_consts, stride, smem, kernel)
+                          : prepare<false>(n_consts, stride, smem, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        split ? THREADS : TUCKER_THREADS, smem);
+  }
+  *smem_bytes_out = static_cast<int>(smem);
+  return static_cast<int>(err);
 }

@@ -40,7 +40,10 @@ be folded into a fixed form) and ``make_amp_pair_chi2`` (the fs8
 data/theory pair, one group with one basis, whose residual coefficient
 is formed before squaring).
 
-Not ported yet: the split w0wacdm grid (ROADMAP.md queue 1, item 9).
+The split w0wacdm grid (``_grid_spec`` over (Om, wa, s = w0 + wa), each
+walker in the half its s selects, a tensor train per half) is ported for
+the flagship family; the other w0wacdm presets refuse (ROADMAP.md queue 1,
+item 9b).
 """
 
 import contextvars

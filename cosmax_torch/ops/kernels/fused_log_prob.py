@@ -1,10 +1,10 @@
 """The fused fast log-prob: logp[W] for walkers theta[W, D] of a fast preset.
 
 The card's implementation is the hand-written CUDA kernel in
-``cosmax_torch/csrc/fused_log_prob.cu``, one thread per walker (on the
-split w0wacdm grid the tensor-train sweep runs as block products on the
-tensor cores). It replaces the TPU kernel ``cosmax/ops/pallas/megakernel.py::blocked_log_prob``
-(the source note there says what bounds it on an H100 and how the design
+``cosmax_torch/csrc/fused_log_prob.cu``, one thread per walker (the native
+grid's core contraction, and on the split w0wacdm grid the tensor-train
+sweep, run as block products on the tensor cores). It replaces the TPU
+kernel ``cosmax/ops/pallas/megakernel.py::blocked_log_prob`` (the source note there says what bounds it on an H100 and how the design
 answers that). This module holds
 
 * the **packer** ``pack(fit)``: from a fast ``FitSpec``, the flat
@@ -38,8 +38,12 @@ A form may carry a rescaling parameter f (CC's f_cc, fs8's f_err):
 chi^2 * f^power and log_norm = const + coef * ln f. The packer orders
 the core's columns form by form, each form's window padded with zero
 columns to whole quads (four columns, one float4), so that the kernel
-contracts and reduces one window at a time; the core is stored [r1,
-r2, 4 nq].
+contracts and reduces one window at a time. The core is stored as the
+matrix of the kernel's block product, [KO KI, LDB]: row j KI + p for the
+outer axis's index j and the inner one's p (the inner axis is the one
+whose rank pads to whole k-steps of 8 with the fewer rows; one axis: KO =
+1), its row stride LDB 8 or 24 mod 32 and covering the n-tiles of 8
+columns that start at each window's first column.
 
 The split w0wacdm grid: each walker takes half 0 if s = w0 + wa <= 0,
 else half 1, and computes that half only. Its coefficient vector comes
@@ -100,6 +104,16 @@ MIN_RIN = 8
 WPAD = 4  # zero rows of weights under the padding rows of a core
 MAX_SMEM = 232448
 GROUP_BYTES = 2 * (THREADS // 32) * 4
+# The native grid's contraction, a block product per warp of 32 walkers: the
+# core stored as the matrix [KO KI][LDB] of its k rows (KI the inner axis's
+# rank padded to k-steps of 8), its row stride LDB 8 or 24 mod 32 (the
+# kernel's B fragments on 32 banks) and covering each window's n-tiles of 8
+# columns; per warp the projections [KO + KI][WLD] and C [NCOLT][CLD];
+# TUCKER_WARPS warps a block.
+WLD = 40
+CLD = 36
+NCOLT = 24
+TUCKER_WARPS = 8
 
 # Header slots of the buffer (floats holding small integers or values).
 HEADER = dict(
@@ -108,9 +122,9 @@ HEADER = dict(
     H_NQ=14, H_RALL=15, H_NFORMS=16, H_HAS_CMB=17, H_OFF_BOUNDS=18,
     H_OFF_AX1=19, H_OFF_AX2=20, H_OFF_BW1=21, H_OFF_BW2=22, H_OFF_U1=23,
     H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27, H_I_WA=28, H_SPLIT=29,
-    H_OFF_HALVES=30, H_VROWS=31,
+    H_OFF_HALVES=30, H_VROWS=31, H_KO=32, H_KI=33, H_LDB=34, H_INNER=35,
 )
-HEADER_SIZE = 32
+HEADER_SIZE = 36
 MAGIC = 20260.0
 # one row of a linear form = the constants of its (base, delta) pair i
 PAIR = dict(P_BA=0, P_V=1, P_P0=2, P_P1=3)
@@ -310,6 +324,21 @@ def _vrows(t):
     return max(r1, *(max(a, b) if b <= NCOL else a + b for a, b in ((r1, r2), (r2, r3))))
 
 
+def _core_ld(forms) -> int:
+    """Row stride of the native grid's core matrix: 8 or 24 mod 32, and
+    wide enough for the n-tiles of 8 columns that start at each window's
+    first column."""
+    need = max(4 * f["F_Q0"] + 8 * -(-f["F_NQ"] // 2) for f, _ in forms)
+    return next(ld for ld in range(need, need + 32) if ld % 32 in (8, 24))
+
+
+def tucker_smem_bytes(hdr) -> int:
+    """Shared memory of one block of the native grid's kernel instance:
+    the constants, and per warp its projections and its C."""
+    per_warp = (int(hdr["H_KO"]) + int(hdr["H_KI"])) * WLD + NCOLT * CLD
+    return 4 * (-(-int(hdr["H_SIZE"]) // 4) * 4 + TUCKER_WARPS * per_warp)
+
+
 def split_smem_bytes(hdr) -> int:
     """Shared memory of one block of the split grid's kernel instance: the
     constants, the weights of one step and the sweep vectors ([n + WPAD +
@@ -431,15 +460,29 @@ def pack(fit) -> Packed:
         for i in range(2):
             hdr[f"H_OFF_AX{i + 1}"] = put(half["axes"][i] if i < n_axes else np.zeros(0))
             hdr[f"H_OFF_BW{i + 1}"] = put(half["bw"] if i < n_axes else np.zeros(0))
-            hdr[f"H_OFF_U{i + 1}"] = put(factors[i] if i < n_axes else np.zeros(0))
-        # [r1, r2, 4 nq]: each (j, k) row of the core holds its quads together
-        hdr["H_OFF_CORE"] = put(_by_cols(core, cols), align=4)
+            # [n, r padded to 8 or 16 with zero columns], rows of float4s
+            u = factors[i] if i < n_axes else np.zeros((0, 0))
+            hdr[f"H_OFF_U{i + 1}"] = put(np.pad(u, ((0, 0), (0, _pad8(u.shape[1]) - u.shape[1]))),
+                                         align=4)
+        # the core as the matrix of the kernel's block product: row j KI + p
+        # for the outer index j and the inner one p (the inner axis the one
+        # whose padding to k-steps of 8 costs the fewer rows; one axis: the
+        # outer index is 0), columns in window order, zero padding
+        core = _by_cols(core, cols)  # [r1, r2, 4 nq]
+        r1, r2 = core.shape[:2]
+        inner = 1 if n_axes == 1 or r2 * _pad8(r1) < r1 * _pad8(r2) else 2
+        mat = core[:, 0][None] if n_axes == 1 else (
+            core.transpose(1, 0, 2) if inner == 1 else core)  # [outer, inner, 4 nq]
+        ldb = _core_ld(forms)
+        stored = np.zeros((mat.shape[0], _pad8(mat.shape[1]), ldb))
+        stored[:, :mat.shape[1], :mat.shape[2]] = mat
+        hdr["H_OFF_CORE"] = put(stored, align=4)
         hdr["H_OFF_FORMS"] = put_forms(forms, form_rows)
         hdr.update(
             H_NAXES=n_axes, H_N1=factors[0].shape[0],
-            H_N2=factors[1].shape[0] if n_axes > 1 else 0, H_R1=factors[0].shape[1],
-            H_R2=factors[1].shape[1] if n_axes > 1 else 1, H_NQ=len(cols) // 4,
-            H_RALL=sum(c >= 0 for c in cols),
+            H_N2=factors[1].shape[0] if n_axes > 1 else 0, H_R1=r1, H_R2=r2,
+            H_NQ=len(cols) // 4, H_RALL=sum(c >= 0 for c in cols),
+            H_KO=stored.shape[0], H_KI=stored.shape[1], H_LDB=ldb, H_INNER=inner,
         )
     else:
         # (Om, wa) axes shared by both halves, one s axis per half; every
@@ -546,9 +589,9 @@ def pack(fit) -> Packed:
     hdr.update(H_SIZE=size, H_NFORMS=len(forms), H_HAS_CMB=int(bool(cmb)))
     if size > MAX_FLOATS:
         _refuse(f"a constant buffer of {size} floats (at most {MAX_FLOATS})", _ITEM_KERNEL)
-    if split and split_smem_bytes(hdr) > MAX_SMEM:
-        _refuse(f"a block of {split_smem_bytes(hdr)} bytes of shared memory (at most "
-                f"{MAX_SMEM})", _ITEM_KERNEL)
+    smem = (split_smem_bytes if split else tucker_smem_bytes)(hdr)
+    if smem > MAX_SMEM:
+        _refuse(f"a block of {smem} bytes of shared memory (at most {MAX_SMEM})", _ITEM_KERNEL)
     flat = np.concatenate(chunks)
     for k, v in hdr.items():
         flat[HEADER[k]] = v
@@ -599,21 +642,32 @@ def _seg(buf, off, n, shape=None):
     return out.reshape(shape) if shape is not None else out
 
 
+def _factor(packed, i):
+    """Tucker factor ``i`` (1 or 2) of the native grid, [n, r], from its
+    stored rows padded to 8 or 16 columns."""
+    hdr = packed.hdr
+    n, r = int(hdr[f"H_N{i}"]), int(hdr[f"H_R{i}"])
+    return _seg(packed.buf, hdr[f"H_OFF_U{i}"], n * _pad8(r), (n, _pad8(r)))[:, :r]
+
+
 def _tucker_coeff(packed, om, w0):
     """[W, 4 nq] of the native grid: barycentric weights, factor
-    projections, core contraction."""
+    projections, core contraction (the core read as the kernel's matrix
+    [KO, KI, LDB])."""
     hdr, buf = packed.hdr, packed.buf
-    r1, r2, nq = int(hdr["H_R1"]), int(hdr["H_R2"]), int(hdr["H_NQ"])
+    ko, ki, ldb, nq = (int(hdr[k]) for k in ("H_KO", "H_KI", "H_LDB", "H_NQ"))
     coords = [om] + ([w0] if int(hdr["H_NAXES"]) > 1 else [])
     wps = []
-    for i, x in enumerate(coords):
-        n, r = int(hdr[f"H_N{i + 1}"]), int(hdr[f"H_R{i + 1}"])
-        w = bary_vector(x, _seg(buf, hdr[f"H_OFF_AX{i + 1}"], n),
-                        _seg(buf, hdr[f"H_OFF_BW{i + 1}"], n))
-        wps.append(w @ _seg(buf, hdr[f"H_OFF_U{i + 1}"], n * r, (n, r)))
-    core = _seg(buf, hdr["H_OFF_CORE"], r1 * r2 * 4 * nq, (r1, r2, 4 * nq))
-    a = torch.tensordot(wps[0], core, dims=([1], [0]))  # [W, r2, R]
-    return torch.einsum("wk,wkr->wr", wps[1], a) if len(wps) > 1 else a[:, 0]
+    for i, x in enumerate(coords, 1):
+        n = int(hdr[f"H_N{i}"])
+        w = bary_vector(x, _seg(buf, hdr[f"H_OFF_AX{i}"], n), _seg(buf, hdr[f"H_OFF_BW{i}"], n))
+        wps.append(w @ _factor(packed, i))
+    core = _seg(buf, hdr["H_OFF_CORE"], ko * ki * ldb, (ko, ki, ldb))[..., :4 * nq]
+    if len(wps) == 1:
+        return wps[0] @ core[0, :wps[0].shape[1]]
+    outer, inner = wps[::-1] if int(hdr["H_INNER"]) == 1 else wps
+    a = torch.tensordot(outer, core[:, :inner.shape[1]], dims=([1], [0]))  # [W, r_in, R]
+    return torch.einsum("wk,wkr->wr", inner, a)
 
 
 def _tt_coeff(packed, h, coords):
@@ -819,6 +873,8 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
             raise TypeError(f"the CUDA kernel takes a float32 {name}; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the CUDA kernel takes a contiguous {name}")
+    if packed.buf.data_ptr() % 16:
+        raise ValueError("the CUDA kernel takes a constant buffer that starts on 16 bytes")
     w = theta.shape[0]
     out = torch.empty(w, dtype=torch.float32, device=theta.device)
     if w == 0:
@@ -839,12 +895,28 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
 
 
 def _stride(packed: Packed) -> int:
-    """The kernel's scratch argument: the floats of each of two per-thread
-    slices of shared memory (Tucker: the two projections of at most
-    MAX_RANK), or the rows of VLD floats of the split grid's weights and
-    sweep vectors."""
+    """The kernel's scratch argument: the rows of WLD floats of a warp's
+    projections (native grid: KO + KI), or the rows of VLD floats of the
+    split grid's weights and sweep vectors."""
     h = packed.hdr
-    return int(h["H_N1"]) + WPAD + int(h["H_VROWS"]) if h["H_SPLIT"] else MAX_RANK
+    return int(h["H_N1"]) + WPAD + int(h["H_VROWS"]) if h["H_SPLIT"] else int(h["H_KO"] + h["H_KI"])
+
+
+def occupancy(packed: Packed) -> tuple:
+    """(bytes of shared memory a block, blocks an SM holds at once) of the
+    kernel's launch for ``packed``, from the CUDA runtime (builds the
+    kernel; needs a card)."""
+    from cosmax_torch.ops.kernels.build import load_kernel
+
+    fn = load_kernel("fused_log_prob").lib.cosmax_fused_log_prob_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = fn(packed.buf.numel(), int(packed.hdr["H_SPLIT"]), _stride(packed), ctypes.byref(smem),
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"fused_log_prob occupancy query failed: cudaError {err}")
+    return smem.value, blocks.value
 
 
 def _entry(lib: ctypes.CDLL):
@@ -865,11 +937,11 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
     """(f32 operations, product operations, bytes) per walker of the
     fused log-prob, counted from the packed sizes: an FMA is 2
     operations, every other arithmetic operation (division, square root,
-    exp, log, pow) 1. Product operations are the split grid's tensor-train
-    steps with r_in > 1, 2 n r_in r each, which the kernel runs as block
-    products on the tensor cores (0 on a native grid); f32 operations are
-    all the rest. Only the columns the forms use count, not the zero
-    padding; on the split grid, a walker of ``half`` (the minimal sweep of
+    exp, log, pow) 1. Product operations are what the kernel runs as block
+    products on the tensor cores: the native grid's core contraction, 2 r1
+    r2 R_all, and the split grid's tensor-train steps with r_in > 1, 2 n
+    r_in r each; f32 operations are all the rest. Only the columns the
+    forms use count, not the zero padding; on the split grid, a walker of ``half`` (the minimal sweep of
     that half's tensor train, as ``emu_core.eval_flops`` counts it). Bytes
     are theta read once and logp written once; the constant buffers (read
     once per call) are left out of the per-walker count."""
@@ -879,9 +951,10 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
         forms = packed.forms
         for i in (1, 2)[:int(h["H_NAXES"])]:
             n, r = h[f"H_N{i}"], h[f"H_R{i}"]
-            ops += n * 4 + n * (4 + 2 * r)  # two barycentric passes, projection
+            ops += n * (4 + 2 * r) + r + 1  # one barycentric pass into the projection, its scale
         r1, r2 = h["H_R1"], h["H_R2"]
-        ops += r1 * r2 + 2 * r1 * r2 * h["H_RALL"]  # wp1 (x) wp2, then its dot with the core
+        ops += r1 * r2  # wp1 (x) wp2
+        product += 2 * r1 * r2 * h["H_RALL"]  # its dot with the core
     else:
         lay = packed.halves[half]
         forms = lay["forms"]

@@ -21,7 +21,15 @@ builds that tree's source with the line ``constexpr int NAME = ...;``
 set to VALUE (where the tree's source has that constant), and times it
 in the same process, interleaved with the tree's own kernel (forward,
 then reverse order). Every timed kernel is
-first held against the tree's plain version (1e-4 of max|logp|).
+first held against the tree's plain version (1e-4 of max|logp|), but for
+the timing probes (``--variant PROBE=n``, the kernel with a part left out:
+see ``PROBE`` in the source), which compute another function.
+
+``--sass DIR`` also writes ``cuobjdump -sass`` of each built library,
+gzipped, to DIR and prints, for the Tucker instance
+(``fused_log_prob_kernel``), its instruction count by class and the size of
+each loop body (each backward branch), so that a part's instructions a
+walker are a body's size times its trip count.
 
 Prints one JSON line per tree and kernel, and writes them all to
 ``--out`` (default ``build/fused_ab.json``).
@@ -29,6 +37,7 @@ Prints one JSON line per tree and kernel, and writes them all to
 
 import argparse
 import ctypes
+import gzip
 import json
 import os
 import re
@@ -85,14 +94,86 @@ def _build_variant(tree, name, value):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stderr}")
-    return ctypes.CDLL(so), _ptxas(proc.stderr)
+    return ctypes.CDLL(so), _ptxas(proc.stderr), so
+
+
+# SASS opcodes by class, for the instruction counts of --sass
+_CLASSES = (("mma", ("HMMA",)), ("f32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FCHK")),
+            ("mufu", ("MUFU",)), ("shared", ("LDS", "STS")),
+            ("global", ("LDG", "STG", "LDL", "STL")),
+            ("branch", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC", "BAR")))
+
+
+def _opclass(op):
+    for name, ops in _CLASSES:
+        if op.split(".")[0] in ops:
+            return name
+    return "int/other"
+
+
+def _sass_loops(text, marker="fused_log_prob_kernel"):
+    """{function: dict(count, classes, loops)} of the functions whose name
+    holds ``marker`` (the Tucker instance, not the split one): the
+    instruction count by class, and per backward branch the body it closes
+    (first and last address, size, classes)."""
+    import collections
+    import re
+
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        if marker not in name or "split" in name:
+            continue
+        instrs, labels = [], {}
+        for ln in block.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", ln)
+            if m:
+                labels[m.group(1)] = len(instrs)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+            if m:
+                body = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+                instrs.append((int(m.group(1), 16), body.split()[0] if body else "?", body))
+        addr_index = {a: i for i, (a, _, _) in enumerate(instrs)}
+
+        def classes(rows):
+            return dict(collections.Counter(_opclass(op) for _, op, _ in rows))
+
+        loops = []
+        for i, (a, op, body) in enumerate(instrs):
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"`?\(?(\.L_x_\d+)\)?", body) or re.search(r"0x([0-9a-f]+)", body)
+            if m is None:
+                continue
+            t = labels.get(m.group(1)) if m.group(1).startswith(".L") else addr_index.get(
+                int(m.group(1), 16))
+            if t is not None and t <= i:
+                loops.append(dict(first=hex(instrs[t][0]), last=hex(a), size=i - t + 1,
+                                  classes=classes(instrs[t:i + 1])))
+        out[name] = dict(count=len(instrs), classes=classes(instrs), loops=loops)
+    return out
+
+
+def _sass(lib_path, out_dir, tag):
+    """cuobjdump -sass of ``lib_path``, gzipped into ``out_dir``, and its
+    Tucker loops (``_sass_loops``)."""
+    from cosmax_torch.ops.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    with gzip.open(os.path.join(out_dir, f"sass_{tag}.txt.gz"), "wt") as f:
+        f.write(text)
+    return _sass_loops(text)
 
 
 def _ptxas(log):
     return "; ".join(ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln)
 
 
-def run_tree(tree, variants):
+def run_tree(tree, variants, sass_dir=None):
     """One process: the tree's own kernel and its variants, timed."""
     import numpy as np
     import torch
@@ -105,7 +186,7 @@ def run_tree(tree, variants):
 
     disable_tf32()
     own = load_kernel("fused_log_prob")
-    kernels = {"own": (own.lib, _ptxas(own.log))}
+    kernels = {"own": (own.lib, _ptxas(own.log), own.path)}
     for v in variants:
         built = _build_variant(tree, *v.split("="))
         if built is not None:
@@ -154,8 +235,10 @@ def run_tree(tree, variants):
         fin = torch.isfinite(want)
         scale = float(want[fin].abs().max())
         out = torch.empty(w, device="cuda")
-        for key, (lib, _) in kernels.items():
+        for key, (lib, _, _) in kernels.items():
             call(lib, packed, theta, out)
+            if key.startswith("PROBE="):  # a probe computes another function
+                continue
             if not torch.equal(torch.isfinite(out), fin):
                 raise AssertionError(f"{tree} {key} {preset}/{model} W={w}: -inf rows differ")
             err = float((out[fin] - want[fin]).abs().max())
@@ -170,9 +253,13 @@ def run_tree(tree, variants):
             results[key].setdefault(f"{label}@{w}", []).append(ms)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    for key, (_, ptxas) in kernels.items():
-        print(json.dumps(dict(tree=tree, kernel=key, card=card.strip().splitlines()[0],
-                              ptxas=ptxas, ms=results[key])), flush=True)
+    for key, (_, ptxas, path) in kernels.items():
+        line = dict(tree=tree, kernel=key, card=card.strip().splitlines()[0], ptxas=ptxas,
+                    ms=results[key])
+        if sass_dir:
+            tag = f"{os.path.basename(os.path.normpath(tree))}_{key}".replace("=", "")
+            line["sass"] = _sass(path, sass_dir, tag)
+        print(json.dumps(line), flush=True)
 
 
 def main():
@@ -180,10 +267,13 @@ def main():
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--out", default=os.path.join("build", "fused_ab.json"))
+    ap.add_argument("--sass", default=None, metavar="DIR",
+                    help="write each library's SASS to DIR and print the Tucker loops")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        run_tree(os.path.abspath(args.trees[0]), args.variant)
+        run_tree(os.path.abspath(args.trees[0]), args.variant,
+                 args.sass and os.path.abspath(args.sass))
         return 0
     import torch
 
@@ -194,7 +284,8 @@ def main():
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", tree,
-             *[f"--variant={v}" for v in args.variant]],
+             *[f"--variant={v}" for v in args.variant],
+             *([f"--sass={args.sass}"] if args.sass else [])],
             capture_output=True, text=True,
             env=dict(os.environ, PYTHONPATH=os.path.abspath(tree)),
         )

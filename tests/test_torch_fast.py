@@ -37,6 +37,7 @@ from cosmax_torch.interop import bundle_from_numpy
 from cosmax_torch.likelihoods import bao as tbao
 from cosmax_torch.likelihoods import sn as tsn
 from cosmax_torch.likelihoods.base import Term, make_log_prob
+from cosmax_torch.models.emu_core import OR_REF, bary_vector
 from cosmax_torch.models.linear_chi2 import bundle_scope
 from cosmax_torch.ops.kernels import fused_log_prob as fl
 
@@ -153,6 +154,85 @@ def test_fused_plain_matches_make_log_prob_at_70_walkers(flagship):
     lp = fl.fused_log_prob_reference(packed, bad)
     assert bool(torch.all(lp[70:] == -torch.inf))
     np.testing.assert_allclose(lp[:70].numpy(), fused.numpy(), rtol=1e-12, atol=0)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: the bit pattern of cvt.rna.tf32.f32."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tucker_tf32(packed, theta, passes):
+    """The native grid's coefficient vector [W, 4 nq] as the kernel's
+    block products compute it, emulated in float32 on the f32 buffer: for
+    each outer index j, D_j = w2 B_j with the inner factor w2 [W, KI] and
+    the core matrix's rows B_j = [j KI, (j + 1) KI), each operand split into
+    TF32 hi + lo, the products a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (``passes`` 3) or a_hi b_hi alone (1) summed from zero; then a = sum_j
+    w1[j] D_j in f32."""
+    h, buf = packed.hdr, packed.buf
+    ko, ki, ldb, nq = (int(h[k]) for k in ("H_KO", "H_KI", "H_LDB", "H_NQ"))
+    coords = [theta[:, h["H_I_OM"]]] + ([theta[:, h["H_I_W0"]]] if h["H_NAXES"] > 1 else [])
+    wps = []
+    for i, x in enumerate(coords, 1):
+        n = h[f"H_N{i}"]
+        w = bary_vector(x, fl._seg(buf, h[f"H_OFF_AX{i}"], n), fl._seg(buf, h[f"H_OFF_BW{i}"], n))
+        wps.append(w @ fl._factor(packed, i))
+    if len(wps) == 1:
+        outer, inner = torch.ones_like(wps[0][:, :1]), wps[0]
+    else:
+        outer, inner = wps[::-1] if h["H_INNER"] == 1 else wps
+    a = torch.nn.functional.pad(inner, (0, ki - inner.shape[1]))
+    a_hi = _tf32(a)
+    a_lo = _tf32(a - a_hi)
+    b = fl._seg(buf, h["H_OFF_CORE"], ko * ki * ldb, (ko * ki, ldb))[:, :4 * nq]
+    out = torch.zeros(len(theta), 4 * nq)
+    for j in range(ko):
+        bj = b[j * ki:(j + 1) * ki]
+        b_hi = _tf32(bj)
+        d = a_hi @ b_hi
+        if passes == 3:
+            d = a_lo @ b_hi + a_hi @ _tf32(bj - b_hi) + d
+        out = out + outer[:, j:j + 1] * d
+    return out
+
+
+def tucker_term_errors(packed, theta, passes):
+    """Per emulated term, logp of that term alone in f32 with the
+    contraction of ``_tucker_tf32`` against the f64 plain version, as a
+    fraction of the term's own max|logp| (the whole sum's scale would hide
+    a small term); ``packed`` and ``theta`` are f64."""
+    p32 = replace(packed, buf=packed.buf.float())
+    th32 = theta.float()
+    logps = []
+    for pk, th, a in ((packed, theta, None), (p32, th32, _tucker_tf32(p32, th32, passes))):
+        h, buf = pk.hdr, pk.buf
+        zero = torch.zeros_like(th[:, 0])
+        h0 = th[:, h["H_I_H0"]] * buf[fl.HEADER["H_H0_SCALE"]] if h["H_I_H0"] >= 0 else zero
+        o_r = buf[fl.HEADER["H_ORH2"]] / (h0 / 100.0) ** 2 if h["H_ORH2"] != 0 else zero
+        if a is None:
+            a = fl._tucker_coeff(pk, th[:, h["H_I_OM"]],
+                                 th[:, h["H_I_W0"]] if h["H_NAXES"] > 1 else None)
+        logps.append([])
+        for i, f in enumerate(pk.forms):
+            chi2, log_norm = fl._forms_chi2(pk, [f], h["H_OFF_FORMS"] + i * fl.FORM_STRIDE, a,
+                                            th, h0, (o_r / OR_REF)[:, None])
+            logps[-1].append((-0.5 * chi2 + log_norm).double())
+    return [float((got - want).abs().max() / want.abs().max())
+            for want, got in zip(*logps)]
+
+
+def test_tucker_contraction_in_3xtf32_holds_each_term(flagship):
+    """The kernel's tensor-core contraction, emulated: in 3xTF32 each
+    flagship term alone (BAO, SN) stays within 1e-4 of its own max|logp|
+    of the f64 plain version on 70 bench-like walkers; one TF32 pass
+    fails that check."""
+    tfit = flagship["tfit"]
+    packed = fl.pack(tfit)
+    theta = torch.as_tensor(_thetas(tfit.spec.bounds, seed=1, n=70))
+    three, one = (tucker_term_errors(packed, theta, p) for p in (3, 1))
+    print(f"each term alone vs f64: 3xTF32 {three}, one TF32 pass {one}")
+    assert len(three) == 2 and max(three) <= 1e-4 < max(one), (three, one)
 
 
 @pytest.mark.parametrize("name", ["bao.desi", "bao.desi_cmb_des5y", "bao.desi_cmb_union3",
@@ -317,11 +397,14 @@ def test_wrapper_checks_and_work_count(flagship):
     with pytest.raises(ValueError, match="constants on"):
         fl.fused_log_prob(packed, torch.zeros(3, 6, device="meta"))
     ops, product, nbytes = fl.work_per_walker(packed)
-    # the flagship: ~8.5k, no tensor-core product; theta + logp
-    assert nbytes == 28 and 5000 < ops < 20000 and product == 0
+    h = packed.hdr
+    # the flagship: ~4k f32 operations (projections, forms, CMB) beside the
+    # core contraction on the tensor cores, 2 r1 r2 R_all; theta + logp
+    assert nbytes == 28 and 2000 < ops < 10000
+    assert product == 2 * h["H_R1"] * h["H_R2"] * h["H_RALL"] == 4864
 
 
-def test_kernel_source_agrees_with_the_packer():
+def test_kernel_source_agrees_with_the_packer(flagship):
     """The .cu file's compile-time maxima and buffer slots equal the
     packer's (nvcc runs only on the card; this holds the two files
     together here)."""
@@ -333,8 +416,19 @@ def test_kernel_source_agrees_with_the_packer():
             assert consts[k] == v, k
     for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_BOND", "MAX_RALL", "MAX_FORMS", "MAX_K",
               "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE",
-              "THREADS", "VLD", "KSLICE", "NCOL", "SLD", "STAGES", "MIN_RIN", "WPAD"):
+              "THREADS", "VLD", "KSLICE", "NCOL", "SLD", "STAGES", "MIN_RIN", "WPAD",
+              "WLD", "CLD", "NCOLT", "TUCKER_WARPS"):
         assert consts[k] == getattr(fl, k), k
+    # the native grid's core matrix [KO KI][LDB]: its rows the outer index
+    # times the inner rank padded to k-steps of 8, its row stride 8 or 24
+    # mod 32 (the B fragments on 32 banks) and wide enough for the n-tiles
+    # of every window; the kernel's per-warp scratch as the packer counts it
+    h = fl.pack(flagship["tfit"]).hdr
+    assert h["H_KI"] % 8 == 0 and h["H_KO"] * h["H_KI"] >= h["H_R1"] * h["H_R2"]
+    assert h["H_LDB"] % 32 in (8, 24) and h["H_LDB"] >= 4 * h["H_NQ"]
+    assert "TUCKER_WARPS * (static_cast<size_t>(stride) * WLD + NCOLT * CLD)" in src
+    assert fl.tucker_smem_bytes(dict(H_SIZE=fl.MAX_FLOATS, H_KO=fl.MAX_RANK,
+                                     H_KI=fl.MAX_RANK)) <= fl.MAX_SMEM
     # the split grid's header slots and its per-half block, whose per-core
     # slots the kernel indexes from T_PERM0, T_AX0, T_N0, T_G0 and T_R1
     assert {"H_I_WA", "H_SPLIT", "H_OFF_HALVES", "H_VROWS"} <= set(fl.HEADER)

@@ -32,3 +32,34 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 32  # every module of the port was walked
+
+
+def test_tf32_stays_off():
+    """The port's counterpart of test_all_dots_pin_highest_precision
+    (tests/test_likelihood_parity.py): ``device.resolve`` leaves both TF32
+    switches off and float32 matmuls at "highest", and no module of the
+    port turns TF32 on or lowers the matmul precision (the kernels' 3xTF32
+    keeps f32 accuracy by hand; a single TF32 pass keeps ~3 digits)."""
+    import re
+
+    import torch
+
+    from cosmax_torch.device import resolve
+
+    switches = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    precision = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        assert resolve("cpu") == (torch.device("cpu"), torch.float32)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == "highest"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = switches
+        torch.set_float32_matmul_precision(precision)
+    root = Path(__file__).resolve().parents[1] / "cosmax_torch"
+    for path in root.rglob("*.py"):
+        src = path.read_text()
+        assert not re.search(r"allow_tf32\s*=\s*True", src), path
+        assert "set_float32_matmul_precision" not in src, path
+        assert not re.search(r"allow_bf16_reduced_precision_reduction\s*=\s*True", src), path

@@ -34,6 +34,7 @@ from cosmax_torch.data import load_quasars
 from cosmax_torch.interop import bundle_from_numpy
 from cosmax_torch.likelihoods.base import make_log_prob
 from cosmax_torch.ops.kernels import fused_log_prob as fl
+from tests.test_torch_fast import tucker_term_errors
 
 F64 = torch.float64
 N_THETA = 4
@@ -196,6 +197,21 @@ def test_fused_plain_matches_the_terms_at_70_walkers(fast, name, model):
     np.testing.assert_allclose(lp[:70].numpy(), fused.numpy(), rtol=1e-12, atol=0)
 
 
+def test_tucker_contraction_in_3xtf32_holds_each_term(fast):
+    """The kernel's tensor-core contraction, emulated as in
+    tests/test_torch_fast.py: in 3xTF32 each multiprobe term alone (the
+    linear BAO, SN and CC, the quasar lift, the fs8 amplitude pair) stays
+    within 1e-4 of its own max|logp| of the f64 plain version on 70
+    bench-like walkers; one TF32 pass fails that check."""
+    tfit = fast["tfit"]
+    packed = fl.pack(tfit)
+    assert [fl.KINDS[f["F_KIND"]] for f in packed.forms] == ["linear"] * 3 + ["lift", "amp_pair"]
+    theta = torch.as_tensor(_thetas(tfit.spec.bounds, seed=1, n=70))
+    three, one = (tucker_term_errors(packed, theta, p) for p in (3, 1))
+    print(f"each term alone vs f64: 3xTF32 {three}, one TF32 pass {one}")
+    assert max(three) <= 1e-4 < max(one), (three, one)
+
+
 def test_packer_takes_the_12_new_configurations(fast, monkeypatch):
     kinds = {"joint.multiprobe": ["linear", "linear", "linear", "lift", "amp_pair"],
              "fs8.fs8": ["amp_pair"], "cc.cc_union3": ["linear", "linear"],
@@ -211,7 +227,8 @@ def test_packer_takes_the_12_new_configurations(fast, monkeypatch):
             assert h["H_I_H0"] == (-1 if name == "fs8.fs8" else fit.spec.names.index("H0"))
             assert h["H_HAS_CMB"] == (name == "joint.multiprobe")
             ops, product, nbytes = fl.work_per_walker(packed)
-            assert nbytes == 4 * (fit.spec.dim + 1) and ops > 0 and product == 0
+            assert nbytes == 4 * (fit.spec.dim + 1) and ops > 0
+            assert product == 2 * h["H_R1"] * h["H_R2"] * h["H_RALL"]
     # w0wacdm refuses before any table is built
     def no_build(*args, **kwargs):
         raise AssertionError("a table was built before the refusal")
