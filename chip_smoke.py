@@ -85,7 +85,28 @@ raising on failure (non-zero exit):
    at the f32 peak; the bound with every operation at the f32 peak beside it);
    ``fit.log_prob()`` end to end with its launch count; and the
    CLI with ``--fast --model w0wacdm``, 150 walkers x 20 steps, a finite
-   (150, 7) chain.
+   (150, 7) chain;
+13. the fast w0wacdm multiprobe joint (``joint.multiprobe``/w0wacdm,
+   ``fast=True``, the dense synthetic SN covariance), every form kind of
+   the split instance (linear BAO, SN and CC, the quasar lift, the fs8
+   amplitude pair) with the CMB: the build's seconds (per half and
+   curve, the growth ODE's tables among them), each half's ranks and
+   bonds, R_all, a block's shared memory (the packer's count against the
+   runtime's) and blocks an SM, ptxas; the kernel against its plain
+   version within 1e-4 of max|logp| at 131,072 walkers of the bench draw,
+   131,072 uniform over the box, 131,072 bench-style about a centre in
+   half 1, 65,536 and 65,573 (ragged) of the bench draw, 70 and 1; each
+   term alone within 1e-4 of its own max|logp| on the bench draws of both
+   halves (where the planted faults in the sweep's 3xTF32 must fail) and
+   on the uniform draw; 64
+   walkers (32 a half) against the port's f64 CPU fast path; kernel and
+   plain times with the bound at 131,072 bench and uniform and 65,536
+   bench; ``fit.log_prob()`` end to end with its launch count;
+   ``fs8.fs8``, ``cc.cc_union3`` and ``cc.cc_des5y`` in w0wacdm and
+   ``cc.cc`` (the Om h^2 prior) in the four models at 4,096 walkers,
+   bench and uniform draws, whole and each term alone; and the CLI with
+   ``--fast --model w0wacdm --synthetic-sys`` on the multiprobe (the
+   build of this phase), 256 walkers x 20 steps, a finite (256, 12) chain.
 
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
@@ -117,6 +138,7 @@ MP_WALKERS = 131072  # the multiprobe size of bench.py
 MP_PARITY_WALKERS = 4096
 NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
+W0WA_MP_OTHERS = ("fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s, dense
 # TF32 tensor-core FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
@@ -376,17 +398,28 @@ def _layout(fl, packed):
             f"block, {blocks} blocks an SM")
 
 
-def _terms_alone(fl, packed, theta, names, label, variants):
-    """Each term alone (the emulated ones, then the CMB) against its own
-    max|logp|, and each planted fault of TUCKER_PLANTED caught by the
-    emulated terms alone: the printed parts."""
-    parts = []
-    for i in [*range(len(packed.forms)), None]:
+def _each_term(fl, packed, theta, names, label):
+    """Each term of ``packed`` alone (its forms, the CMB, the prior), the
+    kernel against the plain version within FUSED_RTOL of the term's own
+    max|logp|: the printed parts and the worst ratio."""
+    terms = [*range(len(packed.forms))]
+    terms += [None] if packed.cmb else []
+    terms += ["prior"] if packed.hdr["H_PRIOR"] else []
+    parts, worst = [], 0.0
+    for i in terms:
         err, scale, _ = _fused_vs_plain(fl, _term_alone(fl, packed, i), theta)
-        name = "cmb" if i is None else names[i]
+        name = names[i] if isinstance(i, int) else {None: "cmb", "prior": "omh2"}[i]
         if not err <= FUSED_RTOL * scale:
             raise AssertionError(f"{label}: fused kernel vs plain, {name} alone: {err / scale:.3e}")
         parts.append(f"{name} {err / scale:.3e} (of {scale:.4g})")
+        worst = max(worst, err / scale)
+    return parts, worst
+
+
+def _terms_alone(fl, packed, theta, names, label, variants):
+    """Each term alone (``_each_term``), and each planted fault of
+    TUCKER_PLANTED caught by the emulated terms alone: the printed parts."""
+    parts, _ = _each_term(fl, packed, theta, names, label)
     for fault in TUCKER_PLANTED:
         rel, i = max(_sweep_terms(fl, packed, theta, variants[fault][0]))
         if rel <= FUSED_RTOL:
@@ -546,8 +579,10 @@ def phase_fast(card, parity_ref, ptxas_tucker, variants):
 
 
 def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast=False,
-              model="wzcdm"):
-    """Phase 6 (parity), 8, 11 and 12 (--fast): the CLI, 20 steps."""
+              model="wzcdm", synthetic_sys=False):
+    """Phase 6 (parity), 8, 11, 12 and 13 (--fast): the CLI, 20 steps.
+    ``synthetic_sys`` passes --synthetic-sys, so that the preset's build is
+    the one an earlier phase made (phase 13: minutes of the host)."""
     import numpy as np
 
     from cosmax_torch import fit as fit_cli
@@ -558,7 +593,8 @@ def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast
     with tempfile.TemporaryDirectory() as out:
         argv = ["--preset", preset, "--model", model,
                 "--walkers", str(walkers), "--steps", str(n_steps), "--seed", "0",
-                "--no-plots", *(["--fast"] if fast else []), "--out", out]
+                "--no-plots", *(["--fast"] if fast else []),
+                *(["--synthetic-sys"] if synthetic_sys else []), "--out", out]
         _reset_counts()
         t0 = time.perf_counter()
         rc = fit_cli.main(argv)
@@ -614,30 +650,34 @@ def _fused_vs_plain(fl, packed, theta, lib=None):
 
 
 def _term_alone(fl, packed, i):
-    """The packed buffer cut to one term: form ``i`` alone, or the CMB
-    alone for ``i`` = None. The header's form count and the form table's
-    offset (each half's, on the split grid), or the CMB flag, are
-    rewritten, so the kernel and the plain version read only that term."""
+    """The packed buffer cut to one term: form ``i`` alone, the CMB alone
+    for ``i`` = None, or the Om h^2 prior alone for ``i`` = "prior". The
+    header's form count and the form table's offset (each half's, on the
+    split grid), the CMB flag and the prior flag are rewritten, so the
+    kernel and the plain version read only that term."""
     import dataclasses
 
     buf, hdr = packed.buf.clone(), dict(packed.hdr)
-    if i is None:
-        hdr.update(H_NFORMS=0)
-        cmb = packed.cmb
+    alone = isinstance(i, int)
+    if not alone:
+        hdr.update(H_NFORMS=0, H_HAS_CMB=hdr["H_HAS_CMB"] if i is None else 0,
+                   H_PRIOR=hdr["H_PRIOR"] if i == "prior" else 0)
+        cmb = packed.cmb if i is None else {}
     else:
-        hdr.update(H_NFORMS=1, H_HAS_CMB=0, H_OFF_FORMS=hdr["H_OFF_FORMS"] + i * fl.FORM_STRIDE)
+        hdr.update(H_NFORMS=1, H_HAS_CMB=0, H_PRIOR=0,
+                   H_OFF_FORMS=hdr["H_OFF_FORMS"] + i * fl.FORM_STRIDE)
         cmb = {}
-    for k in ("H_NFORMS", "H_HAS_CMB", "H_OFF_FORMS"):
+    for k in ("H_NFORMS", "H_HAS_CMB", "H_OFF_FORMS", "H_PRIOR"):
         buf[fl.HEADER[k]] = hdr[k]
     halves = []
     for h, lay in enumerate(packed.halves):
-        lay = dict(lay, forms=() if i is None else (lay["forms"][i],))
-        if i is not None:
+        lay = dict(lay, forms=(lay["forms"][i],) if alone else ())
+        if alone:
             lay["T_OFF_FORMS"] += i * fl.FORM_STRIDE
             buf[hdr["H_OFF_HALVES"] + h * fl.HALF_STRIDE + fl.HALF["T_OFF_FORMS"]] = \
                 lay["T_OFF_FORMS"]
         halves.append(lay)
-    forms = halves[0]["forms"] if halves else (() if i is None else (packed.forms[i],))
+    forms = halves[0]["forms"] if halves else ((packed.forms[i],) if alone else ())
     return dataclasses.replace(packed, buf=buf, hdr=hdr, forms=forms, cmb=cmb,
                                halves=tuple(halves))
 
@@ -1000,6 +1040,14 @@ def _split_bound_ms(fl, fit, packed, theta):
     return bound_ms, ffma_ms, ((ops0, prod0), (ops1, prod1))
 
 
+def _tt_ranks(packed):
+    """Each half's tensor-train axis order, bonds and coefficient columns."""
+    return "; ".join(
+        f"half {i}: perm {tuple(lay[f'T_PERM{j}'] for j in range(3))}, bonds "
+        f"({lay['T_R1']}, {lay['T_R2']}, {lay['T_R3']}), R_all {lay['T_RALL']} ({lay['T_NQ']} quads)"
+        for i, lay in enumerate(packed.halves))
+
+
 def phase_w0wa_fast(card, ptxas_split, variants):
     """Phase 12: the fused kernel's split-grid branch on the fast w0wacdm
     flagship. ``variants``: the variant libraries of ``_finish_variants``."""
@@ -1016,10 +1064,7 @@ def phase_w0wa_fast(card, ptxas_split, variants):
     build_s = time.perf_counter() - t0
     packed = fl.pack(fit)
     h = packed.hdr
-    ranks = "; ".join(
-        f"half {i}: perm {tuple(lay[f'T_PERM{j}'] for j in range(3))}, bonds "
-        f"({lay['T_R1']}, {lay['T_R2']}, {lay['T_R3']}), R_all {lay['T_RALL']} ({lay['T_NQ']} quads)"
-        for i, lay in enumerate(packed.halves))
+    ranks = _tt_ranks(packed)
     print(f"phase 12: fast w0wacdm flagship bao.desi_cmb_des5y/w0wacdm (synthetic dense 1829^2 "
           f"SN) built and packed in {build_s:.2f}s: {ranks}; {4 * h['H_SIZE']} bytes of shared "
           f"constants, {4 * packed.dev.numel()} bytes of TT cores and tails in device memory, "
@@ -1249,6 +1294,196 @@ def phase_w0wa_fast(card, ptxas_split, variants):
                 ms_mixed_96_32=timing["mixed 96+32 65536"]["ms"])
 
 
+def phase_w0wa_multiprobe(card, ptxas_split, variants):
+    """Phase 13: the fused kernel's split-grid branch on the fast w0wacdm
+    multiprobe joint, every form kind in both halves (the linear BAO, SN
+    and CC, the quasar lift, the fs8 amplitude pair), with the CMB; the
+    other w0wacdm presets of the multiprobe family; ``cc.cc`` (the Om h^2
+    prior) in the four models. ``variants``: those of ``_finish_variants``."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    t0 = time.perf_counter()
+    fit = get_preset("joint.multiprobe", "w0wacdm", fast=True, synthetic_sys=True,
+                     device="cuda")
+    log_prob = fit.log_prob()
+    build_s = time.perf_counter() - t0
+    packed = fl.pack(fit)
+    h = packed.hdr
+    _, halves = fit.terms[0].meta["linear_chi2"].bundle.finalized()
+    seconds = [half["seconds"] for half in halves]
+    growth_s = sum(sec for part in seconds for what, sec in part.items()
+                   if what.startswith("fs8[1]"))
+    curves = "; ".join(f"half {k}: " + ", ".join(f"{what} {sec:.2f}s" for what, sec in
+                                                 part.items()) for k, part in enumerate(seconds))
+    smem, blocks = fl.occupancy(packed)
+    ranks = _tt_ranks(packed)
+    print(f"phase 13: fast w0wacdm multiprobe joint.multiprobe/w0wacdm (synthetic dense 1829^2 "
+          f"SN) built and packed in {build_s:.2f}s on the host, the growth ODE's tables (fs8[1]) "
+          f"{growth_s:.2f}s of it; per half and curve (base and radiation tables; fs8[0] the AP "
+          f"curve, fs8[1] the growth curve): {curves}")
+    print(f"phase 13: {ranks}; H_VROWS {h['H_VROWS']}; {4 * h['H_SIZE']} bytes of shared "
+          f"constants, {4 * packed.dev.numel()} bytes of TT cores and tails in device memory; "
+          f"{fl.split_smem_bytes(h)} bytes of shared memory a block by the packer ({smem} dynamic "
+          f"by the runtime, {fl.GROUP_BYTES} static; limit {fl.MAX_SMEM}), {blocks} blocks an SM; "
+          f"{ptxas_split}")
+    # the packer counts the block's static half counts too
+    if smem + fl.GROUP_BYTES != fl.split_smem_bytes(h):
+        raise AssertionError(f"the packer's {fl.split_smem_bytes(h)} bytes of shared memory a "
+                             f"block against the launch's {smem} and {fl.GROUP_BYTES} static")
+
+    bench, uniform, half1 = (f"{d} {MP_WALKERS}" for d in ("bench", "uniform", "half-1 bench"))
+    batches = {
+        bench: _flagship_walkers(fit, MP_WALKERS, seed=31),
+        uniform: _box_walkers(fit, MP_WALKERS, seed=32),
+        half1: _half1_walkers(fit, MP_WALKERS, seed=33),
+        f"bench {BENCH_WALKERS}": _flagship_walkers(fit, BENCH_WALKERS, seed=34),
+        f"bench {RAGGED}": _flagship_walkers(fit, RAGGED, seed=35),
+        "uniform 70": _box_walkers(fit, 70, seed=36),
+        "bench 1": _flagship_walkers(fit, 1, seed=37),
+    }
+    result = {}
+    for label, walkers in batches.items():
+        w = walkers.shape[0]
+        walkers = walkers.copy()
+        if w >= 4:
+            walkers[1, 2] = 0.95  # Om beyond its bound (0.1, 0.6)
+            walkers[2, 0] = np.nan
+        theta = torch.as_tensor(walkers, device="cuda")
+        err, scale, fin = _fused_vs_plain(fl, packed, theta)
+        if w >= 4 and (bool(fin[1]) or bool(fin[2]) or int((~fin).sum()) != 2):
+            raise AssertionError(f"bad rows not exactly the -inf rows at {label}")
+        if not err <= FUSED_RTOL * scale:
+            raise AssertionError(f"w0wacdm multiprobe fused kernel vs plain at {label}: "
+                                 f"{err:.3e} > 1e-4 of {scale:.3e}")
+        lower, upper = _halves_of(fit, theta)
+        ragged = ""
+        if w == RAGGED:
+            tail, tail_err = _ragged_rows(fl, packed, theta)
+            ragged = f"; the ragged last block's {tail} rows {tail_err / scale:.3e}"
+        print(f"phase 13: fused kernel vs plain, {label} ({lower} walkers in half 0, {upper} in "
+              f"half 1): max abs err {err:.3e} ({err / scale:.3e} of max|logp|); -inf rows "
+              f"agree{ragged}")
+        if label == bench:
+            result["max_abs_err"] = err
+        if label == half1 and lower != 0:
+            raise AssertionError(f"the {label} batch has {lower} walkers in half 0")
+
+    # each term alone at its own max|logp|, on a bench draw in each half
+    # (half 0 about the box centre, half 1 about w0 = -1, wa = 1.3) and on
+    # the uniform draw, then the planted faults in the sweep's 3xTF32
+    # (PLANTED) on the terms the sweep feeds: each must fail that check on
+    # both bench draws
+    names = [t.name for t in fit.terms if "compression" not in t.meta]
+    draws = {k: torch.as_tensor(batches[k], device="cuda") for k in (bench, half1)}
+    for label, theta in {**draws, uniform: torch.as_tensor(batches[uniform],
+                                                           device="cuda")}.items():
+        parts, _ = _each_term(fl, packed, theta, names, f"phase 13 {label}")
+        print(f"phase 13: fused kernel vs plain, each term alone at {label} (of its own "
+              f"max|logp|, limit {FUSED_RTOL:g}): {'; '.join(parts)}")
+    for fault in PLANTED:
+        parts = []
+        for label, theta in draws.items():
+            errs = _sweep_terms(fl, packed, theta, variants[fault][0])
+            rel, i = max(errs)
+            if rel <= FUSED_RTOL:
+                raise AssertionError(f"phase 13: the sweep's terms alone missed the planted "
+                                     f"fault {fault!r} at {label}: {rel:.3e}")
+            parts.append(f"{label}: " + ", ".join(f"{names[j]} {e:.3e}" for e, j in errs))
+        print(f"phase 13: planted fault {fault!r} in the sweep caught (each term alone, limit "
+              f"{FUSED_RTOL:g}): {'; '.join(parts)}")
+
+    # 64 walkers, 32 in each half, against the f64 CPU fast path
+    i_w0, i_wa = fit.spec.names.index("w0"), fit.spec.names.index("wa")
+    mixed = np.concatenate([_flagship_walkers(fit, 32, seed=38), batches[uniform][3:]])
+    s_mixed = mixed[:, i_w0] + mixed[:, i_wa]
+    mixed = np.concatenate([mixed[:32], mixed[32:][s_mixed[32:] > 0][:32]])
+    lp32 = log_prob(torch.as_tensor(mixed, device="cuda")).double().cpu().numpy()
+    ref = get_preset("joint.multiprobe", "w0wacdm", fast=True, synthetic_sys=True,
+                     device="cpu", dtype=torch.float64)
+    lp64 = ref.log_prob()(torch.as_tensor(mixed.astype(np.float64))).numpy()
+    gap = float(np.max(np.abs(lp32 - lp64)) / np.max(np.abs(lp64)))
+    if not gap <= LOGP_RTOL:
+        raise AssertionError(f"w0wacdm multiprobe fused kernel vs f64 CPU fast path: "
+                             f"{gap:.3e} of max|logp|")
+    print(f"phase 13: fused kernel (f32 card) vs f64 CPU fast path on 64 walkers (32 in each "
+          f"half): {gap:.3e} of max|logp| (limit {LOGP_RTOL:g})")
+
+    timing = {}
+    for label in (bench, uniform, f"bench {BENCH_WALKERS}"):
+        theta = torch.as_tensor(batches[label], device="cuda")
+        w = theta.shape[0]
+        ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=5)
+        plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), reps=5)
+        bound_ms, ffma_ms, ops = _split_bound_ms(fl, fit, packed, theta)
+        lower, upper = _halves_of(fit, theta)
+        print(f"phase 13: fused_log_prob w0wacdm multiprobe {label} ({lower} + {upper} walkers "
+              f"in halves 0 + 1) on {card}: kernel {ms:.4f} ms ({w / ms * 1e3:.1f} evals/s), "
+              f"plain {plain_ms:.4f} ms (CUDA events, medians); bound {bound_ms:.4f} ms (halves "
+              f"0 and 1: {ops[0][1]} and {ops[1][1]} product ops a walker at the TF32 peak, "
+              f"{ops[0][0]} and {ops[1][0]} other ops at the f32 peak), {ffma_ms:.4f} ms with "
+              f"every op at the f32 peak")
+        timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms)
+
+    # the main path: fit.log_prob() on the card, counted
+    theta = torch.as_tensor(batches[bench], device="cuda")
+    _reset_counts()
+    lp = log_prob(theta)
+    torch.cuda.synchronize()
+    launched = fl.LAUNCHES
+    if launched != 1 or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"fast w0wacdm multiprobe log_prob: {launched} fused launches, "
+                             f"{int((~torch.isfinite(lp)).sum())} non-finite values")
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        lp = log_prob(theta)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    print(f"phase 13: fit.log_prob() on {MP_WALKERS} walkers all finite, {launched} fused "
+          f"kernel launch per call; end to end {MP_WALKERS / dt:.1f} evals/s "
+          f"({1e3 * dt:.4f} ms per call, host clock, mean of {reps}) on {card}")
+
+    # the other presets of the multiprobe family in w0wacdm, and cc.cc
+    # (the Om h^2 prior) in every model: whole and each term alone
+    for name, models in [*((n, ("w0wacdm",)) for n in W0WA_MP_OTHERS),
+                         ("cc.cc", ("lcdm", "wcdm", "wzcdm", "w0wacdm"))]:
+        for model in models:
+            t0 = time.perf_counter()
+            other = get_preset(name, model, fast=True, device="cuda")
+            p = fl.pack(other)
+            other_s = time.perf_counter() - t0
+            names = [t.name for t in other.terms if fl._emulated(t) is not None]
+            parts = []
+            for label, draw in (("bench", _flagship_walkers(other, 4096, seed=7)),
+                                ("uniform", _box_walkers(other, 4096, seed=8))):
+                theta = torch.as_tensor(draw, device="cuda")
+                err, scale, _ = _fused_vs_plain(fl, p, theta)
+                if not err <= FUSED_RTOL * scale:
+                    raise AssertionError(f"fused kernel vs plain on {name}/{model}: "
+                                         f"{err / scale:.3e}")
+                alone, worst = _each_term(fl, p, theta, names, f"phase 13 {name}/{model}")
+                parts.append(f"{label} {err / scale:.3e}, each term alone: {', '.join(alone)}")
+                if name == "cc.cc":
+                    result.setdefault("cc_cc", {})[f"{model} {label}"] = dict(
+                        whole=err / scale, worst_term_alone=worst)
+            print(f"phase 13: {name}/{model} built and packed in {other_s:.2f}s; fused kernel "
+                  f"vs plain at W=4096 (of max|logp|): {'; '.join(parts)}")
+
+    timed = timing[bench]
+    return dict(max_abs_err=result["max_abs_err"], **timed, bound_by="operations",
+                walkers=MP_WALKERS, log_prob_launches=launched, evals_per_s=MP_WALKERS / dt,
+                build_s=build_s, growth_build_s=growth_s, smem_bytes=smem, blocks_per_sm=blocks,
+                r_all=[lay["T_RALL"] for lay in packed.halves],
+                bonds=[[lay[f"T_R{j}"] for j in (1, 2, 3)] for lay in packed.halves],
+                ms_uniform=timing[uniform]["ms"], bound_ms_uniform=timing[uniform]["bound_ms"],
+                ms_65536=timing[f"bench {BENCH_WALKERS}"]["ms"],
+                bound_ms_65536=timing[f"bench {BENCH_WALKERS}"]["bound_ms"],
+                f32_vs_f64=gap), result["cc_cc"]
+
 def main():
     import torch
 
@@ -1291,7 +1526,10 @@ def main():
     w0wa = phase_w0wa_fast(card, ptxas_split, variants)
     w0wa_cli_launches = phase_cli(card, "phase 12", walkers=150, dim=7, fast=True,
                                   model="w0wacdm")
-    print(f"phases 2-12 took {time.perf_counter() - t_start:.1f}s on {card}")
+    w0wa_mp, cc_cc = phase_w0wa_multiprobe(card, ptxas_split, variants)
+    w0wa_mp_cli_launches = phase_cli(card, "phase 13", "joint.multiprobe", 256, 12, fast=True,
+                                     model="w0wacdm", synthetic_sys=True)
+    print(f"phases 2-13 took {time.perf_counter() - t_start:.1f}s on {card}")
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
@@ -1300,7 +1538,9 @@ def main():
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
-         "w0wacdm": dict(w0wa, cli_launches=w0wa_cli_launches)},
+         "w0wacdm": dict(w0wa, cli_launches=w0wa_cli_launches),
+         "w0wacdm_multiprobe": dict(w0wa_mp, cli_launches=w0wa_mp_cli_launches),
+         "cc_cc": cc_cc},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,12 @@ Ported so far: ``bao.desi``, the three BAO + CMB + SN joints
 (``bao.desi_cmb_pantheon``, ``bao.desi_cmb_union3`` and the flagship
 ``bao.desi_cmb_des5y``), the all-probe ``joint.multiprobe``, ``fs8.fs8``,
 ``cc.cc_union3`` and ``cc.cc_des5y`` (both f conventions of the CC
-term), on the parity path and, for lcdm, wcdm and wzcdm, on the fast
-path (``fast=True``); w0wacdm takes the fast path in the four presets
-of the flagship family (``W0WA_FAST``); and ``cc.cc``, whose Om h^2
-prior keeps it on the parity path. Each preset reproduces the reference
-script's parameter order, bounds, grids, r_d treatment and radiation
-constants. The model is an argument: for 'lcdm' w0 is dropped from the
-sampled vector, for 'w0wacdm' a wa parameter (-3, 2) follows w0.
+term) and ``cc.cc`` (CC with the Om h^2 prior), each on the parity path
+and on the fast path (``fast=True``) in all four models (lcdm, wcdm,
+wzcdm, w0wacdm). Each preset reproduces the reference script's parameter
+order, bounds, grids, r_d treatment and radiation constants. The model
+is an argument: for 'lcdm' w0 is dropped from the sampled vector, for
+'w0wacdm' a wa parameter (-3, 2) follows w0.
 
 Build-time constants are f64 numpy, turned into tensors once per preset
 on the chosen device and dtype. A fast preset's ``log_prob`` is the
@@ -41,16 +40,11 @@ from cosmax_torch.likelihoods import priors as priors_mod
 from cosmax_torch.likelihoods import quasars as qsr_mod
 from cosmax_torch.likelihoods import sn as sn_mod
 from cosmax_torch.likelihoods.base import ParamSpec, make_chi2_breakdown, make_log_prob
-from cosmax_torch.likelihoods.fastmode import fast_mode, use_fast_mode
+from cosmax_torch.likelihoods.fastmode import use_fast_mode
 from cosmax_torch.models.linear_chi2 import set_scope_domains
 from cosmax_torch.samplers.ensemble import default_moves
 
 WA_BOUNDS = (-3.0, 2.0)
-
-# The presets whose w0wacdm fast path is ported: BAO, CMB and SN on the
-# split grid. The other fast presets (CC, quasars, fsigma8, whose growth
-# tables are 2 x 40^3 ODE solves) refuse w0wacdm before building.
-W0WA_FAST = ("bao.desi", "bao.desi_cmb_des5y", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
 
 
 @dataclass(frozen=True)
@@ -163,11 +157,6 @@ def get_preset(
         raise KeyError(
             f"unknown or unported preset {name!r}; ported: {', '.join(list_presets())}"
         )
-    if fast and model == "w0wacdm" and name not in W0WA_FAST:
-        raise NotImplementedError(
-            f"fast=True for w0wacdm on {name!r} is not ported yet: the w0wacdm fast path "
-            f"takes {', '.join(W0WA_FAST)} (ROADMAP.md queue 1, item 9b)"
-        )
     device, dtype = resolve(device, dtype)
     with use_synthetic_sys(synthetic_sys), use_fast_mode(fast):
         fit = PRESETS[name](model, device, dtype)
@@ -252,11 +241,6 @@ _bao_cmb_sn(
 
 @_register("cc.cc", "cosmic_chronometers/cc.py: f^-2 rescaling + Om h^2 prior")
 def _cc_cc(model, device, dtype):
-    if fast_mode():
-        raise NotImplementedError(
-            "cc.cc carries the Om h^2 prior, which the fused log-prob kernel does not "
-            "take; the prior terms come with ROADMAP.md queue 1, item 10"
-        )
     ds = load_cc()
     params = _adjust_params(
         [("H0", 50, 90), ("Om", 0.15, 0.50), ("w0", -2.5, 0), ("f_cc", 0.1, 1.5)], model

@@ -40,7 +40,8 @@
 //      coef ln f;
 //   4. the compressed CMB: z* (Aizpuru A4, or Hu & Sugiyama), r_s by GL in
 //      a and D_C by GL in ln a with the radiation-aware E(z), the three
-//      observables and the 3 x 3 whitened chi^2;
+//      observables and the 3 x 3 whitened chi^2, and the Om h^2 prior
+//      ((mean - Om (H0/100)^2) / sigma)^2 (cc.cc) from two header slots;
 //   5. -chi2/2 + log_norm, or -inf outside the strict interior of the f32
 //      bounds or where the sum is not finite.
 // The constants come packed by cosmax_torch/ops/kernels/fused_log_prob.py
@@ -242,6 +243,9 @@ constexpr int H_KO = 32;
 constexpr int H_KI = 33;
 constexpr int H_LDB = 34;
 constexpr int H_INNER = 35;
+constexpr int H_PRIOR = 36;
+constexpr int H_PRIOR_MEAN = 37;
+constexpr int H_PRIOR_SIGMA = 38;
 
 // one half of the split grid (HALF)
 // (per core i = 0, 1, 2 the slots T_PERM0 + i, T_AX0 + i, T_N0 + i,
@@ -1240,10 +1244,14 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
                });
   }
 
-  // 4. the compressed CMB
+  // 4. the compressed CMB, and the Om h^2 prior (IEEE division)
   if (s[H_HAS_CMB] != 0.0f && (SPLIT || !(PROBE & 1))) {
     chi2 += cmb_chi2<SPLIT>(s + static_cast<int>(s[H_OFF_CMB]), th, h0, om, o_r, w0, wa,
                             model);
+  }
+  if (s[H_PRIOR] != 0.0f) {
+    const float d = (s[H_PRIOR_MEAN] - om * (hh * hh)) / s[H_PRIOR_SIGMA];
+    chi2 += d * d;
   }
 
   // 5. strict-interior bounds and the finite guard

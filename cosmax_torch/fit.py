@@ -7,7 +7,11 @@ Examples::
         --steps 2200 --walkers 150 --seed 42 --out results/flagship --no-plots
     python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model wzcdm --fast
     python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --model w0wacdm --fast
+    python -m cosmax_torch.fit --preset joint.multiprobe --model w0wacdm --fast
+    python -m cosmax_torch.fit --preset cc.cc --model lcdm --fast
     python -m cosmax_torch.fit --list
+
+``--fast`` takes every ported preset in every model.
 
 Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).
 Flags whose code is not ported yet raise and name the ROADMAP item.

@@ -18,7 +18,11 @@ enters as chi^2 / f_err^2 with normalisation -N ln f_err
   fsigma8(theta)/sigma8 is two geometry-only curves, registered as one
   group in the preset's bundle (``models.linear_chi2.make_amp_pair_chi2``);
   the growth ODE, the AP integrals and the whitening are folded into
-  the f64 build tables.
+  the f64 build tables. The build evaluates both curves over the grid's
+  nodes in chunks under ``BUILD_TEMP_BYTES`` (each node's row is its
+  own, so chunks give the same rows to rounding): the split w0wacdm
+  grid's 64,000 nodes a half would otherwise take ~4,000 x 64,000 f64
+  coefficient tables of the ODE, 2 GB each.
 """
 
 import numpy as np
@@ -41,6 +45,22 @@ from cosmax_torch.ops.linalg import chi2_from_whitener
 
 GL_ORDER = 64  # Gauss-Legendre nodes of the model's D_M
 F_ERR = "f_err"  # the error-rescaling parameter
+# Bytes of the largest temporary of a build curve over a chunk of nodes
+BUILD_TEMP_BYTES = 256 << 20
+
+
+def _over_node_chunks(curve, elems_per_node):
+    """``curve(flat, to_params)`` evaluated over chunks of the nodes
+    ``flat`` [M, P], each chunk's largest temporary (``elems_per_node``
+    f64 values a node) under ``BUILD_TEMP_BYTES``."""
+    def run(flat, to_params):
+        chunk = max(1, BUILD_TEMP_BYTES // (8 * elems_per_node))
+        if len(flat) <= chunk:
+            return curve(flat, to_params)
+        return np.concatenate([curve(flat[s:s + chunk], to_params)
+                               for s in range(0, len(flat), chunk)])
+
+    return run
 
 
 def _fiducial_denominator(z, om_fid):
@@ -87,7 +107,8 @@ def build_fs8_term(
             return growth_curve(z, p, model).numpy() @ linv.T
 
         raw_chi2 = make_amp_pair_chi2(
-            model, curve_u, curve_v, "fs8",
+            model, _over_node_chunks(curve_u, z.size * GL_ORDER),
+            _over_node_chunks(curve_v, growth_elems_per_walker()), "fs8",
             (_hash_arrays(z, linv, obs_over_fid), GL_ORDER, SUBSTEPS),
             "sigma8", device, dtype,
         )

@@ -13,14 +13,14 @@ with linear interpolation on the same grid (fs8/fs8.py:63-69).
 
 The system is linear in y with coefficients that depend on a and the
 parameters only, so they are evaluated once for every time the RK4 loop
-visits (one batched E^2 over [W, times]); the loop itself then costs a
+visits (one batched E^2 over [times, W]); the loop itself then costs a
 few walker-batched operations a stage.
 """
 
 import numpy as np
 import torch
 
-from cosmax_torch.models.background import e2_of_z, expand_params
+from cosmax_torch.models.background import e2_of_z
 from cosmax_torch.ops.ode import rk4, rk4_times
 from cosmax_torch.ops.quadrature import interp_apply, interp_weights
 
@@ -36,14 +36,14 @@ def growth_solution(params, model):
     om = params["Om"]
     times = rk4_times(a_grid, SUBSTEPS)
     col = {t: i for i, t in enumerate(times)}
-    a = torch.as_tensor(np.asarray(times), device=om.device).to(om.dtype)
-    e2 = e2_of_z(1.0 / a - 1.0, expand_params(params, 1), model)  # [W, times]
-    om1 = om[:, None]
-    dhh_da = -3.0 * om1 / a**4  # reference fs8/fs8.py:41
+    # the times down the first axis and the walkers along the second, so
+    # that each time's coefficients are one contiguous [W] row
+    a = torch.as_tensor(np.asarray(times), device=om.device).to(om.dtype)[:, None]
+    e2 = e2_of_z(1.0 / a - 1.0, params, model)  # [times, W]
+    dhh_da = -3.0 * om / a**4  # reference fs8/fs8.py:41
     hprime_over_h = 0.5 * dhh_da / e2
-    # one contiguous [W] column per time
-    c1 = (-(3.0 / a + hprime_over_h)).T.contiguous().unbind(0)
-    c2 = (1.5 * (om1 / a**5) / e2).T.contiguous().unbind(0)
+    c1 = (-(3.0 / a + hprime_over_h)).unbind(0)
+    c2 = (1.5 * (om / a**5) / e2).unbind(0)
 
     def rhs(t, y):
         j = col[t]

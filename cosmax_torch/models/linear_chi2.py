@@ -41,13 +41,16 @@ data/theory pair, one group with one basis, whose residual coefficient
 is formed before squaring).
 
 The split w0wacdm grid (``_grid_spec`` over (Om, wa, s = w0 + wa), each
-walker in the half its s selects, a tensor train per half) is ported for
-the flagship family; the other w0wacdm presets refuse (ROADMAP.md queue 1,
-item 9b).
+walker in the half its s selects, a tensor train per half) takes every
+shape above: linear forms, curve values and amplitude pairs.
+
+Each finalized half keeps the seconds its build took (``seconds``: each
+curve's base and radiation tables, and the compression).
 """
 
 import contextvars
 import hashlib
+import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -219,6 +222,9 @@ class _Bundle:
         halves = []
         per_reg = {key: [] for key in reg_keys}
         for axes, to_params, map_tag, theta_ref_vec in halves_spec:
+            # the build's seconds: "<tag>[<curve>] base" and "... or" (a
+            # table cache hit takes ~0), "compress"
+            seconds = {}
             node_shape = [len(ax) for ax in axes]
             flat = flatten_grid(axes)
 
@@ -234,10 +240,14 @@ class _Bundle:
                 tabs = []
                 for ci, cf in enumerate(curve_fns):
                     ce = key_extra if len(curve_fns) == 1 else (key_extra, ci)
+                    t0 = time.perf_counter()
                     base = _cached_curve(self.model, cf, flat, to_params, map_tag, tag, ce)
+                    t1 = time.perf_counter()
                     d = _cached_curve(
                         self.model, cf, flat, to_params_or, (map_tag, "or", OR_REF), tag, ce,
                     ) - base
+                    seconds[f"{tag}[{ci}] base"] = t1 - t0
+                    seconds[f"{tag}[{ci}] or"] = time.perf_counter() - t1
                     for which, t in (("base", base), ("or-delta", d)):
                         if not np.all(np.isfinite(t)):
                             i = int(np.argwhere(~np.isfinite(t).all(axis=-1))[0, 0])
@@ -277,6 +287,7 @@ class _Bundle:
                 windows[key] = (tuple(slots), b_t, scale)
 
             stacked = np.concatenate(blocks, axis=1)  # [M, R_all]
+            t0 = time.perf_counter()
             rep = compress(
                 stacked.reshape(*node_shape, -1),
                 node_shape,
@@ -284,7 +295,9 @@ class _Bundle:
                 proj=scipy.linalg.block_diag(*projs),
                 ref=np.concatenate(refs, axis=1),
             )
-            halves.append(dict(rep=rep, axes=list(axes), bw=bary_weights(len(axes[0]))))
+            seconds["compress"] = time.perf_counter() - t0
+            halves.append(dict(rep=rep, axes=list(axes), bw=bary_weights(len(axes[0])),
+                               seconds=seconds))
             for key in reg_keys:
                 per_reg[key].append(windows[key])
         return (kind, halves), per_reg

@@ -12,7 +12,8 @@ answers that). This module holds
   header of offsets and sizes (``HEADER``), the bundle's barycentric
   axes, Tucker factors and core, one row of constants per emulated term
   (``FORM``) with its per-rank rows, the CMB compression and its
-  Gauss-Legendre rules, the bounds and the derived parameters. A split
+  Gauss-Legendre rules, the bounds and the derived parameters, and in
+  header slots the Om h^2 prior's mean and sigma (``cc.cc``). A split
   w0wacdm bundle packs per half a block of its tensor-train layout
   (``HALF``), its own s axis and its own FORM table and rows, while its
   TT cores and tails go into a second buffer kept in device memory
@@ -123,8 +124,9 @@ HEADER = dict(
     H_OFF_AX1=19, H_OFF_AX2=20, H_OFF_BW1=21, H_OFF_BW2=22, H_OFF_U1=23,
     H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27, H_I_WA=28, H_SPLIT=29,
     H_OFF_HALVES=30, H_VROWS=31, H_KO=32, H_KI=33, H_LDB=34, H_INNER=35,
+    H_PRIOR=36, H_PRIOR_MEAN=37, H_PRIOR_SIGMA=38,
 )
-HEADER_SIZE = 36
+HEADER_SIZE = 39
 MAGIC = 20260.0
 # one row of a linear form = the constants of its (base, delta) pair i
 PAIR = dict(P_BA=0, P_V=1, P_P0=2, P_P1=3)
@@ -159,7 +161,6 @@ Z_STAR = ("aizpuru", "hu")
 _FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_RD_IDX", "F_J", "F_MAG_IDX",
               "F_F_IDX", "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
 
-_ITEM_W0WA = "ROADMAP.md queue 1, item 9b"
 _ITEM_PRESETS = "ROADMAP.md queue 1, item 10"
 _ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
 
@@ -353,14 +354,12 @@ def pack(fit) -> Packed:
     fast=True)``). Raises ``NotImplementedError``, naming the ROADMAP
     item, for a term, model, parameter treatment or size that the kernel
     does not take."""
-    from cosmax_torch.configs.presets import W0WA_FAST, Derive
+    from cosmax_torch.configs.presets import Derive
 
     if not fit.fast:
         raise ValueError(f"{fit.name} was built without fast=True: nothing to fuse")
     if fit.model not in MODELS:
         _refuse(f"model {fit.model!r}", _ITEM_PRESETS)
-    if fit.model == "w0wacdm" and fit.name not in W0WA_FAST:
-        _refuse(f"preset {fit.name!r} in w0wacdm", _ITEM_W0WA)
     names = list(fit.spec.names)
     if len(names) > MAX_DIM:
         _refuse(f"{len(names)} parameters (at most {MAX_DIM})", _ITEM_KERNEL)
@@ -382,7 +381,7 @@ def pack(fit) -> Packed:
         H_ORH2=0.0 if derive.orh2 is None else derive.orh2,
     )
 
-    emulated, cmb_terms = [], []
+    emulated, cmb_terms, priors = [], [], []
     for t in fit.terms:
         kind = _emulated(t)
         if kind is not None:
@@ -391,10 +390,20 @@ def pack(fit) -> Packed:
             emulated.append((t, *kind))
         elif "compression" in t.meta:
             cmb_terms.append(t)
+        elif "scalar_prior" in t.meta:
+            priors.append(t)
         else:
             _refuse(f"term {t.name!r}", _ITEM_PRESETS)
     if len(cmb_terms) > 1:
         _refuse("more than one CMB term", _ITEM_PRESETS)
+    if priors:
+        # the Om h^2 prior, ((mean - Om (H0/100)^2) / sigma)^2, from the
+        # walker's own Om and H0
+        sp = priors[0].meta["scalar_prior"]
+        if (len(priors) > 1 or sp["quantity"] != "omh2" or sp["om"] != "Om"
+                or sp["h0"] != "H0" or not has_h0):
+            _refuse(f"the prior terms {[t.name for t in priors]!r}", _ITEM_PRESETS)
+        hdr.update(H_PRIOR=1, H_PRIOR_MEAN=sp["mean"], H_PRIOR_SIGMA=sp["sigma"])
     if cmb_terms and not has_h0:
         _refuse("a CMB term in a fit without H0", _ITEM_PRESETS)
     if not emulated or len(emulated) > MAX_FORMS:
@@ -796,6 +805,10 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
 
     if packed.cmb:
         chi2 = chi2 + _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model)
+    if hdr["H_PRIOR"]:
+        mean, sigma = buf[HEADER["H_PRIOR_MEAN"]], buf[HEADER["H_PRIOR_SIGMA"]]
+        res = (mean - om * (h0 / 100.0) ** 2) / sigma
+        chi2 = chi2 + res * res
 
     bounds = _seg(buf, hdr["H_OFF_BOUNDS"], 2 * d)
     ll = -0.5 * chi2 + log_norm
@@ -989,4 +1002,6 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
         # the observables and 3 x 3
         cpl = 5 if h["H_SPLIT"] else 0
         ops += 30 + n_rs * (33 + cpl) + n_dc * (29 + cpl) + 40
+    if h["H_PRIOR"]:
+        ops += 6  # Om h^2, the residual, its division and square
     return int(ops), int(product), 4 * (packed.dim + 1)

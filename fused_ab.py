@@ -10,13 +10,16 @@ another, each in its own process, in the order given, so that
 ``parent change change parent`` spreads the card's drift over both.
 Each process imports that tree's ``cosmax_torch``, builds the fast
 flagship (``bao.desi_cmb_des5y``/wzcdm) and, where the tree has them, the
-fast ``joint.multiprobe``/wzcdm and the fast w0wacdm flagship (all with
-the dense synthetic SN covariance), packs them with the tree's own packer
-and times its own kernel: CUDA events, median of 20 samples of 20 calls,
-at 65,536 and 262,144 flagship walkers, 131,072 multiprobe walkers and
-65,536 and 262,144 w0wacdm walkers, walkers drawn near the box centre as
-``chip_smoke.py``'s bench draw, and 65,536 w0wacdm walkers uniform over
-the prior box (both halves of the split grid). Each ``--variant NAME=VALUE`` also
+fast ``joint.multiprobe``/wzcdm, the fast w0wacdm flagship and the fast
+w0wacdm multiprobe (all with the dense synthetic SN covariance; a cold
+w0wacdm multiprobe build takes minutes of the host), packs them with the
+tree's own packer and times its own kernel: CUDA events, median of 20
+samples of 20 calls, at 65,536 and 262,144 flagship walkers, 131,072
+multiprobe walkers, 65,536 and 262,144 w0wacdm walkers and 131,072
+w0wacdm multiprobe walkers, walkers drawn near the box centre as
+``chip_smoke.py``'s bench draw, and 65,536 w0wacdm walkers and 131,072
+w0wacdm multiprobe walkers uniform over the prior box (both halves of the
+split grid). Each ``--variant NAME=VALUE`` also
 builds that tree's source with the line ``constexpr int NAME = ...;``
 set to VALUE (where the tree's source has that constant), and times it
 in the same process, interleaved with the tree's own kernel (forward,
@@ -51,7 +54,9 @@ SIZES = (("bao.desi_cmb_des5y", "wzcdm", 65536, "bench"),
          ("joint.multiprobe", "wzcdm", 131072, "bench"),
          ("bao.desi_cmb_des5y", "w0wacdm", 65536, "bench"),
          ("bao.desi_cmb_des5y", "w0wacdm", 262144, "bench"),
-         ("bao.desi_cmb_des5y", "w0wacdm", 65536, "uniform"))
+         ("bao.desi_cmb_des5y", "w0wacdm", 65536, "uniform"),
+         ("joint.multiprobe", "w0wacdm", 131072, "bench"),
+         ("joint.multiprobe", "w0wacdm", 131072, "uniform"))
 
 
 def _median_ms(fn, reps=20, inner=20):

@@ -229,12 +229,17 @@ def test_packer_takes_the_12_new_configurations(fast, monkeypatch):
             ops, product, nbytes = fl.work_per_walker(packed)
             assert nbytes == 4 * (fit.spec.dim + 1) and ops > 0
             assert product == 2 * h["H_R1"] * h["H_R2"] * h["H_RALL"]
-    # w0wacdm refuses before any table is built
-    def no_build(*args, **kwargs):
-        raise AssertionError("a table was built before the refusal")
+    # w0wacdm is no longer refused: it goes on to build its tables (built
+    # and packed on a reduced grid in tests/test_torch_w0wa_joint.py)
+    class Building(Exception):
+        pass
 
-    monkeypatch.setattr("cosmax_torch.models.linear_chi2.table_cached", no_build)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    def building(*args, **kwargs):
+        raise Building
+
+    monkeypatch.setattr("cosmax_torch.models.linear_chi2.table_cached", building)
+    monkeypatch.setattr("cosmax_torch.models.linear_chi2._FINALIZE_MEMO", {})
+    with pytest.raises(Building):
         get_preset("joint.multiprobe", "w0wacdm", fast=True, device="cpu")
 
 

@@ -7,7 +7,7 @@ quasar and fs8 terms, the priors) against the JAX package, in f64.
 * the CC term (both f conventions, chi^2 and log_norm) and the quasar
   term (chi^2 and log_norm) on the parity path to 1e-9 relative;
 * the published anchors fs8.fs8 lcdm chi^2 = 62.73 and cc.cc lcdm chi^2
-  = 30.39, logL = -130.62;
+  = 30.39, logL = -130.62 (the latter on the parity and the fast path);
 * RK4 on a linear system with a known solution.
 
 No preset is built on the JAX side; every JAX evaluation takes N_THETA
@@ -123,8 +123,9 @@ def test_cc_published_anchor():
     total = float(sum(v[0] for v in fit.chi2_breakdown()(theta).values()))
     assert total == pytest.approx(30.39, abs=0.05)
     assert float(fit.log_prob()(theta)[0]) == pytest.approx(-130.62, abs=0.05)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_preset("cc.cc", "lcdm", fast=True, device="cpu")
+    # the fast path (the fused log-prob, the prior in its header) as well
+    fast = get_preset("cc.cc", "lcdm", fast=True, device="cpu", dtype=F64)
+    assert float(fast.log_prob()(theta)[0]) == pytest.approx(-130.62, abs=0.05)
 
 
 def test_rk4_on_a_rotation():

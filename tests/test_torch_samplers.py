@@ -141,13 +141,26 @@ def test_cli_short_fit(tmp_path, capsys):
     assert set(summary["chi2"]) == {"bao", "cmb_desi", "sn"}
 
 
-# --fast is ported for every model; w0wacdm only in the flagship family
+# --fast is ported for every preset and model: its case, fs8.fs8 in
+# w0wacdm, runs (on the reduced split grid of test_torch_w0wa_joint.py)
 @pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"],
                                   ["--fast", "--model", "w0wacdm", "--preset", "fs8.fs8"],
                                   ["--out", "x"]])
-def test_cli_unported_flags_raise(flag):
+def test_cli_unported_flags_raise(flag, tmp_path, capsys):
+    argv = ["--preset", "bao.desi", "--device", "cpu", *flag]
+    if "--fast" in flag:
+        from threadpoolctl import threadpool_limits
+
+        from tests.test_torch_w0wa_joint import small_split_grid
+
+        with small_split_grid(), threadpool_limits(1):
+            rc = tfit_cli.main([*argv, "--steps", "3", "--walkers", "8", "--no-plots",
+                                "--out", str(tmp_path)])
+        assert rc == 0 and "fast path" in capsys.readouterr().out
+        assert np.all(np.isfinite(np.load(tmp_path / "chain.npy")))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit_cli.main(["--preset", "bao.desi", "--device", "cpu", *flag])
+        tfit_cli.main(argv)
 
 
 def test_cli_fast_w0wacdm_on_the_cpu(tmp_path, capsys):

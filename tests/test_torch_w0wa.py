@@ -26,8 +26,9 @@ train, the fused log-prob's split-grid branch) against the JAX package.
   halves and on one all in half 1, each
   walker's logp is the one it gets alone; bonds padded with zeros to the
   block products' least r_in leave logp as it was;
-* the w0wacdm presets outside the flagship family refuse before any
-  table is built.
+* the w0wacdm presets outside the flagship family build and pack (on a
+  reduced split grid; tests/test_torch_w0wa_joint.py holds them against
+  the JAX package).
 
 The CUDA kernel runs only on a card (``chip_smoke.py`` phase 12 holds it
 against the plain version there); here the wrapper takes the plain
@@ -443,15 +444,18 @@ def test_w0wacdm_seam_continuity(flagship):
 
 
 @pytest.mark.parametrize("name", ["fs8.fs8", "joint.multiprobe", "cc.cc_union3", "cc.cc_des5y"])
-def test_w0wacdm_outside_the_flagship_family_refuses_before_building(name, monkeypatch,
-                                                                     flagship):
-    def no_build(*args, **kwargs):
-        raise AssertionError("a table was built before the refusal")
+def test_w0wacdm_outside_the_flagship_family_refuses_before_building(name, monkeypatch):
+    """No longer refused: each w0wacdm preset outside the flagship family
+    builds its tables (on the reduced split grid of
+    tests/test_torch_w0wa_joint.py) and the packer takes it into the split
+    instance, every form kind in both halves."""
+    from cosmax_torch.models import linear_chi2 as tlc
+    from tests.test_torch_w0wa_joint import KINDS, small_split_grid
 
-    monkeypatch.setattr(temu, "table_cached", no_build)
-    monkeypatch.setattr("cosmax_torch.models.linear_chi2.table_cached", no_build)
-    with pytest.raises(NotImplementedError, match=rf"{name}.*item 9b"):
-        get_preset(name, "w0wacdm", fast=True, device="cpu")
-    # and the packer refuses such a fit by name
-    with pytest.raises(NotImplementedError, match=rf"{name}.*item 9b"):
-        fl.pack(replace(flagship["tfit"], name=name))
+    built, table_cached = [], tlc.table_cached
+    monkeypatch.setattr(tlc, "table_cached", lambda *a: built.append(a[0]) or table_cached(*a))
+    with small_split_grid():
+        packed = fl.pack(get_preset(name, "w0wacdm", fast=True, device="cpu"))
+    assert built and packed.hdr["H_SPLIT"] == 1 and len(packed.halves) == 2
+    for lay in packed.halves:
+        assert [fl.KINDS[f["F_KIND"]] for f in lay["forms"]] == KINDS[name]
