@@ -8,9 +8,9 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from ``cosmax_torch/csrc`` and five variants
-   of the fused one's source for phases 7, 9 and 12 (one nvcc each, all
-   in parallel) and print each ptxas report;
+2. build both CUDA kernels from ``cosmax_torch/csrc`` and eight variants
+   of the fused one's source for phases 7, 9, 12 and 14 (one nvcc each,
+   all in parallel) and print each ptxas report;
 3. the kernel against its plain PyTorch version at the flagship shape
    (65,536 walkers x N = 1829) and at ragged shapes, rtol 5e-5, with a
    NaN row kept to its own row; kernel and plain times (CUDA events,
@@ -106,7 +106,30 @@ raising on failure (non-zero exit):
    ``cc.cc`` (the Om h^2 prior) in the four models at 4,096 walkers,
    bench and uniform draws, whole and each term alone; and the CLI with
    ``--fast --model w0wacdm --synthetic-sys`` on the multiprobe (the
-   build of this phase), 256 walkers x 20 steps, a finite (256, 12) chain.
+   build of this phase), 256 walkers x 20 steps, a finite (256, 12) chain;
+14. the BAO family (the 17 ``bao.*`` presets beyond ``bao.desi`` and the
+   BAO + CMB + SN joints) and the fused kernel's #1e branches (K1 the
+   scalar priors, Om h^2 or BBN omega_b; K2 the walker's r_d, from
+   r_s(z_drag) by GL-128 or a drag fitting formula; K3 the 100 theta*
+   prior in the CMB block; K4 the H0-free fit; K5 w0 = log(exp_w0)): each
+   preset fast in wzcdm at 4,096 walkers, the kernel against its plain
+   version within 1e-4 of max|logp| (seeded out-of-box and NaN rows -inf
+   in both), 64 walkers against the port's f64 CPU fast path, and its
+   parity path on the card at 1,024 walkers against the f64 CPU parity
+   path; in lcdm, wcdm and w0wacdm each preset's parity path on the card
+   against the f64 CPU one at 256 walkers, and in lcdm and wcdm its fast
+   path against the plain version at 4,096 (w0wacdm: the branch presets
+   below); each branch on a preset that needs it in the four models (K3
+   also with Hu & Sugiyama's z*), whole and each term alone within 1e-4
+   of its own max|logp| (in w0wacdm also uniform over the box); three
+   planted faults (the z_drag quadrature cut to 64 of its 128 nodes,
+   theta*'s z* formula swapped, the BBN sigma taken as the Om h^2
+   prior's) that their term's check alone must catch in both instances;
+   ``bao.desi_bbn`` and ``bao.desi_omh2_theta_star`` timed at 262,144
+   wzcdm and 65,536 w0wacdm walkers (kernel and plain, the bound, the
+   kernel with its branch left out, shared memory a block and blocks an
+   SM, ``fit.log_prob()`` end to end with its launch count); the phase's seconds; and the CLI with ``--fast`` on
+   ``bao.desi_bbn``, 150 walkers x 20 steps, a finite (150, 4) chain.
 
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
@@ -143,7 +166,7 @@ W0WA_MP_OTHERS = ("fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 # TF32 tensor-core FLOP/s and HBM3 bytes/s
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 # variants of the fused kernel's source, built beside it (phase 2) for
-# phase 12, each as (text, replacement) edits: two planted faults that its
+# phases 7, 9, 12 and 14, each as (text, replacement) edits: two planted faults that its
 # checks must catch (one TF32 pass, or one of the two small terms of
 # 3xTF32 dropped), and a narrow column pass that makes the flagship's
 # bonds (at most 56 columns) take the kernel's path for bonds wider than
@@ -158,6 +181,39 @@ TUCKER_PLANTED = {"Tucker one TF32 pass": tuple((m, "(void)0;") for m in TUCKER_
                   "Tucker a_lo b_hi dropped": ((TUCKER_LO_MMA[0], "(void)0;"),)}
 NARROW_NCOL = 16
 RAGGED = BENCH_WALKERS + 37  # a last block of 37 walkers
+# phase 14: the BAO family, and the fused kernel's #1e branches, each on one
+# preset that needs it, in the four models: (label, preset, its options)
+BAO_FAMILY = ("bao.sdss", "bao.desi_omh2", "bao.desi_bbn", "bao.desi_bbn_theta_star",
+              "bao.desi_omh2_theta_star", "bao.desi_cc", "bao.desi_cmb", "bao.desi_pantheon",
+              "bao.desi_union3", "bao.desi_des5y", "bao.desi_pantheon_cc", "bao.desi_union3_cc",
+              "bao.desi_des5y_cc", "bao.desi_union3_bbn", "bao.desi_des5y_bbn",
+              "bao.desi_union3_omh2", "bao.desi_des5y_omh2")
+BRANCHES = (("K1 BBN prior, K2 r_s(z_drag)", "bao.desi_bbn", {}),
+            ("K2 r_drag (DESI, n_eff 3.04)", "bao.desi_des5y_bbn", {}),
+            ("K3 theta*", "bao.desi_omh2_theta_star", {}),
+            ("K3 theta* (z* of Hu & Sugiyama)", "bao.desi_omh2_theta_star", {"z_star": "hu"}),
+            ("K4 H0-free", "bao.desi_des5y", {}),
+            ("K5 exp(w0)", "bao.desi_pantheon", {}))
+MODELS = ("lcdm", "wcdm", "wzcdm", "w0wacdm")
+FAMILY_WALKERS, FAMILY_PARITY_WALKERS = 4096, 1024
+# planted faults of the #1e branches (variants of the source built in phase
+# 2): (edits, preset, the ``_term_alone`` key of the term whose check alone
+# must fail: its form's index, None for the theta* block, "prior")
+BAO_PLANTED = {
+    "z_drag quadrature cut to 64 of its 128 nodes": (
+        (("const int n = static_cast<int>(s[H_RD_N]);", "const int n = 64;"),),
+        "bao.desi_bbn", 0),
+    "theta*'s z* formula swapped (Aizpuru <-> Hu)": (
+        (("if (static_cast<int>(c[C_ZSTAR]) == 1) {", "if (static_cast<int>(c[C_ZSTAR]) != 1) {"),),
+        "bao.desi_omh2_theta_star", None),
+    # the two scalar priors share the sigma slot: the fault takes the BBN
+    # sigma as the Om h^2 prior's (Planck 0.0011)
+    "BBN sigma taken as the Om h^2 prior's": (
+        (("const float d = (s[H_PRIOR_MEAN] - x) / s[H_PRIOR_SIGMA];",
+          "const float d = (s[H_PRIOR_MEAN] - x) / (prior == PRIOR_OMH2 ? s[H_PRIOR_SIGMA] "
+          ": 0.0011f);"),),
+        "bao.desi_bbn", "prior"),
+}
 
 
 def _card() -> str:
@@ -398,6 +454,16 @@ def _layout(fl, packed):
             f"block, {blocks} blocks an SM")
 
 
+def _term_label(fl, packed, names, i):
+    """The name of term ``i`` of ``_term_alone``: an emulated term's, the
+    CMB block's (a compression, or the theta* prior) or the prior's."""
+    if isinstance(i, int):
+        return names[i]
+    if i is None:
+        return "theta*" if fl.OBSERVABLES[packed.cmb["C_OBS"]] == "theta_100" else "cmb"
+    return "omh2" if fl.PRIORS[packed.hdr["H_PRIOR"]] == "omh2" else "bbn"
+
+
 def _each_term(fl, packed, theta, names, label):
     """Each term of ``packed`` alone (its forms, the CMB, the prior), the
     kernel against the plain version within FUSED_RTOL of the term's own
@@ -408,7 +474,7 @@ def _each_term(fl, packed, theta, names, label):
     parts, worst = [], 0.0
     for i in terms:
         err, scale, _ = _fused_vs_plain(fl, _term_alone(fl, packed, i), theta)
-        name = names[i] if isinstance(i, int) else {None: "cmb", "prior": "omh2"}[i]
+        name = _term_label(fl, packed, names, i)
         if not err <= FUSED_RTOL * scale:
             raise AssertionError(f"{label}: fused kernel vs plain, {name} alone: {err / scale:.3e}")
         parts.append(f"{name} {err / scale:.3e} (of {scale:.4g})")
@@ -870,7 +936,7 @@ def _ptxas_of(log, marker):
 
 def _start_variants():
     """Write each variant of the fused kernel's source (PLANTED,
-    TUCKER_PLANTED, and NCOL set to NARROW_NCOL) under
+    TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED) under
     ``build/chip_smoke_variants/`` and start one nvcc for each. Returns
     {name: (process, library path)}."""
     from cosmax_torch.ops.kernels import build
@@ -878,7 +944,8 @@ def _start_variants():
 
     ncol = f"constexpr int NCOL = {fl.NCOL};"
     variants = dict(PLANTED, **TUCKER_PLANTED, **{f"NCOL={NARROW_NCOL}": (
-        (ncol, f"constexpr int NCOL = {NARROW_NCOL};"),)})
+        (ncol, f"constexpr int NCOL = {NARROW_NCOL};"),)},
+        **{name: edits for name, (edits, _, _) in BAO_PLANTED.items()})
     src = (build.CSRC / "fused_log_prob.cu").read_text()
     out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1484,6 +1551,218 @@ def phase_w0wa_multiprobe(card, ptxas_split, variants):
                 bound_ms_65536=timing[f"bench {BENCH_WALKERS}"]["bound_ms"],
                 f32_vs_f64=gap), result["cc_cc"]
 
+
+def _bad_rows(fit, walkers):
+    """``walkers`` with a seeded out-of-box row 1 (the first parameter
+    beyond its upper bound) and a NaN row 2, both -inf in kernel and plain."""
+    import numpy as np
+
+    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+    walkers[1, 0] = hi[0] + 0.1 * (hi[0] - lo[0])
+    walkers[2, 1] = np.nan
+    return walkers
+
+
+def _check_fused(fl, packed, walkers, label):
+    """The kernel against its plain version within FUSED_RTOL of
+    max|logp| (the seeded rows 1 and 2 -inf in both): the ratio."""
+    import torch
+
+    err, scale, fin = _fused_vs_plain(fl, packed, torch.as_tensor(walkers, device="cuda"))
+    if bool(fin[1]) or bool(fin[2]) or int((~fin).sum()) != 2:
+        raise AssertionError(f"{label}: the bad rows are not exactly the -inf rows")
+    if not err <= FUSED_RTOL * scale:
+        raise AssertionError(f"{label}: fused kernel vs plain {err / scale:.3e} of max|logp|")
+    return err / scale
+
+
+def _gap(lp32, lp64):
+    import numpy as np
+
+    return float(np.max(np.abs(lp32 - lp64)) / np.max(np.abs(lp64)))
+
+
+def phase_bao_family(card, variants):
+    """Phase 14: the 17 BAO presets of ROADMAP item 10b (and bao.sdss) on
+    both paths, and the fused kernel's #1e branches (K1 scalar priors, K2
+    the walker's r_d, K3 theta*, K4 H0-free fits, K5 exp(w0)) in both of
+    its instances."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    t_phase = time.perf_counter()
+    fits = {}
+
+    def fast_fit(name, model, **opts):
+        key = (name, model, tuple(sorted(opts.items())))
+        if key not in fits:
+            t0 = time.perf_counter()
+            fit = get_preset(name, model, fast=True, device="cuda", **opts)
+            fits[key] = (fit, fl.pack(fit), time.perf_counter() - t0)
+        return fits[key]
+
+    # each preset in wzcdm: the kernel against its plain version, f32 card
+    # against the f64 CPU fast path, the parity path on the card against
+    # the f64 CPU parity path
+    worst = dict(fused=0.0, fast=0.0, parity=0.0)
+    for name in BAO_FAMILY:
+        fit, packed, build_s = fast_fit(name, "wzcdm")
+        rel = _check_fused(fl, packed, _bad_rows(fit, _flagship_walkers(fit, FAMILY_WALKERS, 14)),
+                           f"phase 14 {name}")
+        walkers = _flagship_walkers(fit, 64, seed=15)
+        lp32 = fit.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+        ref = get_preset(name, "wzcdm", fast=True, device="cpu", dtype=torch.float64)
+        gap_fast = _gap(lp32, ref.log_prob()(torch.as_tensor(walkers.astype(np.float64))).numpy())
+        par = get_preset(name, "wzcdm", device="cuda")
+        par64 = get_preset(name, "wzcdm", device="cpu", dtype=torch.float64)
+        walkers = _flagship_walkers(fit, FAMILY_PARITY_WALKERS, seed=16)
+        lp32 = par.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+        lp64 = par64.log_prob()(torch.as_tensor(walkers.astype(np.float64))).numpy()
+        if not np.all(np.isfinite(lp32)):
+            raise AssertionError(f"phase 14 {name}: non-finite parity log-probs on the card")
+        gap_par = _gap(lp32, lp64)
+        if not (gap_fast <= LOGP_RTOL and gap_par <= LOGP_RTOL):
+            raise AssertionError(f"phase 14 {name}: f32 card vs f64 CPU: fast {gap_fast:.3e}, "
+                                 f"parity {gap_par:.3e} of max|logp|")
+        for k, v in (("fused", rel), ("fast", gap_fast), ("parity", gap_par)):
+            worst[k] = max(worst[k], v)
+        h = packed.hdr
+        block = _term_label(fl, packed, (), None) if packed.cmb else "no cmb"
+        print(f"phase 14: {name}/wzcdm built and packed in {build_s:.2f}s (r_d "
+              f"{fl.RD_KINDS[h['H_RD_KIND']]}, prior {fl.PRIORS[h['H_PRIOR']]}, {block}); "
+              f"fused kernel vs plain at W={FAMILY_WALKERS} {rel:.3e}, f32 card vs f64 CPU "
+              f"fast path on 64 walkers {gap_fast:.3e}, parity path on the card vs f64 CPU at "
+              f"W={FAMILY_PARITY_WALKERS} {gap_par:.3e} (of max|logp|)")
+
+    # each preset in the other models: the parity path on the card against
+    # the f64 CPU one, the fast path in lcdm and wcdm against its plain
+    # version (w0wacdm: the branch presets below)
+    for name in BAO_FAMILY:
+        parts = []
+        for model in ("lcdm", "wcdm", "w0wacdm"):
+            par = get_preset(name, model, device="cuda")
+            par64 = get_preset(name, model, device="cpu", dtype=torch.float64)
+            walkers = _flagship_walkers(par, FAMILY_PARITY_WALKERS // 4, seed=20)
+            lp32 = par.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+            gap_par = _gap(lp32, par64.log_prob()(torch.as_tensor(walkers.astype(np.float64)))
+                           .numpy())
+            if not (np.all(np.isfinite(lp32)) and gap_par <= LOGP_RTOL):
+                raise AssertionError(f"phase 14 {name}/{model} parity: f32 card vs f64 CPU "
+                                     f"{gap_par:.3e} of max|logp|")
+            worst["parity"] = max(worst["parity"], gap_par)
+            parts.append(f"{model} parity {gap_par:.3e}")
+            if model != "w0wacdm":
+                fit, packed, _ = fast_fit(name, model)
+                rel = _check_fused(fl, packed, _bad_rows(
+                    fit, _flagship_walkers(fit, FAMILY_WALKERS, 21)), f"phase 14 {name}/{model}")
+                worst["fused"] = max(worst["fused"], rel)
+                parts.append(f"fast {rel:.3e}")
+        print(f"phase 14: {name} in the other models (of max|logp|): parity on the card vs f64 "
+              f"CPU at W={FAMILY_PARITY_WALKERS // 4}, fused kernel vs plain at "
+              f"W={FAMILY_WALKERS}: {', '.join(parts)}")
+
+    # each branch in the four models: whole and each term alone, on the
+    # bench draw (and in w0wacdm uniform over the box, both halves)
+    branch_worst = {}
+    for label, name, opts in BRANCHES:
+        for model in MODELS:
+            fit, packed, build_s = fast_fit(name, model, **opts)
+            names = [t.name for t in fit.terms if fl._emulated(t) is not None]
+            draws = [("bench", _flagship_walkers(fit, FAMILY_WALKERS, seed=17))]
+            if model == "w0wacdm":
+                draws.append(("uniform", _box_walkers(fit, FAMILY_WALKERS, seed=18)))
+            parts = []
+            for dlabel, walkers in draws:
+                walkers = _bad_rows(fit, walkers)
+                rel = _check_fused(fl, packed, walkers, f"phase 14 {name}/{model} {dlabel}")
+                theta = torch.as_tensor(walkers, device="cuda")
+                alone, w = _each_term(fl, packed, theta, names, f"phase 14 {name}/{model}")
+                branch_worst[f"{label} {model} {dlabel}"] = max(rel, w)
+                parts.append(f"{dlabel} {rel:.3e}, each term alone: {', '.join(alone)}")
+            print(f"phase 14: {label}: {name}{opts or ''}/{model} built and packed in "
+                  f"{build_s:.2f}s; fused kernel vs plain (of max|logp|): {'; '.join(parts)}")
+
+    # the planted faults: each must fail its term's check alone, in both
+    # instances (wzcdm: Tucker, w0wacdm: split)
+    caught = {}
+    for fault, (_, name, key) in BAO_PLANTED.items():
+        for model in ("wzcdm", "w0wacdm"):
+            fit, packed, _ = fast_fit(name, model)
+            theta = torch.as_tensor(_flagship_walkers(fit, FAMILY_WALKERS, seed=19), device="cuda")
+            alone = _term_alone(fl, packed, key)
+            err, scale, _ = _fused_vs_plain(fl, alone, theta)
+            if not err <= FUSED_RTOL * scale:
+                raise AssertionError(f"phase 14 {name}/{model}: the term alone failed before "
+                                     f"the fault: {err / scale:.3e}")
+            err, scale, _ = _fused_vs_plain(fl, alone, theta, variants[fault][0])
+            if err <= FUSED_RTOL * scale:
+                raise AssertionError(f"phase 14 {name}/{model}: the term alone missed the "
+                                     f"planted fault {fault!r}: {err / scale:.3e}")
+            caught[f"{fault} {model}"] = err / scale
+    print(f"phase 14: planted faults caught by their term alone (limit {FUSED_RTOL:g} of its "
+          f"own max|logp|): " + "; ".join(f"{k} {v:.3e}" for k, v in caught.items()))
+
+    # the two timing rows: the kernel, its plain version and the bound;
+    # a block's shared memory and blocks an SM; fit.log_prob() end to end
+    # the branch's share: the same buffer with the branch left out (r_d
+    # fixed instead of r_s(z_drag); the theta* block off), timed as a probe
+    # (another function, not held against the plain version)
+    left_out = {"bao.desi_bbn": ("the z_drag quadrature",
+                                 dict(H_RD_KIND=fl.RD_KINDS.index("fixed"), H_RD=147.09)),
+                "bao.desi_omh2_theta_star": ("theta*", dict(H_HAS_CMB=0))}
+    timing = {}
+    for name in ("bao.desi_bbn", "bao.desi_omh2_theta_star"):
+        for model, w in (("wzcdm", BIG_WALKERS), ("w0wacdm", BENCH_WALKERS)):
+            fit, packed, _ = fast_fit(name, model)
+            theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
+            ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
+            plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
+            part, slots = left_out[name]
+            probe = dataclasses.replace(packed, buf=packed.buf.clone())
+            for k, v in slots.items():
+                probe.buf[fl.HEADER[k]] = v
+            probe_ms = _median_ms(lambda: fl.fused_log_prob(probe, theta), inner=20)
+            if model == "w0wacdm":
+                bound_ms, ffma_ms, ((ops, prod), _) = _split_bound_ms(fl, fit, packed, theta)
+            else:
+                bound_ms, ffma_ms, ops, prod, _ = _tucker_bound_ms(fl, packed, w)
+            smem, blocks = fl.occupancy(packed)
+            log_prob = fit.log_prob()
+            _reset_counts()
+            lp = log_prob(theta)
+            torch.cuda.synchronize()
+            launched = fl.LAUNCHES
+            if launched < 1 or not bool(torch.isfinite(lp).all()):
+                raise AssertionError(f"phase 14 {name}/{model} log_prob: {launched} fused "
+                                     f"launches, {int((~torch.isfinite(lp)).sum())} non-finite")
+            reps = 20
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                log_prob(theta)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
+            print(f"phase 14: fused_log_prob {name}/{model} at W={w} on {card}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20 samples of 20 calls, "
+                  f"CUDA events); bound {bound_ms:.4f} ms ({prod} product ops a walker at the "
+                  f"TF32 peak, {ops} other ops at the f32 peak), {ffma_ms:.4f} ms with every "
+                  f"op at the f32 peak; {smem} bytes of shared memory a block, {blocks} blocks "
+                  f"an SM; fit.log_prob() {launched} fused launch a call, {w / dt:.1f} evals/s "
+                  f"end to end ({1e3 * dt:.4f} ms a call, host clock, mean of {reps}); without "
+                  f"{part} {probe_ms:.4f} ms ({100 * (1 - probe_ms / ms):.1f}% of the kernel)")
+            timing[f"{name}/{model}"] = dict(
+                walkers=w, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms,
+                smem_bytes=smem, blocks_per_sm=blocks, log_prob_launches=launched,
+                evals_per_s=w / dt, ms_without_branch=probe_ms)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14: {seconds:.1f}s on {card}")
+    return dict(worst, branches=branch_worst, planted=caught, timing=timing, seconds=seconds)
+
+
 def main():
     import torch
 
@@ -1529,7 +1808,9 @@ def main():
     w0wa_mp, cc_cc = phase_w0wa_multiprobe(card, ptxas_split, variants)
     w0wa_mp_cli_launches = phase_cli(card, "phase 13", "joint.multiprobe", 256, 12, fast=True,
                                      model="w0wacdm", synthetic_sys=True)
-    print(f"phases 2-13 took {time.perf_counter() - t_start:.1f}s on {card}")
+    family = phase_bao_family(card, variants)
+    family["cli_launches"] = phase_cli(card, "phase 14", "bao.desi_bbn", 150, 4, fast=True)
+    print(f"phases 2-14 took {time.perf_counter() - t_start:.1f}s on {card}")
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
@@ -1540,7 +1821,8 @@ def main():
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
          "w0wacdm": dict(w0wa, cli_launches=w0wa_cli_launches),
          "w0wacdm_multiprobe": dict(w0wa_mp, cli_launches=w0wa_mp_cli_launches),
-         "cc_cc": cc_cc},
+         "cc_cc": cc_cc,
+         "branches_1e": [label for label, _, _ in BRANCHES], "bao_family": family},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,29 @@
 """Preset registry (counterpart of ``cosmax/configs/presets.py``).
 
-Ported so far: ``bao.desi``, the three BAO + CMB + SN joints
-(``bao.desi_cmb_pantheon``, ``bao.desi_cmb_union3`` and the flagship
-``bao.desi_cmb_des5y``), the all-probe ``joint.multiprobe``, ``fs8.fs8``,
-``cc.cc_union3`` and ``cc.cc_des5y`` (both f conventions of the CC
-term) and ``cc.cc`` (CC with the Om h^2 prior), each on the parity path
-and on the fast path (``fast=True``) in all four models (lcdm, wcdm,
-wzcdm, w0wacdm). Each preset reproduces the reference script's parameter
-order, bounds, grids, r_d treatment and radiation constants. The model
-is an argument: for 'lcdm' w0 is dropped from the sampled vector, for
-'w0wacdm' a wa parameter (-3, 2) follows w0.
+Ported so far (26 of the reference's 45 presets), each on the parity
+path and on the fast path (``fast=True``) in all four models (lcdm, wcdm,
+wzcdm, w0wacdm):
+
+* the BAO family: ``bao.desi``, ``bao.sdss`` (the SDSS DR16 compilation),
+  ``bao.desi_omh2``, ``bao.desi_bbn`` (r_d integrated from z_drag),
+  ``bao.desi_bbn_theta_star``, ``bao.desi_omh2_theta_star`` (its
+  ``z_star`` option), ``bao.desi_cc``, ``bao.desi_cmb`` (its
+  ``compression`` option); the BAO + SN joints ``bao.desi_pantheon``
+  (w0 sampled as exp(w0)), ``bao.desi_union3``, ``bao.desi_des5y``
+  (H0-free: r_d h sampled, H0 = 1), their ``_cc`` variants, and
+  ``bao.desi_union3_bbn`` / ``bao.desi_des5y_bbn`` (r_d from the drag
+  fitting formulae), ``bao.desi_union3_omh2`` / ``bao.desi_des5y_omh2``;
+* the BAO + CMB + SN joints ``bao.desi_cmb_pantheon``,
+  ``bao.desi_cmb_union3`` and the flagship ``bao.desi_cmb_des5y``;
+* the all-probe ``joint.multiprobe``, ``fs8.fs8``, ``cc.cc_union3`` and
+  ``cc.cc_des5y`` (both f conventions of the CC term) and ``cc.cc`` (CC
+  with the Om h^2 prior).
+
+Each preset reproduces the reference script's parameter order, bounds,
+grids, r_d treatment and radiation constants. The model is an argument:
+for 'lcdm' w0 (or exp_w0) is dropped from the sampled vector, for
+'w0wacdm' a wa parameter (-3, 2) follows it. ``get_preset`` passes a
+preset's keyword options through.
 
 Build-time constants are f64 numpy, turned into tensors once per preset
 on the chosen device and dtype. A fast preset's ``log_prob`` is the
@@ -45,6 +59,7 @@ from cosmax_torch.models.linear_chi2 import set_scope_domains
 from cosmax_torch.samplers.ensemble import default_moves
 
 WA_BOUNDS = (-3.0, 2.0)
+W0_PARAMS = ("w0", "exp_w0")  # exp_w0: bao.desi_pantheon samples w0 as exp(w0)
 
 
 @dataclass(frozen=True)
@@ -88,9 +103,9 @@ class FitSpec:
 
 
 def _adjust_params(params: Sequence[tuple], model: str):
-    out = [p for p in params if not (p[0] == "w0" and model == "lcdm")]
+    out = [p for p in params if not (p[0] in W0_PARAMS and model == "lcdm")]
     if model == "w0wacdm":
-        idx = next((i for i, p in enumerate(out) if p[0] == "w0"), None)
+        idx = next((i for i, p in enumerate(out) if p[0] in W0_PARAMS), None)
         if idx is not None:
             out.insert(idx + 1, ("wa", *WA_BOUNDS))
     return out
@@ -104,17 +119,25 @@ def _spec(params) -> ParamSpec:
 
 @dataclass(frozen=True)
 class Derive:
-    """The derived parameters of a preset: H0 = h0_scale * p[h0_from]
-    (unless H0 is sampled itself) and, when ``orh2`` is set, the
-    radiation Or = orh2 / h^2 of the radiation-aware E(z). Its fields are
-    what the fused kernel's packer reads."""
+    """The derived parameters of a preset: w0 = log(p[w0_log]) when
+    ``w0_log`` is sampled; H0 = ``h0`` for every walker when set (the
+    H0-free bao.desi_des5y), else H0 = h0_scale * p[h0_from] (unless H0
+    is sampled itself); and, when ``orh2`` is set, the radiation Or =
+    orh2 / h^2 of the radiation-aware E(z). Its fields are what the fused
+    kernel's packer reads."""
 
     h0_from: str = "H0"
     h0_scale: float = 1.0
     orh2: Optional[float] = None
+    h0: Optional[float] = None
+    w0_log: Optional[str] = None
 
     def __call__(self, p):
-        if self.h0_from != "H0":
+        if self.w0_log is not None and self.w0_log in p:
+            p = dict(p, w0=torch.log(p[self.w0_log]))
+        if self.h0 is not None:
+            p = dict(p, H0=torch.full_like(p["Om"], self.h0))
+        elif self.h0_from != "H0":
             p = dict(p, H0=self.h0_scale * p[self.h0_from])
         if self.orh2 is not None:
             p = dict(p, Or=self.orh2 / (p["H0"] / 100.0) ** 2)
@@ -145,6 +168,7 @@ def get_preset(
     synthetic_sys: bool = False,
     device="cuda",
     dtype=None,
+    **kwargs,
 ) -> FitSpec:
     """Build a preset on ``device`` (float32 unless ``dtype`` says f64,
     which only the CPU takes). ``fast=True`` builds the emulated fast
@@ -152,14 +176,16 @@ def get_preset(
     own prior box. ``synthetic_sys=True`` adds the synthetic
     systematic covariance to SN datasets whose published one is absent
     (dense 1829^2 factor for DES-SN5YR; chi^2 not comparable to
-    published values)."""
+    published values). ``kwargs`` go to the preset's builder (e.g.
+    ``compression`` of bao.desi_cmb, ``z_star`` of
+    bao.desi_omh2_theta_star, ``dataset`` of bao.desi)."""
     if name not in PRESETS:
         raise KeyError(
             f"unknown or unported preset {name!r}; ported: {', '.join(list_presets())}"
         )
     device, dtype = resolve(device, dtype)
     with use_synthetic_sys(synthetic_sys), use_fast_mode(fast):
-        fit = PRESETS[name](model, device, dtype)
+        fit = PRESETS[name](model, device, dtype, **kwargs)
         if fast:
             # narrow the preset's bundle (not built yet: finalize runs at
             # scope exit) to its own prior box
@@ -171,8 +197,8 @@ def get_preset(
 
 
 @_register("bao.desi", "bao/desi.py: rd=147.09 fixed, 300-pt dynamic trapezoids")
-def _bao_desi(model, device, dtype):
-    ds = load_bao("desi_dr2")
+def _bao_desi(model, device, dtype, dataset="desi_dr2"):
+    ds = load_bao(dataset)
     params = _adjust_params([("h", 0.5, 0.8), ("Om", 0.1, 0.7), ("w0", -2, 0)], model)
     terms = (
         bao_mod.build_bao_term(
@@ -183,6 +209,244 @@ def _bao_desi(model, device, dtype):
     return FitSpec(
         "bao.desi", model, _spec(params), terms, Derive("h", 100.0), device, dtype,
         data_size=ds.n, note=PRESET_NOTES["bao.desi"],
+    )
+
+
+ORH2_DESI = cmb_mod.COMPRESSIONS["desi"].omega_r_h2()
+
+
+@_register("bao.sdss", "bao/desi.py run against the SDSS DR16 compilation")
+def _bao_sdss(model, device, dtype, dataset="sdss_dr16_comp"):
+    return replace(_bao_desi(model, device, dtype, dataset=dataset), name="bao.sdss",
+                   note=PRESET_NOTES["bao.sdss"])
+
+
+def _bao_term(ds, model, rd, device, dtype):
+    """The BAO term of the DESI variants: 250-point dynamic trapezoids."""
+    return bao_mod.build_bao_term(ds, model, rd, device, dtype, grid=("dyn_trapz", 250))
+
+
+@_register("bao.desi_omh2", "bao/desi_omh2.py: free r_d + Planck Om h^2 prior")
+def _bao_desi_omh2(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    params = _adjust_params(
+        [("h", 0.5, 0.8), ("Om", 0.1, 0.5), ("w0", -2, 0), ("rd", 130, 160)], model
+    )
+    terms = (_bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype), priors_mod.omh2_term())
+    return FitSpec(
+        "bao.desi_omh2", model, _spec(params), terms, Derive("h", 100.0), device, dtype,
+        n_walkers=160, data_size=ds.n + 1, note=PRESET_NOTES["bao.desi_omh2"],
+    )
+
+
+@_register("bao.desi_bbn", "bao/desi_bbn.py: r_d integrated from z_drag, BBN(cyril) prior")
+def _bao_desi_bbn(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    params = _adjust_params(
+        [("H0", 55, 75), ("Om", 0.17, 0.50), ("Obh2", 0.016, 0.030), ("w0", -2, 0)], model
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_from_z_drag(model), device, dtype),
+        priors_mod.bbn_term("cyril"),
+    )
+    return FitSpec(
+        "bao.desi_bbn", model, _spec(params), terms, Derive(orh2=ORH2_DESI), device, dtype,
+        seed=42, data_size=ds.n + 1, note=PRESET_NOTES["bao.desi_bbn"],
+    )
+
+
+@_register("bao.desi_bbn_theta_star",
+           "bao/desi_bbn_theta_star.py: free r_d + theta* + BBN(shonberg)")
+def _bao_desi_bbn_theta(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    params = _adjust_params(
+        [("rd", 120, 160), ("H0", 55, 75), ("Om", 0.20, 0.50), ("Obh2", 0.020, 0.025),
+         ("w0", -2, 0)],
+        model,
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+        # the wider theta* error of bao/desi_bbn_theta_star.py:17, not
+        # the Plik 0.00031
+        cmb_mod.build_theta_star_term(model, theta_100_err=0.00053),
+        priors_mod.bbn_term("shonberg"),
+    )
+    return FitSpec(
+        "bao.desi_bbn_theta_star", model, _spec(params), terms, Derive(orh2=ORH2_DESI),
+        device, dtype, seed=42, data_size=ds.n + 2,
+        note=PRESET_NOTES["bao.desi_bbn_theta_star"],
+    )
+
+
+@_register("bao.desi_omh2_theta_star",
+           "bao/desi_omh2_theta_star.py: free r_d + theta* + Om h^2 prior")
+def _bao_desi_omh2_theta(model, device, dtype, z_star="aizpuru"):
+    ds = load_bao("desi_dr2")
+    params = _adjust_params(
+        [("rd", 120, 160), ("H0", 60, 80), ("Om", 0.20, 0.50), ("Obh2", 0.015, 0.040),
+         ("w0", -1.4, 0)],
+        model,
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+        # z_star="hu" is the variant the published rows were run with
+        # (their quoted z* is Hu & Sugiyama's); the default follows the
+        # current reference code (Aizpuru A4)
+        cmb_mod.build_theta_star_term(model, z_star=z_star),
+        priors_mod.omh2_term(),
+    )
+    return FitSpec(
+        "bao.desi_omh2_theta_star", model, _spec(params), terms, Derive(orh2=ORH2_DESI),
+        device, dtype, data_size=ds.n + 2, note=PRESET_NOTES["bao.desi_omh2_theta_star"],
+    )
+
+
+@_register("bao.desi_cc", "bao/desi_cc.py: CC with f^-2 rescaling + logdet normalisation")
+def _bao_desi_cc(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    cc_ds = load_cc()
+    params = _adjust_params(
+        [("f_cc", 0.1, 1.5), ("H0", 45, 90), ("rd", 120, 175), ("Om", 0.2, 0.7),
+         ("w0", -2, 1)],
+        model,
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+        cc_mod.build_cc_term(cc_ds, model, "divide", device=device, dtype=dtype),
+    )
+    return FitSpec(
+        "bao.desi_cc", model, _spec(params), terms, Derive(), device, dtype,
+        data_size=ds.n + cc_ds.n, note=PRESET_NOTES["bao.desi_cc"],
+    )
+
+
+@_register("bao.desi_pantheon", "bao/desi_pantheon.py: rd fixed, w0 sampled as exp(w0)")
+def _bao_desi_pantheon(model, device, dtype):
+    """DESI + Pantheon+ with the exp(w0) sampling quirk
+    (bao/desi_pantheon.py:27-31: rho_de's exponent uses log(exp_w0))."""
+    ds = load_bao("desi_dr2")
+    sn_ds = load_sn("pantheon_plus")
+    params = _adjust_params(
+        [("M", -20, -19), ("H0", 50, 80), ("Om", 0.2, 0.7), ("exp_w0", 0.2, 0.7)], model
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_fixed(147.09), device, dtype),
+        sn_mod.build_sn_term(sn_ds, model, "M", h0="H0", device=device, dtype=dtype, name="sn"),
+    )
+    return FitSpec(
+        "bao.desi_pantheon", model, _spec(params), terms, Derive(w0_log="exp_w0"), device,
+        dtype, data_size=ds.n + sn_ds.n, note=PRESET_NOTES["bao.desi_pantheon"],
+    )
+
+
+@_register("bao.desi_union3", "bao/desi_union3.py: rd fixed 147.09")
+def _bao_desi_union3(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    sn_ds = load_sn("union3")
+    params = _adjust_params(
+        [("dM", -0.7, 0.7), ("H0", 60, 75), ("Om", 0.1, 0.6), ("w0", -2, 0)], model
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_fixed(147.09), device, dtype),
+        sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", device=device, dtype=dtype,
+                             use_z_hel=False, name="sn"),
+    )
+    return FitSpec(
+        "bao.desi_union3", model, _spec(params), terms, Derive(), device, dtype,
+        data_size=ds.n + sn_ds.n, note=PRESET_NOTES["bao.desi_union3"],
+    )
+
+
+@_register("bao.desi_des5y", "bao/desi_des5y.py: H0-free (H_z = E, theory / (rd_h * 100))")
+def _bao_desi_des5y(model, device, dtype):
+    """Fully H0-free: distances in h = 1 units, r_d h sampled
+    (bao/desi_des5y.py:34-37, 76-87)."""
+    ds = load_bao("desi_dr2")
+    sn_ds = load_sn("des5y")
+    params = _adjust_params(
+        [("dM", -10, -8.5), ("rd_h", 90, 110), ("Om", 0.1, 0.7), ("w0", -2, 0)], model
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.RdParam("rd_h", 100.0), device, dtype),
+        sn_mod.build_sn_term(sn_ds, model, "dM", h0=None, device=device, dtype=dtype, name="sn"),
+    )
+    return FitSpec(
+        "bao.desi_des5y", model, _spec(params), terms, Derive(h0=1.0), device, dtype,
+        data_size=ds.n + sn_ds.effective_sample_size, note=PRESET_NOTES["bao.desi_des5y"],
+    )
+
+
+def _bao_sn_cc(name, sn_name, f_bounds, dm_bounds, h0_b, rd_b, om_b, w0_b, param_order, note):
+    @_register(name, note)
+    def build(model, device, dtype):
+        ds = load_bao("desi_dr2")
+        sn_ds = load_sn(sn_name)
+        cc_ds = load_cc()
+        by_name = {
+            "f_cc": ("f_cc", *f_bounds),
+            "dM": ("dM", *dm_bounds),
+            "M": ("M", *dm_bounds),
+            "H0": ("H0", *h0_b),
+            "rd": ("rd", *rd_b),
+            "Om": ("Om", *om_b),
+            "w0": ("w0", *w0_b),
+        }
+        params = _adjust_params([by_name[n] for n in param_order], model)
+        mag = "M" if "M" in param_order else "dM"
+        terms = (
+            _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+            sn_mod.build_sn_term(sn_ds, model, mag, h0="H0", device=device, dtype=dtype,
+                                 use_z_hel=sn_name != "union3", name="sn"),
+            cc_mod.build_cc_term(
+                cc_ds, model, "multiply" if name == "bao.desi_pantheon_cc" else "divide",
+                device=device, dtype=dtype,
+            ),
+        )
+        n_sn = getattr(sn_ds, "effective_sample_size", sn_ds.n)
+        return FitSpec(
+            name, model, _spec(params), terms, Derive(), device, dtype,
+            data_size=ds.n + n_sn + cc_ds.n, note=note,
+        )
+
+    return build
+
+
+_bao_sn_cc(
+    "bao.desi_pantheon_cc", "pantheon_plus", (0.4, 2.5), (-20, -19),
+    (45, 85), (115, 170), (0.15, 0.7), (-3, 0),
+    ["H0", "M", "rd", "Om", "w0", "f_cc"],
+    "bao/desi_pantheon_cc.py: CC with f^2 convention (result f=1.47)",
+)
+_bao_sn_cc(
+    "bao.desi_union3_cc", "union3", (0.1, 1.5), (-0.7, 0.7),
+    (55, 80), (125, 170), (0.2, 0.7), (-2, 1),
+    ["f_cc", "dM", "H0", "rd", "Om", "w0"],
+    "bao/desi_union3_cc.py: CC with f^-2 convention",
+)
+_bao_sn_cc(
+    "bao.desi_des5y_cc", "des5y", (0.1, 1.5), (-0.55, 0.55),
+    (50, 80), (110, 175), (0.2, 0.7), (-2, 0),
+    ["f_cc", "dM", "H0", "rd", "Om", "w0"],
+    "bao/desi_des5y_cc.py: CC with f^-2 convention",
+)
+
+
+@_register("bao.desi_cmb", "bao/desi_cmb.py with a CMB compression (default chen)")
+def _bao_desi_cmb(model, device, dtype, compression="chen"):
+    ds = load_bao("desi_dr2")
+    comp = cmb_mod.COMPRESSIONS[compression]
+    params = _adjust_params(
+        [("rd", 120, 160), ("H0", 55, 75), ("Om", 0.25, 0.45), ("Obh2", 0.021, 0.023),
+         ("w0", -1.5, 0)],
+        model,
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+        cmb_mod.build_cmb_term(compression, model, device, dtype),
+    )
+    return FitSpec(
+        "bao.desi_cmb", model, _spec(params), terms, Derive(orh2=comp.omega_r_h2()), device,
+        dtype, data_size=ds.n + 3, note=f"bao/desi_cmb.py with the {compression} compression",
     )
 
 
@@ -237,6 +501,82 @@ _bao_cmb_sn(
     "bao.desi_cmb_des5y", "des5y", "desi", "dM", 0.0,
     "bao/desi_cmb_des5y.py: the flagship three-probe joint",
 )
+
+
+def _bao_sn_bbn(name, sn_name, rd_formula, note, use_z_hel=True, h0_lo=55):
+    @_register(name, note)
+    def build(model, device, dtype):
+        ds = load_bao("desi_dr2")
+        sn_ds = load_sn(sn_name)
+        params = _adjust_params(
+            [("H0", h0_lo, 75), ("Om", 0.1, 0.6), ("Obh2", 0.019, 0.025), ("w0", -2, 0),
+             ("dM", -0.7, 0.7)],
+            model,
+        )
+        terms = (
+            _bao_term(ds, model, bao_mod.rd_from_r_drag(rd_formula), device, dtype),
+            sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", device=device, dtype=dtype,
+                                 use_z_hel=use_z_hel, name="sn"),
+            priors_mod.bbn_term("shonberg"),
+        )
+        n_sn = getattr(sn_ds, "effective_sample_size", sn_ds.n)
+        return FitSpec(
+            name, model, _spec(params), terms, Derive(), device, dtype,
+            data_size=ds.n + n_sn + 1, note=note,
+        )
+
+    return build
+
+
+_bao_sn_bbn(
+    "bao.desi_union3_bbn", "union3", "aizpuru",
+    "bao/desi_union3_bbn.py: r_d from the Aizpuru fitting formula", use_z_hel=False,
+)
+# rd_from_r_drag's n_eff 3.04 (the reference script's), not r_drag_desi's 3.044
+_bao_sn_bbn(
+    "bao.desi_des5y_bbn", "des5y", "desi",
+    "bao/desi_des5y_bbn.py: r_d from the DESI DR2 fitting formula (n_eff 3.04)", h0_lo=60,
+)
+
+
+@_register("bao.desi_union3_omh2", "bao/desi_union3_omh2.py")
+def _bao_desi_union3_omh2(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    sn_ds = load_sn("union3")
+    params = _adjust_params(
+        [("rd", 120, 160), ("H0", 60, 75), ("Om", 0.1, 0.6), ("w0", -2, 0), ("dM", -0.7, 0.7)],
+        model,
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+        sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", device=device, dtype=dtype,
+                             use_z_hel=False, name="sn"),
+        priors_mod.omh2_term(),
+    )
+    return FitSpec(
+        "bao.desi_union3_omh2", model, _spec(params), terms, Derive(), device, dtype,
+        data_size=ds.n + sn_ds.n + 1, note=PRESET_NOTES["bao.desi_union3_omh2"],
+    )
+
+
+@_register("bao.desi_des5y_omh2", "bao/desi_des5y_omh2.py: seed 42")
+def _bao_desi_des5y_omh2(model, device, dtype):
+    ds = load_bao("desi_dr2")
+    sn_ds = load_sn("des5y")
+    params = _adjust_params(
+        [("dM", -0.6, 0.6), ("rd", 120, 160), ("H0", 60, 80), ("Om", 0.1, 0.7), ("w0", -2, 0)],
+        model,
+    )
+    terms = (
+        _bao_term(ds, model, bao_mod.rd_param("rd"), device, dtype),
+        sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", device=device, dtype=dtype, name="sn"),
+        priors_mod.omh2_term(),
+    )
+    return FitSpec(
+        "bao.desi_des5y_omh2", model, _spec(params), terms, Derive(), device, dtype, seed=42,
+        data_size=ds.n + sn_ds.effective_sample_size + 1,
+        note=PRESET_NOTES["bao.desi_des5y_omh2"],
+    )
 
 
 @_register("cc.cc", "cosmic_chronometers/cc.py: f^-2 rescaling + Om h^2 prior")
@@ -350,7 +690,7 @@ def _joint_multiprobe(model, device, dtype):
     )
     return FitSpec(
         "joint.multiprobe", model, _spec(params), terms,
-        Derive(orh2=cmb_mod.COMPRESSIONS["desi"].omega_r_h2()), device, dtype,
+        Derive(orh2=ORH2_DESI), device, dtype,
         n_walkers=256, n_steps=2200,
         data_size=(bao_ds.n + 3 + sn_ds.effective_sample_size + cc_ds.n + qz.size + fs8_ds.n),
         note=PRESET_NOTES["joint.multiprobe"],

@@ -7,7 +7,11 @@
 // pallas_call with every constant resident in VMEM. This kernel is not a
 // replayer: it is the bundled fast log-prob written out by hand. Per walker:
 //   1. H0 and Or from theta (Or = orh2 / h^2, or 0 without radiation; a
-//      fit may sample no H0 at all, then nothing reads it);
+//      fit may sample no H0 at all, then nothing reads it, or fix it for
+//      every walker: the H0-free bao.desi_des5y's H0 = 1), w0 (or log of the
+//      sampled exp(w0)), and the walker's r_d: fixed, sampled (times a
+//      scale), r_d h / h, a drag-epoch fitting formula of (wb, wm), or
+//      r_s(z_drag) by GL-128 in a with this model's E(z);
 //   2. barycentric weights on each Chebyshev axis (a one-hot within 1e-14
 //      of a node), folded straight into the Tucker factor projections
 //      wp_i = U_i^T w_i in one pass over the nodes (the sum of the
@@ -29,7 +33,7 @@
 //        e = beta s (a + Or/OR_REF a_d) - ba_ref, chi2 = c_ref - 2 e.v_ref
 //        + e.e, plus g.S g - 2 g.q_ref + 2 e.P g where the form has
 //        nuisance columns (cosmax/models/linear_chi2.py:547-567); beta is
-//        1, c / (H0 r_d) or H0;
+//        1, c / (H0 r_d) with the walker's r_d, or H0;
 //      * lift (quasars): dmu[K] += a_i (scale B_t)[i, :] pair by pair,
 //        then d = (mu - mu_ref) - dmu - dM, chi2 = sum d^2 / (sigma^2 +
 //        s^2), log_norm = -1/2 sum ln(sigma^2 + s^2);
@@ -40,8 +44,10 @@
 //      coef ln f;
 //   4. the compressed CMB: z* (Aizpuru A4, or Hu & Sugiyama), r_s by GL in
 //      a and D_C by GL in ln a with the radiation-aware E(z), the three
-//      observables and the 3 x 3 whitened chi^2, and the Om h^2 prior
-//      ((mean - Om (H0/100)^2) / sigma)^2 (cc.cc) from two header slots;
+//      observables and the 3 x 3 whitened chi^2; or from the same r_s and
+//      D_C the 100 theta* prior ((theta_100 - 100 r_s / D_C) / sigma)^2; and
+//      one scalar prior ((mean - x) / sigma)^2 from header slots, x = Om
+//      (H0/100)^2 or a sampled parameter (the BBN omega_b);
 //   5. -chi2/2 + log_norm, or -inf outside the strict interior of the f32
 //      bounds or where the sum is not finite.
 // The constants come packed by cosmax_torch/ops/kernels/fused_log_prob.py
@@ -146,6 +152,7 @@ constexpr int MAX_RALL = 256;
 constexpr int MAX_FORMS = 8;
 constexpr int MAX_K = 32;
 constexpr int MAX_GL = 64;
+constexpr int MAX_GL_RD = 128;  // nodes of r_s(z_drag) (the packer refuses more)
 constexpr int MAX_FLOATS = 40960;
 constexpr int THREADS = 128;
 // quads contracted together (acc[QC] in registers): 5 takes the 5-quad
@@ -246,6 +253,14 @@ constexpr int H_INNER = 35;
 constexpr int H_PRIOR = 36;
 constexpr int H_PRIOR_MEAN = 37;
 constexpr int H_PRIOR_SIGMA = 38;
+constexpr int H_H0_CONST = 39;
+constexpr int H_W0_LOG = 40;
+constexpr int H_RD_KIND = 41;
+constexpr int H_RD = 42;
+constexpr int H_I_RD = 43;
+constexpr int H_RD_N = 44;
+constexpr int H_OFF_RD = 45;
+constexpr int H_I_PRIOR = 46;
 
 // one half of the split grid (HALF)
 // (per core i = 0, 1, 2 the slots T_PERM0 + i, T_AX0 + i, T_N0 + i,
@@ -288,28 +303,26 @@ constexpr int F_ROWS = 3;
 constexpr int F_SCALE = 4;
 constexpr int F_CREF = 5;
 constexpr int F_BETA = 6;
-constexpr int F_RD_IDX = 7;
-constexpr int F_RD = 8;
-constexpr int F_J = 9;
-constexpr int F_MAG_IDX = 10;
-constexpr int F_OFFSET = 11;
-constexpr int F_H0REF = 12;
-constexpr int F_GREF0 = 13;
-constexpr int F_GREF1 = 14;
-constexpr int F_QREF0 = 15;
-constexpr int F_QREF1 = 16;
-constexpr int F_S00 = 17;
-constexpr int F_S01 = 18;
-constexpr int F_S10 = 19;
-constexpr int F_S11 = 20;
-constexpr int F_F_IDX = 21;
-constexpr int F_POW = 22;
-constexpr int F_LN_CONST = 23;
-constexpr int F_LN_COEF = 24;
-constexpr int F_K = 25;
-constexpr int F_I_AMP = 26;
-constexpr int F_I_OFF = 27;
-constexpr int F_I_S = 28;
+constexpr int F_J = 7;
+constexpr int F_MAG_IDX = 8;
+constexpr int F_OFFSET = 9;
+constexpr int F_H0REF = 10;
+constexpr int F_GREF0 = 11;
+constexpr int F_GREF1 = 12;
+constexpr int F_QREF0 = 13;
+constexpr int F_QREF1 = 14;
+constexpr int F_S00 = 15;
+constexpr int F_S01 = 16;
+constexpr int F_S10 = 17;
+constexpr int F_S11 = 18;
+constexpr int F_F_IDX = 19;
+constexpr int F_POW = 20;
+constexpr int F_LN_CONST = 21;
+constexpr int F_LN_COEF = 22;
+constexpr int F_K = 23;
+constexpr int F_I_AMP = 24;
+constexpr int F_I_OFF = 25;
+constexpr int F_I_S = 26;
 
 // form kinds (KINDS) and betas
 constexpr int KIND_LINEAR = 0;
@@ -326,7 +339,17 @@ constexpr int C_ZSTAR = 14;
 constexpr int C_I_OBH2 = 15;
 constexpr int C_NRS = 16;
 constexpr int C_NDC = 17;
+constexpr int C_SIGMA = 18;
 constexpr int C_NODES = 20;
+constexpr int OBS_THETA_100 = 3;  // the 100 theta* prior (OBSERVABLES)
+
+// the walker's r_d (RD_KINDS) and the scalar prior (PRIORS)
+constexpr int RD_FIXED = 1;
+constexpr int RD_PARAM = 2;
+constexpr int RD_OVER_H = 3;
+constexpr int RD_AIZPURU = 4;
+constexpr int RD_DESI = 5;
+constexpr int PRIOR_OMH2 = 1;
 
 constexpr float C_KM_S = 299792.458f;
 constexpr float OR_REF = 2e-4f;
@@ -362,6 +385,34 @@ __device__ __forceinline__ float q_of_a(float a, float ln_a, float om, float o_r
   return fmaf(a, fmaf(a3, (1.0f - om - o_r) * rho, om), o_r);
 }
 
+// r_s(z) h0 by GL in a (nodes t, weights w on [0, 1], a = a_end t), the
+// integrand c / sqrt(q 3 (1 + Rb a)) of the native grid's families; the CMB's
+// r_s(z*) and the BAO's r_s(z_drag) share it
+template <int MODEL>
+__device__ __forceinline__ float rs_sum(const float* t, const float* w, int n, float a_end,
+                                        float rb, float om, float o_r, float w0) {
+  float rs = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const float a = a_end * t[i];
+    const float q = q_of_a<MODEL>(a, MODEL == 1 ? logf(a) : 0.0f, om, o_r, w0);
+    rs += C_KM_S / sqrtf(q * (3.0f * fmaf(rb, a, 1.0f))) * (a_end * w[i]);
+  }
+  return rs;
+}
+
+// rs_sum for CPL (the split grid)
+__device__ __forceinline__ float rs_sum_cpl(const float* t, const float* w, int n, float a_end,
+                                            float rb, float om, float o_r, float w0, float wa) {
+  float rs = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const float a = a_end * t[i];
+    const float ez = e_cpl(1.0f / a - 1.0f, om, o_r, w0, wa);
+    const float integ = C_KM_S / (a * a * ez * sqrtf(3.0f * (1.0f + rb * a)));
+    rs += integ * (a_end * w[i]);
+  }
+  return rs;
+}
+
 // the native grid's CMB integrals rs += r_s(z*) h0 and dm += D_C(z*) h0 by GL
 // in a (nodes t_rs, weights w_rs on [0, 1]) and in ln a from u0 = ln a* up
 // to 0, one loop per model so that a node computes its own model's density
@@ -371,16 +422,78 @@ __device__ __forceinline__ void cmb_integrals(const float* t_rs, const float* w_
                                               const float* t_dc, const float* w_dc, int n_dc,
                                               float a_end, float u0, float rb, float om,
                                               float o_r, float w0, float& rs, float& dm) {
-  for (int i = 0; i < n_rs; ++i) {
-    const float a = a_end * t_rs[i];
-    const float q = q_of_a<MODEL>(a, MODEL == 1 ? logf(a) : 0.0f, om, o_r, w0);
-    rs += C_KM_S / sqrtf(q * (3.0f * fmaf(rb, a, 1.0f))) * (a_end * w_rs[i]);
-  }
+  rs += rs_sum<MODEL>(t_rs, w_rs, n_rs, a_end, rb, om, o_r, w0);
   for (int i = 0; i < n_dc; ++i) {
     const float u = u0 * (1.0f - t_dc[i]);
     const float a = expf(u);
     dm += C_KM_S * a / sqrtf(q_of_a<MODEL>(a, u, om, o_r, w0)) * (-u0 * w_dc[i]);
   }
+}
+
+// the drag-epoch fitting formulae of (wb, wm): z_drag (arXiv:2106.00428 eq
+// A2), and r_d in Mpc from arXiv:2106.00428 eq 8 or from DESI DR2
+// (arXiv:2503.14738 eq 2)
+__device__ __forceinline__ float z_drag(float wb, float wm) {
+  return (1.0f + 428.169f * powf(wb, 0.256459f) * powf(wm, 0.616388f) +
+          925.56f * powf(wm, 0.751615f)) *
+         powf(wm, -0.714129f);
+}
+
+__device__ __forceinline__ float r_drag_aizpuru(float wb, float wm) {
+  const float term_a = 1.0f / (0.00257366f * powf(wb, 0.05032f) +
+                               0.013f * powf(wb, 0.7720642f) * powf(wm, 0.24346362f) +
+                               0.00641072f * powf(wm, 0.5350899f));
+  return term_a - 32.7525f / powf(wm, 0.315473f);
+}
+
+__device__ __forceinline__ float r_drag_desi(float wb, float wm, float n_eff) {
+  return 147.05f * powf(0.02236f / wb, 0.13f) * powf(0.1432f / wm, 0.23f) *
+         powf(3.04f / n_eff, 0.1f);
+}
+
+// the walker's r_d in Mpc from the sampled x = theta[H_I_RD] for the kinds
+// beyond a fixed or sampled r_d: r_d h / h (x = r_d h), a drag-epoch fitting
+// formula of (x = wb, wm), or r_s(z_drag(wb, wm)) by the GL rule of H_RD_N
+// nodes at H_OFF_RD (the nodes, then their weights; H_RD = 4 omega_gamma h^2)
+// in this model's radiation-aware E(z). Not inlined: the flagship's r_d is
+// sampled, and the kernel keeps one inlined copy of the r_s loops (the CMB's).
+template <bool SPLIT>
+__device__ __noinline__ float rd_derived(const float* s, float x, float h0, float om, float o_r,
+                                         float w0, float wa, int model) {
+  const int kind = static_cast<int>(s[H_RD_KIND]);
+  const float hh = h0 / 100.0f;
+  if (kind == RD_OVER_H) return x / hh;
+  const float wm = om * (hh * hh);
+  if (kind == RD_AIZPURU) return r_drag_aizpuru(x, wm);
+  if (kind == RD_DESI) return r_drag_desi(x, wm, s[H_RD]);
+  const float a_end = 1.0f / (1.0f + z_drag(x, wm));
+  const float rb = 3.0f * x / s[H_RD];
+  const float* t = s + static_cast<int>(s[H_OFF_RD]);
+  const float* w = t + static_cast<int>(s[H_RD_N]);
+  const int n = static_cast<int>(s[H_RD_N]);
+  float rs;
+  if constexpr (SPLIT) {
+    rs = rs_sum_cpl(t, w, n, a_end, rb, om, o_r, w0, wa);
+  } else if (model == 1) {
+    rs = rs_sum<1>(t, w, n, a_end, rb, om, o_r, w0);
+  } else if (model == 2) {
+    rs = rs_sum<2>(t, w, n, a_end, rb, om, o_r, w0);
+  } else {
+    rs = rs_sum<0>(t, w, n, a_end, rb, om, o_r, w0);
+  }
+  return rs / h0;
+}
+
+// the walker's r_d in Mpc (H_RD_KIND), computed once before the forms: H_RD
+// fixed, H_RD theta[H_I_RD], or rd_derived
+template <bool SPLIT>
+__device__ __forceinline__ float walker_rd(const float* s, const float* th, float h0, float om,
+                                           float o_r, float w0, float wa, int model) {
+  const int kind = static_cast<int>(s[H_RD_KIND]);
+  if (kind <= RD_FIXED) return s[H_RD];
+  const float x = th[static_cast<int>(s[H_I_RD])];
+  if (kind == RD_PARAM) return s[H_RD] * x;
+  return rd_derived<SPLIT>(s, x, h0, om, o_r, w0, wa, model);
 }
 
 // barycentric weights of x on one axis, projected on the Tucker factor
@@ -509,12 +622,7 @@ __device__ float cmb_chi2(const float* c, const float* th, float h0, float om, f
   float rs = 0.0f;
   float dm = 0.0f;
   if constexpr (SPLIT) {
-    for (int i = 0; i < n_rs; ++i) {
-      const float a = a_end * t_rs[i];
-      const float ez = e_cpl(1.0f / a - 1.0f, om, o_r, w0, wa);
-      const float integ = C_KM_S / (a * a * ez * sqrtf(3.0f * (1.0f + rb * a)));
-      rs += integ * (a_end * w_rs[i]);
-    }
+    rs = rs_sum_cpl(t_rs, w_rs, n_rs, a_end, rb, om, o_r, w0, wa);
     const float u0 = logf(1.0f / (1.0f + zs));
     for (int i = 0; i < n_dc; ++i) {
       const float a = expf(u0 * (1.0f - t_dc[i]));
@@ -534,8 +642,12 @@ __device__ float cmb_chi2(const float* c, const float* th, float h0, float om, f
   rs = rs / h0;
   dm = dm / h0;
 
-  float o0, o1, o2;
   const int obs = static_cast<int>(c[C_OBS]);
+  if (obs == OBS_THETA_100) {  // ((theta_100 - 100 r_s / D_C) / sigma)^2
+    const float d = (c[C_PRIOR] - 100.0f * rs / dm) / c[C_SIGMA];
+    return d * d;
+  }
+  float o0, o1, o2;
   if (obs == 1) {  // (theta*, wb, wm)
     o0 = rs / dm;
     o1 = wb;
@@ -964,11 +1076,12 @@ __device__ __forceinline__ void block_step(const float* __restrict__ g, int n, i
 }
 
 // the emulated terms: chi2 and log_norm of each form, its window of the
-// coefficient vector contracted by window(q0, nq, consume)
+// coefficient vector contracted by window(q0, nq, consume); rd the walker's
+// r_d
 template <typename Window>
 __device__ __forceinline__ void eval_forms(const float* s, const float* forms, int n_forms,
-                                           const float* th, float h0, float t, float& chi2,
-                                           float& log_norm, Window&& window) {
+                                           const float* th, float h0, float t, float rd,
+                                           float& chi2, float& log_norm, Window&& window) {
   for (int f = 0; f < n_forms; ++f) {
     const float* F = forms + f * FORM_STRIDE;
     const int kind = static_cast<int>(F[F_KIND]);
@@ -980,8 +1093,6 @@ __device__ __forceinline__ void eval_forms(const float* s, const float* forms, i
       float beta = 1.0f;
       const int beta_kind = static_cast<int>(F[F_BETA]);
       if (beta_kind == BETA_BAO) {  // c / (H0 r_d)
-        const int rd_idx = static_cast<int>(F[F_RD_IDX]);
-        const float rd = rd_idx >= 0 ? th[rd_idx] : F[F_RD];
         beta = C_KM_S / (h0 * rd);
       } else if (beta_kind == BETA_H0) {
         beta = h0;
@@ -1106,15 +1217,19 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
 
   // 1. derived parameters
   const int model = static_cast<int>(s[H_MODEL]);
+  // H0 sampled (or h), or one constant for every walker (0 where no term
+  // reads it); w0 sampled, or as exp(w0)
   const int i_h0 = static_cast<int>(s[H_I_H0]);
-  const float h0 = i_h0 >= 0 ? th[i_h0] * s[H_H0_SCALE] : 0.0f;
+  const float h0 = i_h0 >= 0 ? th[i_h0] * s[H_H0_SCALE] : s[H_H0_CONST];
   const float om = th[static_cast<int>(s[H_I_OM])];
   const int i_w0 = static_cast<int>(s[H_I_W0]);
-  const float w0 = i_w0 >= 0 ? th[i_w0] : 0.0f;
+  float w0 = i_w0 >= 0 ? th[i_w0] : 0.0f;
+  if (s[H_W0_LOG] != 0.0f) w0 = logf(w0);
   const float wa = SPLIT ? th[static_cast<int>(s[H_I_WA])] : 0.0f;
   const float hh = h0 / 100.0f;
   const float o_r = s[H_ORH2] != 0.0f ? s[H_ORH2] / (hh * hh) : 0.0f;
   const float t = o_r / OR_REF;
+  const float rd = walker_rd<SPLIT>(s, th, h0, om, o_r, w0, wa, model);
   const int n_forms = static_cast<int>(s[H_NFORMS]);
   float chi2 = 0.0f;
   float log_norm = 0.0f;
@@ -1180,7 +1295,7 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
       const int r3 = static_cast<int>(hm[T_R3]);
       const float* one = hm + T_ONE;
       const float* v = (mine > 0 ? v1 : v0) + pos;
-      eval_forms(s, s + static_cast<int>(hm[T_OFF_FORMS]), n_forms, th, h0, t, chi2, log_norm,
+      eval_forms(s, s + static_cast<int>(hm[T_OFF_FORMS]), n_forms, th, h0, t, rd, chi2, log_norm,
                  [&](int q0, int nw, auto&& consume) {
                    contract_window<VLD>(tail, nq, q0, nw, r3, 1, v, one, consume);
                  });
@@ -1222,7 +1337,7 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
     // then reducing the quads of its own row
     const float* core = s + static_cast<int>(s[H_OFF_CORE]);
     const int ldb = static_cast<int>(s[H_LDB]);
-    eval_forms(s, s + static_cast<int>(s[H_OFF_FORMS]), n_forms, th, h0, t, chi2, log_norm,
+    eval_forms(s, s + static_cast<int>(s[H_OFF_FORMS]), n_forms, th, h0, t, rd, chi2, log_norm,
                [&](int q0, int nq, auto&& consume) {
                  const int end = 4 * (q0 + nq);
                  for (int c0 = 4 * q0; c0 < end; c0 += NCOLT) {
@@ -1244,13 +1359,16 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
                });
   }
 
-  // 4. the compressed CMB, and the Om h^2 prior (IEEE division)
+  // 4. the compressed CMB or the theta* prior, and the scalar prior: Om h^2
+  // or a sampled parameter (IEEE division)
   if (s[H_HAS_CMB] != 0.0f && (SPLIT || !(PROBE & 1))) {
     chi2 += cmb_chi2<SPLIT>(s + static_cast<int>(s[H_OFF_CMB]), th, h0, om, o_r, w0, wa,
                             model);
   }
-  if (s[H_PRIOR] != 0.0f) {
-    const float d = (s[H_PRIOR_MEAN] - om * (hh * hh)) / s[H_PRIOR_SIGMA];
+  const int prior = static_cast<int>(s[H_PRIOR]);
+  if (prior != 0) {
+    const float x = prior == PRIOR_OMH2 ? om * (hh * hh) : th[static_cast<int>(s[H_I_PRIOR])];
+    const float d = (s[H_PRIOR_MEAN] - x) / s[H_PRIOR_SIGMA];
     chi2 += d * d;
   }
 

@@ -5,7 +5,12 @@ masks of the integer quantity codes, against a dense covariance
 whitened at build time; chi^2 goes through ``chi2_from_whitener`` (the
 CUDA kernel on the card).
 
-r_d treatments: ``rd_fn(p) -> Mpc`` with ``rd_fixed`` or ``rd_param``.
+r_d treatments: ``rd_fn(p) -> Mpc``, each a frozen dataclass whose fields
+the fused log-prob kernel's packer reads: a fixed r_d (``rd_fixed``), a
+sampled one (``rd_param``; times 100 for the H0-free ``rd_h`` of
+bao.desi_des5y), r_d h sampled (``rd_over_h``), the drag-epoch fitting
+formulae of (wb, wm) (``rd_from_r_drag``) and the sound horizon at
+z_drag integrated from the background (``rd_from_z_drag``).
 
 The ``('emu',)`` grid (the fast path, and the grid of every BAO term
 built in fast mode) uses that each observable is homogeneous of degree
@@ -25,6 +30,7 @@ from cosmax_torch.data.loaders import QTY_DH, QTY_DM, QTY_DV, CovDataset
 from cosmax_torch.interop import constants_from_numpy
 from cosmax_torch.likelihoods.base import Term
 from cosmax_torch.likelihoods.fastmode import fast_mode
+from cosmax_torch.models import recombination
 from cosmax_torch.models.distances import (
     comoving_distance_trapz,
     hubble_distance,
@@ -47,12 +53,59 @@ class RdFixed:
 
 @dataclass(frozen=True)
 class RdParam:
-    """r_d read from the sampled parameter ``name``."""
+    """r_d read from the sampled parameter ``name``, times ``scale``
+    (bao.desi_des5y samples rd_h and fixes H0 = 1: r_d = 100 rd_h)."""
 
     name: str
+    scale: float = 1.0
 
     def __call__(self, p):
-        return p[self.name]
+        return p[self.name] if self.scale == 1.0 else p[self.name] * self.scale
+
+
+@dataclass(frozen=True)
+class RdOverH:
+    """r_d = rd_h / h from the sampled product ``name`` = r_d h."""
+
+    name: str = "rd_h"
+
+    def __call__(self, p):
+        return p[self.name] / (p["H0"] / 100.0)
+
+
+@dataclass(frozen=True)
+class RdFromRDrag:
+    """r_d from a fitting formula of (wb, wm): ``which`` "aizpuru"
+    (arXiv:2106.00428 eq 8) or "desi" (arXiv:2503.14738 eq 2, with
+    ``n_eff``)."""
+
+    which: str = "aizpuru"
+    n_eff: float = 3.04
+
+    def __post_init__(self):
+        if self.which not in ("aizpuru", "desi"):
+            raise ValueError(self.which)
+
+    def __call__(self, p):
+        wm = p["Om"] * (p["H0"] / 100.0) ** 2
+        if self.which == "aizpuru":
+            return recombination.r_drag_aizpuru(p["Obh2"], wm)
+        return recombination.r_drag_desi(p["Obh2"], wm, self.n_eff)
+
+
+@dataclass(frozen=True)
+class RdFromZDrag:
+    """r_d = r_s(z_drag(wb, wm)), GL of ``order`` nodes in the scale
+    factor with this model's radiation-aware E(z) (needs 'Or' and
+    'Obh2')."""
+
+    model: str
+    order: int = 128
+
+    def __call__(self, p):
+        wm = p["Om"] * (p["H0"] / 100.0) ** 2
+        zd = recombination.z_drag(p["Obh2"], wm)
+        return recombination.sound_horizon(zd, p, self.model, p["H0"], p["Obh2"], self.order)
 
 
 def rd_fixed(value: float = 147.09) -> RdFixed:
@@ -61,6 +114,18 @@ def rd_fixed(value: float = 147.09) -> RdFixed:
 
 def rd_param(name: str = "rd") -> RdParam:
     return RdParam(name)
+
+
+def rd_over_h(name: str = "rd_h") -> RdOverH:
+    return RdOverH(name)
+
+
+def rd_from_r_drag(which: str = "aizpuru", n_eff: float = 3.04) -> RdFromRDrag:
+    return RdFromRDrag(which, n_eff)
+
+
+def rd_from_z_drag(model: str, order: int = 128) -> RdFromZDrag:
+    return RdFromZDrag(model, order)
 
 
 def build_bao_term(
@@ -182,5 +247,5 @@ def _build_emulated_bao(dataset, model, rd_fn, device, dtype, name, meta):
         beta_fn=lambda p: C_KM_S / (p["H0"] * rd_fn(p)),
         beta_ref=C_KM_S / (70.0 * 147.09),
     )
-    # rd_fn is an RdFixed or RdParam for the fused kernel's packer
+    # rd_fn is one of the dataclasses above, for the fused kernel's packer
     return Term(name=name, chi2=chi2, meta=dict(meta, linear_chi2=chi2, rd=rd_fn))

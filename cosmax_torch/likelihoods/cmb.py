@@ -11,6 +11,8 @@ covariance and radiation constants:
 
 r_s(z*) is GL-48 in the scale factor and D_C(z*) GL-24 in ln a
 (``models.recombination``). The 3 x 3 whitening is a plain torch product.
+``build_theta_star_term`` is the Gaussian prior on 100 theta* alone, from
+the same three quantities.
 """
 
 from dataclasses import dataclass
@@ -167,5 +169,46 @@ def build_cmb_term(
             n=3, legend=f"CMB compression ({compression})", compression=comp, model=model,
             # GL orders of r_s and D_C, for the fused kernel's packer
             orders=(order, order) if order is not None else (48, 24),
+        ),
+    )
+
+
+def build_theta_star_term(
+    model: str,
+    theta_100: float = 1.04110,
+    theta_100_err: float = 0.00031,
+    rs_order: int = 48,
+    dc_order: int = 24,
+    o_gamma_h2: float = _OG_STD,
+    name: str = "theta_star",
+    z_star: str = "aizpuru",
+) -> Term:
+    """Gaussian prior on 100 theta* = 100 r_s(z*) / D_C(z*) alone
+    (reference bao/desi_omh2_theta_star.py:19-20,88-95;
+    bao/desi_bbn_theta_star.py:17 uses err 0.00053). ``z_star`` picks the
+    decoupling-redshift formula: "aizpuru" (A4) or "hu" (Hu & Sugiyama,
+    the variant of the published desi_omh2_theta_star rows)."""
+    zstar_fn = {"aizpuru": recombination.z_star, "hu": recombination.z_star_hu}[z_star]
+
+    def chi2(p):
+        h0, om, wb = p["H0"], p["Om"], p["Obh2"]
+        wm = om * (h0 / 100.0) ** 2
+        zstar = zstar_fn(wb, wm)
+        rs_star = recombination.sound_horizon(
+            zstar, p, model, h0, wb, order=rs_order, o_gamma_h2=o_gamma_h2
+        )
+        dm_star = recombination.comoving_distance_to(zstar, p, model, h0, order=dc_order)
+        theory = 100.0 * rs_star / dm_star
+        return ((theta_100 - theory) / theta_100_err) ** 2
+
+    return Term(
+        name=name,
+        chi2=chi2,
+        elems_per_walker=48,
+        meta=dict(
+            n=1, model=model, orders=(rs_order, dc_order),
+            # for the fused kernel's packer: the CMB block's theta* kind
+            theta_star=dict(theta_100=theta_100, sigma=theta_100_err, z_star=z_star,
+                            o_gamma_h2=o_gamma_h2),
         ),
     )

@@ -1,7 +1,9 @@
-"""Recombination fitting formulae and the sound horizon (counterpart of
-``cosmax/models/recombination.py``).
+"""Recombination and drag-epoch fitting formulae and the sound horizon
+(counterpart of ``cosmax/models/recombination.py``).
 
-The fitting formulae are elementwise in (wb, wm) and take [W] tensors.
+The fitting formulae (arXiv:2106.00428 eqs A2/A4/8, Hu & Sugiyama 1996,
+Eisenstein & Hu, DESI DR2 eq 2) are elementwise in (wb, wm) and take [W]
+tensors.
 ``sound_horizon`` and ``comoving_distance_to`` are fixed-order
 Gauss-Legendre integrals whose upper limit z* is itself per walker: the
 nodes get a trailing axis, [W] -> [W, order], and the parameters are
@@ -27,6 +29,34 @@ def z_star_hu(wb, wm):
     g1 = 0.0783 * wb**-0.238 / (1.0 + 39.5 * wb**0.763)
     g2 = 0.560 / (1.0 + 21.1 * wb**1.81)
     return 1048.0 * (1.0 + 0.00124 * wb**-0.738) * (1.0 + g1 * wm**g2)
+
+
+def z_drag(wb, wm):
+    """Drag epoch, arXiv:2106.00428 eq A2."""
+    return (
+        1.0 + 428.169 * wb**0.256459 * wm**0.616388 + 925.56 * wm**0.751615
+    ) * wm**-0.714129
+
+
+def z_drag_hu(wb, wm):
+    """Eisenstein & Hu drag redshift."""
+    b1 = 0.313 * wm**-0.419 * (1.0 + 0.607 * wm**0.674)
+    b2 = 0.238 * wm**0.223
+    return (1345.0 * wm**0.251 / (1.0 + 0.659 * wm**0.828)) * (1.0 + b1 * wb**b2)
+
+
+def r_drag_aizpuru(wb, wm):
+    """Sound horizon at the drag epoch, arXiv:2106.00428 eq 8. Mpc."""
+    a1, a2, a3 = 0.00257366, 0.05032, 0.013
+    a4, a5, a6 = 0.7720642, 0.24346362, 0.00641072
+    a7, a8, a9 = 0.5350899, 32.7525, 0.315473
+    term_a = 1.0 / (a1 * wb**a2 + a3 * wb**a4 * wm**a5 + a6 * wm**a7)
+    return term_a - a8 / wm**a9
+
+
+def r_drag_desi(wb, wm, n_eff=3.044):
+    """DESI DR2 fitting form, arXiv:2503.14738 eq 2. Mpc."""
+    return 147.05 * (0.02236 / wb) ** 0.13 * (0.1432 / wm) ** 0.23 * (3.04 / n_eff) ** 0.1
 
 
 def _nodes(z, order):

@@ -11,9 +11,12 @@ answers that). This module holds
   constant buffer that the kernel copies into shared memory, with a
   header of offsets and sizes (``HEADER``), the bundle's barycentric
   axes, Tucker factors and core, one row of constants per emulated term
-  (``FORM``) with its per-rank rows, the CMB compression and its
-  Gauss-Legendre rules, the bounds and the derived parameters, and in
-  header slots the Om h^2 prior's mean and sigma (``cc.cc``). A split
+  (``FORM``) with its per-rank rows, the CMB block (a compression, or the
+  100 theta* prior) and its Gauss-Legendre rules, the bounds and the
+  derived parameters (a constant H0, w0 = log(exp_w0)), the walker's r_d
+  (``RD_KINDS``: fixed, sampled, r_d h, the drag fitting formulae, or
+  r_s(z_drag) by the Gauss-Legendre rule packed beside it), and in header
+  slots a scalar prior (Om h^2 or a sampled omega_b). A split
   w0wacdm bundle packs per half a block of its tensor-train layout
   (``HALF``), its own s axis and its own FORM table and rows, while its
   TT cores and tails go into a second buffer kept in device memory
@@ -28,8 +31,9 @@ The emulated terms are three kinds of form over the bundle's shared
 coefficient vector a[R_all]:
 
 * ``linear`` (BAO, SN, CC): the reference-centred quadratic form over
-  (base, Or-delta) column pairs, with beta = c/(H0 r_d) (BAO), H0 (CC)
-  or 1, and the SN nuisance columns;
+  (base, Or-delta) column pairs, with beta = c/(H0 r_d) (BAO, r_d the
+  walker's, computed once before the forms), H0 (CC) or 1, and the SN
+  nuisance columns;
 * ``lift`` (quasars): the curve values dmu[K] = a^T (scale B_t), then the
   diagonal metric sigma_i^2 + s^2 and its log-normalisation;
 * ``amp_pair`` (fs8): r = scale ((a_u + t a_du) - amp (a_v + t a_dv))
@@ -67,7 +71,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cosmax_torch.constants import C_KM_S
+from cosmax_torch.constants import C_KM_S, O_GAMMA_H2
+from cosmax_torch.models import recombination
 from cosmax_torch.models.emu_core import OR_REF, bary_vector, coeff_contract
 from cosmax_torch.ops.quadrature import gl_nodes_01
 
@@ -86,6 +91,7 @@ MAX_RALL = 256  # coefficient columns, each form's window padded to quads
 MAX_FORMS = 8  # emulated terms
 MAX_K = 32  # values of a lift form (quasar bins)
 MAX_GL = 64  # nodes of each CMB quadrature
+MAX_GL_RD = 128  # nodes of r_s(z_drag)
 MAX_FLOATS = 40960  # constant-buffer floats (160 KB of shared memory)
 MAX_DEV_FLOATS = 1 << 24  # device-buffer floats (offsets are exact in f32)
 # The split grid's block products (the kernel's values too): the sweep's
@@ -124,19 +130,20 @@ HEADER = dict(
     H_OFF_AX1=19, H_OFF_AX2=20, H_OFF_BW1=21, H_OFF_BW2=22, H_OFF_U1=23,
     H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27, H_I_WA=28, H_SPLIT=29,
     H_OFF_HALVES=30, H_VROWS=31, H_KO=32, H_KI=33, H_LDB=34, H_INNER=35,
-    H_PRIOR=36, H_PRIOR_MEAN=37, H_PRIOR_SIGMA=38,
+    H_PRIOR=36, H_PRIOR_MEAN=37, H_PRIOR_SIGMA=38, H_H0_CONST=39, H_W0_LOG=40, H_RD_KIND=41,
+    H_RD=42, H_I_RD=43, H_RD_N=44, H_OFF_RD=45, H_I_PRIOR=46,
 )
-HEADER_SIZE = 39
+HEADER_SIZE = 47
 MAGIC = 20260.0
 # one row of a linear form = the constants of its (base, delta) pair i
 PAIR = dict(P_BA=0, P_V=1, P_P0=2, P_P1=3)
 PAIR_STRIDE = 4
 FORM = dict(
     F_KIND=0, F_Q0=1, F_NQ=2, F_ROWS=3, F_SCALE=4, F_CREF=5, F_BETA=6,
-    F_RD_IDX=7, F_RD=8, F_J=9, F_MAG_IDX=10, F_OFFSET=11, F_H0REF=12,
-    F_GREF0=13, F_GREF1=14, F_QREF0=15, F_QREF1=16, F_S00=17, F_S01=18,
-    F_S10=19, F_S11=20, F_F_IDX=21, F_POW=22, F_LN_CONST=23, F_LN_COEF=24,
-    F_K=25, F_I_AMP=26, F_I_OFF=27, F_I_S=28,
+    F_J=7, F_MAG_IDX=8, F_OFFSET=9, F_H0REF=10, F_GREF0=11, F_GREF1=12,
+    F_QREF0=13, F_QREF1=14, F_S00=15, F_S01=16, F_S10=17, F_S11=18,
+    F_F_IDX=19, F_POW=20, F_LN_CONST=21, F_LN_COEF=22, F_K=23, F_I_AMP=24,
+    F_I_OFF=25, F_I_S=26,
 )
 FORM_STRIDE = 32
 KINDS = ("linear", "lift", "amp_pair")  # F_KIND; F_BETA: 0 one, 1 c / (H0 r_d), 2 H0
@@ -152,16 +159,26 @@ HALF = dict(
 HALF_STRIDE = 24
 CMB = dict(
     C_PRIOR=0, C_L=3, C_OG4=12, C_OBS=13, C_ZSTAR=14, C_I_OBH2=15, C_NRS=16,
-    C_NDC=17, C_NODES=20,
+    C_NDC=17, C_SIGMA=18, C_NODES=20,
 )
 MODELS = ("lcdm", "wcdm", "wzcdm", "w0wacdm")
-OBSERVABLES = ("R_lA_wb", "theta_wb_wm", "R_100theta_wb")
+# C_OBS: a compression's three observables, or the 100 theta* prior alone
+# ((C_PRIOR[0] - 100 r_s / D_C) / C_SIGMA)^2
+OBSERVABLES = ("R_lA_wb", "theta_wb_wm", "R_100theta_wb", "theta_100")
+# H_RD_KIND, the walker's r_d: H_RD fixed; H_RD theta[H_I_RD]; theta[H_I_RD]
+# / (H0 / 100); r_drag_aizpuru(wb, wm); r_drag_desi(wb, wm, n_eff = H_RD);
+# r_s(z_drag(wb, wm)) by the GL rule at H_OFF_RD (H_RD_N nodes, then their
+# weights), H_RD = 4 omega_gamma h^2. wb is theta[H_I_RD] for the last three.
+RD_KINDS = ("none", "fixed", "param", "over_h", "aizpuru", "desi", "z_drag")
+# H_PRIOR: none, Om h^2 from Om and H0, or the sampled theta[H_I_PRIOR]
+PRIORS = ("none", "omh2", "param")
 Z_STAR = ("aizpuru", "hu")
 # the integer fields of a form, kept in ``Packed.forms`` for the plain version
-_FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_RD_IDX", "F_J", "F_MAG_IDX",
-              "F_F_IDX", "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
+_FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_J", "F_MAG_IDX", "F_F_IDX",
+              "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
 
-_ITEM_PRESETS = "ROADMAP.md queue 1, item 10"
+_ITEM_PRESETS = "ROADMAP.md queue 1, item 10a (the SN family) or 10c (the rest)"
+_ITEM_REST = "ROADMAP.md queue 1, item 10c"
 _ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
 
 
@@ -176,7 +193,7 @@ class Packed:
     buf: torch.Tensor
     hdr: dict
     forms: tuple  # per form: the _FORM_INTS fields and n_cols, its columns before padding
-    cmb: dict  # C_OBS, C_ZSTAR, C_I_OBH2, C_NRS, C_NDC; empty without a CMB term
+    cmb: dict  # C_OBS, C_ZSTAR, C_I_OBH2, C_NRS, C_NDC; empty without a CMB or theta* term
     # the split grid: per half its HALF fields and its own ``forms``;
     # ``forms`` above is then half 0's. Empty on a native grid.
     halves: tuple = ()
@@ -208,19 +225,11 @@ def _emulated(t):
 
 def _linear_form(t, lc, names, has_h0, h):
     """FORM fields and per-pair rows of a linear-chi^2 term in half ``h``."""
-    from cosmax_torch.likelihoods.bao import RdFixed, RdParam
-
     form = lc.form(h)
-    f = dict(F_SCALE=form["scale"], F_CREF=form["c_ref"], F_BETA=0, F_RD_IDX=-1, F_J=lc.n_w,
-             F_MAG_IDX=-1, F_H0REF=1.0)
-    if "rd" in t.meta:  # BAO: beta = c / (H0 r_d)
-        rd = t.meta["rd"]
-        if isinstance(rd, RdFixed):
-            f.update(F_BETA=1, F_RD=float(rd.value))
-        elif isinstance(rd, RdParam):
-            f.update(F_BETA=1, F_RD_IDX=_index(names, rd.name, "r_d"))
-        else:
-            _refuse(f"the r_d treatment {rd!r}", _ITEM_PRESETS)
+    f = dict(F_SCALE=form["scale"], F_CREF=form["c_ref"], F_BETA=0, F_J=lc.n_w, F_MAG_IDX=-1,
+             F_H0REF=1.0)
+    if "rd" in t.meta:  # BAO: beta = c / (H0 r_d), r_d the walker's (``_rd_layout``)
+        f.update(F_BETA=1)
     elif t.meta.get("beta") == "H0":  # CC: beta = H0
         f.update(F_BETA=2)
     elif lc.beta_fn is not None:
@@ -279,7 +288,7 @@ def _half_forms(emulated, names, has_h0, h):
     forms, form_rows, cols = [], [], []
     for t, kind, obj in emulated:
         f = dict.fromkeys(FORM, 0.0)
-        f.update(F_KIND=KINDS.index(kind), F_RD_IDX=-1, F_MAG_IDX=-1, F_F_IDX=-1,
+        f.update(F_KIND=KINDS.index(kind), F_MAG_IDX=-1, F_F_IDX=-1,
                  F_I_AMP=-1, F_I_OFF=-1, F_I_S=-1, F_H0REF=1.0, F_POW=1.0)
         if kind == "linear":
             fields, fcols, rows = _linear_form(t, obj, names, has_h0, h)
@@ -305,6 +314,55 @@ def _half_forms(emulated, names, has_h0, h):
     if len(cols) > MAX_RALL:
         _refuse(f"{len(cols)} coefficient columns (at most {MAX_RALL})", _ITEM_KERNEL)
     return forms, form_rows, cols
+
+
+def _rd_layout(emulated, names, model):
+    """Header fields of the walker's r_d, from the r_d treatment that
+    every BAO term shares, and the GL rule of r_s(z_drag) (or None)."""
+    from cosmax_torch.likelihoods.bao import RdFixed, RdFromRDrag, RdFromZDrag, RdOverH, RdParam
+
+    rds = [t.meta["rd"] for t, _, _ in emulated if "rd" in t.meta]
+    if not rds:
+        return dict(H_RD_KIND=RD_KINDS.index("none")), None
+    rd = rds[0]
+    if any(r != rd for r in rds):
+        _refuse(f"BAO terms with different r_d treatments {rds!r}", _ITEM_REST)
+    if isinstance(rd, RdFixed):
+        return dict(H_RD_KIND=RD_KINDS.index("fixed"), H_RD=float(rd.value)), None
+    if isinstance(rd, (RdParam, RdOverH)):
+        kind = "param" if isinstance(rd, RdParam) else "over_h"
+        return dict(H_RD_KIND=RD_KINDS.index(kind), H_I_RD=_index(names, rd.name, "r_d"),
+                    H_RD=rd.scale if kind == "param" else 0.0), None
+    out = dict(H_I_RD=_index(names, "Obh2", "the baryon density"))
+    if isinstance(rd, RdFromRDrag):
+        out.update(H_RD_KIND=RD_KINDS.index(rd.which), H_RD=rd.n_eff)
+        return out, None
+    if isinstance(rd, RdFromZDrag):
+        if rd.model != model or rd.order > MAX_GL_RD:
+            _refuse(f"r_s(z_drag) of model {rd.model!r} by GL-{rd.order} in a {model} fit (GL "
+                    f"of at most {MAX_GL_RD} nodes)", _ITEM_REST)
+        # 4 og as one constant: the per-term path divides by 4.0 * og, a
+        # Python float, cast once to the runtime dtype
+        out.update(H_RD_KIND=RD_KINDS.index("z_drag"), H_RD=4.0 * O_GAMMA_H2, H_RD_N=rd.order)
+        return out, np.concatenate(gl_nodes_01(rd.order))
+    _refuse(f"the r_d treatment {rd!r}", _ITEM_REST)
+
+
+def _prior_layout(priors, names, has_h0):
+    """Header fields of the fit's one scalar prior: Om h^2 from Om and H0,
+    or a sampled parameter (the BBN omega_b)."""
+    if not priors:
+        return {}
+    sp = priors[0].meta["scalar_prior"]
+    if len(priors) == 1 and sp["quantity"] == "omh2" and (sp["om"], sp["h0"]) == ("Om", "H0") \
+            and has_h0:
+        out = dict(H_PRIOR=PRIORS.index("omh2"))
+    elif len(priors) == 1 and sp["quantity"] == "obh2":
+        out = dict(H_PRIOR=PRIORS.index("param"),
+                   H_I_PRIOR=_index(names, sp["param"], "the prior's parameter"))
+    else:
+        _refuse(f"the prior terms {[t.name for t in priors]!r}", _ITEM_REST)
+    return dict(out, H_PRIOR_MEAN=sp["mean"], H_PRIOR_SIGMA=sp["sigma"])
 
 
 def _by_cols(table, cols):
@@ -366,19 +424,27 @@ def pack(fit) -> Packed:
     derive = fit.derive
     if not isinstance(derive, Derive):
         _refuse(f"the derive {derive!r}", _ITEM_PRESETS)
-    # a fit may sample no H0 (fs8.fs8): then nothing may need it
-    has_h0 = derive.h0_from in names
+    # a fit may sample no H0 (fs8.fs8): then nothing may need it; or fix
+    # it for every walker (the H0-free bao.desi_des5y: H0 = 1)
+    sampled_h0 = derive.h0 is None and derive.h0_from in names
+    has_h0 = sampled_h0 or derive.h0 is not None
     if not has_h0 and (derive.h0_from != "H0" or derive.orh2 is not None):
         _index(names, derive.h0_from, "the Hubble parameter")
+    # w0 sampled as itself, or as exp(w0) (bao.desi_pantheon)
+    w0_log = derive.w0_log is not None and derive.w0_log in names
     hdr = dict.fromkeys(HEADER, 0)
     hdr.update(
         H_MAGIC=MAGIC, H_DIM=len(names), H_MODEL=MODELS.index(fit.model),
         H_I_OM=_index(names, "Om", "the density"),
-        H_I_W0=_index(names, "w0", "the equation of state") if fit.model != "lcdm" else -1,
+        H_I_W0=_index(names, derive.w0_log if w0_log else "w0", "the equation of state")
+        if fit.model != "lcdm" else -1,
+        H_W0_LOG=int(w0_log),
         H_I_WA=_index(names, "wa", "the equation of state") if fit.model == "w0wacdm" else -1,
-        H_I_H0=names.index(derive.h0_from) if has_h0 else -1,
+        H_I_H0=names.index(derive.h0_from) if sampled_h0 else -1,
         H_H0_SCALE=1.0 if derive.h0_from == "H0" else derive.h0_scale,
+        H_H0_CONST=derive.h0 or 0.0,
         H_ORH2=0.0 if derive.orh2 is None else derive.orh2,
+        H_I_RD=-1, H_I_PRIOR=-1,
     )
 
     emulated, cmb_terms, priors = [], [], []
@@ -388,22 +454,16 @@ def pack(fit) -> Packed:
             if t.log_norm is not None and kind[0] != "lift" and "rescale" not in t.meta:
                 _refuse(f"term {t.name!r} with a log-normalisation", _ITEM_PRESETS)
             emulated.append((t, *kind))
-        elif "compression" in t.meta:
+        elif "compression" in t.meta or "theta_star" in t.meta:
             cmb_terms.append(t)
         elif "scalar_prior" in t.meta:
             priors.append(t)
         else:
             _refuse(f"term {t.name!r}", _ITEM_PRESETS)
     if len(cmb_terms) > 1:
-        _refuse("more than one CMB term", _ITEM_PRESETS)
-    if priors:
-        # the Om h^2 prior, ((mean - Om (H0/100)^2) / sigma)^2, from the
-        # walker's own Om and H0
-        sp = priors[0].meta["scalar_prior"]
-        if (len(priors) > 1 or sp["quantity"] != "omh2" or sp["om"] != "Om"
-                or sp["h0"] != "H0" or not has_h0):
-            _refuse(f"the prior terms {[t.name for t in priors]!r}", _ITEM_PRESETS)
-        hdr.update(H_PRIOR=1, H_PRIOR_MEAN=sp["mean"], H_PRIOR_SIGMA=sp["sigma"])
+        # one CMB block: a compression or the theta* prior (no preset has both)
+        _refuse(f"more than one CMB term {[t.name for t in cmb_terms]!r}", _ITEM_REST)
+    hdr.update(_prior_layout(priors, names, has_h0))
     if cmb_terms and not has_h0:
         _refuse("a CMB term in a fit without H0", _ITEM_PRESETS)
     if not emulated or len(emulated) > MAX_FORMS:
@@ -446,6 +506,10 @@ def pack(fit) -> Packed:
         return put(block)
 
     hdr["H_OFF_BOUNDS"] = put(np.concatenate([fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]]))
+    rd_fields, rd_nodes = _rd_layout(emulated, names, fit.model)
+    hdr.update(rd_fields)
+    if rd_nodes is not None:
+        hdr["H_OFF_RD"] = put(rd_nodes)
     half_layouts, dev = (), None
     if not split:
         # the representation as Tucker factors and a [r1, r2, R_all] core;
@@ -567,7 +631,6 @@ def pack(fit) -> Packed:
     cmb = {}
     if cmb_terms:
         t = cmb_terms[0]
-        comp = t.meta["compression"]
         if t.meta["model"] != fit.model:
             _refuse(f"a CMB term of model {t.meta['model']!r} in a {fit.model} fit",
                     _ITEM_PRESETS)
@@ -577,9 +640,18 @@ def pack(fit) -> Packed:
                     _ITEM_KERNEL)
         from cosmax_torch.ops.linalg import whitening_operator
 
+        if "compression" in t.meta:
+            comp = t.meta["compression"]
+            obs, z_star, og = comp.observables, comp.z_star_variant, comp.o_gamma_h2
+            consts = dict(C_PRIOR=comp.priors,
+                          C_L=whitening_operator(np.linalg.inv(comp.inv_cov)))
+        else:  # the theta* prior: ((theta_100 - 100 r_s / D_C) / sigma)^2
+            ts = t.meta["theta_star"]
+            obs, z_star, og = "theta_100", ts["z_star"], ts["o_gamma_h2"]
+            consts = dict(C_PRIOR=np.array([ts["theta_100"]]), C_SIGMA=np.array([ts["sigma"]]))
         cmb = dict(
-            C_OBS=OBSERVABLES.index(comp.observables),
-            C_ZSTAR=Z_STAR.index(comp.z_star_variant),
+            C_OBS=OBSERVABLES.index(obs),
+            C_ZSTAR=Z_STAR.index(z_star),
             C_I_OBH2=_index(names, "Obh2", "the baryon density"),
             C_NRS=n_rs,
             C_NDC=n_dc,
@@ -587,10 +659,9 @@ def pack(fit) -> Packed:
         # 4 og as one constant: the per-term path divides by 4.0 * og, a
         # Python float, cast once to the runtime dtype
         block = np.zeros(CMB["C_NODES"])
-        for k, v in dict(C_OG4=4.0 * comp.o_gamma_h2, **cmb).items():
+        for k, v in dict(C_OG4=4.0 * og, **cmb).items():
             block[CMB[k]] = v
-        for k, a in dict(C_PRIOR=comp.priors,
-                         C_L=whitening_operator(np.linalg.inv(comp.inv_cov))).items():
+        for k, a in consts.items():
             block[CMB[k]:CMB[k] + a.size] = a.reshape(-1)
         hdr["H_OFF_CMB"] = put(np.concatenate([block, *gl_nodes_01(n_rs), *gl_nodes_01(n_dc)]))
     else:
@@ -636,14 +707,39 @@ def _e_of_z(z, om, o_r, w0, wa, model):
     return torch.sqrt(o_r * cubed * opz + om * cubed + ode * rho)
 
 
-def _z_star(wb, wm, variant):
-    if variant == "hu":
-        g1 = 0.0783 * wb**-0.238 / (1.0 + 39.5 * wb**0.763)
-        g2 = 0.560 / (1.0 + 21.1 * wb**1.81)
-        return 1048.0 * (1.0 + 0.00124 * wb**-0.738) * (1.0 + g1 * wm**g2)
-    return (391.672 * wm ** (-0.372296) + 937.422 * wb ** (-0.97966)) / (
-        wm ** (-0.0192951) * wb ** (-0.93681)
-    ) + wm ** (-0.731631)
+def _sound_horizon(t, w, z, rb, h0, cm, cr, cw, cwa, model):
+    """r_s(z) by the GL rule (t, w) on [0, 1] in a: walker values [W, 1],
+    z, h0 [W]."""
+    a_end = (1.0 / (1.0 + z))[:, None]
+    a = a_end * t
+    ez = _e_of_z(1.0 / a - 1.0, cm, cr, cw, cwa, model)
+    integ = C_KM_S / (a * a * ez * torch.sqrt(3.0 * (1.0 + rb * a)))
+    return torch.sum(integ * (a_end * w), dim=-1) / h0
+
+
+def _walker_rd(packed, col, h0, om, o_r, w0, wa, model):
+    """The walker's r_d [W] (or a scalar), as ``H_RD_KIND`` says."""
+    hdr, buf = packed.hdr, packed.buf
+    kind = RD_KINDS[int(hdr["H_RD_KIND"])]
+    val = buf[HEADER["H_RD"]]
+    if kind in ("none", "fixed"):
+        return val
+    x = col(hdr["H_I_RD"])
+    if kind == "param":
+        return val * x
+    if kind == "over_h":
+        return x / (h0 / 100.0)
+    wm = om * (h0 / 100.0) ** 2
+    if kind == "aizpuru":
+        return recombination.r_drag_aizpuru(x, wm)
+    if kind == "desi":
+        return recombination.r_drag_desi(x, wm, val)
+    n = int(hdr["H_RD_N"])
+    nodes = _seg(buf, hdr["H_OFF_RD"], 2 * n)
+    cw, cwa = (None if v is None else v[:, None] for v in (w0, wa))
+    rb = (3.0 * x / val)[:, None]
+    return _sound_horizon(nodes[:n], nodes[n:], recombination.z_drag(x, wm), rb, h0,
+                          om[:, None], o_r[:, None], cw, cwa, model)
 
 
 def _seg(buf, off, n, shape=None):
@@ -702,9 +798,10 @@ def _tt_coeff(packed, h, coords):
     return coeff_contract(weights, ("tt", tuple(perm), cores, tail))
 
 
-def _forms_chi2(packed, forms, forms_off, a, theta, h0, t):
+def _forms_chi2(packed, forms, forms_off, a, theta, h0, t, rd):
     """(chi^2, log_norm) [W] of the emulated terms, each form over its
-    own window of the coefficient vector ``a`` [W, 4 nq]."""
+    own window of the coefficient vector ``a`` [W, 4 nq]; ``rd`` the
+    walkers' r_d."""
     buf = packed.buf
     zero = torch.zeros_like(theta[:, 0])
 
@@ -721,7 +818,6 @@ def _forms_chi2(packed, forms, forms_off, a, theta, h0, t):
         kind = KINDS[f["F_KIND"]]
         if kind == "linear":
             if f["F_BETA"] == 1:
-                rd = col(f["F_RD_IDX"]) if f["F_RD_IDX"] >= 0 else v["F_RD"]
                 beta = C_KM_S / (h0 * rd)
             elif f["F_BETA"] == 2:
                 beta = h0
@@ -778,16 +874,21 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
 
     model = MODELS[int(hdr["H_MODEL"])]
     zero = torch.zeros_like(theta[:, 0])
-    h0 = col(hdr["H_I_H0"]) * buf[HEADER["H_H0_SCALE"]] if hdr["H_I_H0"] >= 0 else zero
+    h0 = (col(hdr["H_I_H0"]) * buf[HEADER["H_H0_SCALE"]] if hdr["H_I_H0"] >= 0
+          else zero + buf[HEADER["H_H0_CONST"]])
     om = col(hdr["H_I_OM"])
     w0 = col(hdr["H_I_W0"]) if model != "lcdm" else None
+    if hdr["H_W0_LOG"]:
+        w0 = torch.log(w0)
     wa = col(hdr["H_I_WA"]) if model == "w0wacdm" else None
     o_r = buf[HEADER["H_ORH2"]] / (h0 / 100.0) ** 2 if hdr["H_ORH2"] != 0 else zero
     t = (o_r / OR_REF)[:, None]
+    rd = _walker_rd(packed, col, h0, om, o_r, w0, wa, model) + zero
 
     if not hdr["H_SPLIT"]:
         a = _tucker_coeff(packed, om, w0)
-        chi2, log_norm = _forms_chi2(packed, packed.forms, hdr["H_OFF_FORMS"], a, theta, h0, t)
+        chi2, log_norm = _forms_chi2(packed, packed.forms, hdr["H_OFF_FORMS"], a, theta, h0, t,
+                                     rd)
     else:
         s = w0 + wa
         lower = s <= 0.0  # a NaN s takes half 1, as in the kernel
@@ -799,7 +900,7 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
             lay = packed.halves[h]
             a = _tt_coeff(packed, h, (om[idx], wa[idx], s[idx]))
             c, ln = _forms_chi2(packed, lay["forms"], lay["T_OFF_FORMS"], a, theta[idx],
-                                h0[idx], t[idx])
+                                h0[idx], t[idx], rd[idx])
             chi2 = chi2.index_put((idx,), c)
             log_norm = log_norm.index_put((idx,), ln)
 
@@ -807,7 +908,8 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
         chi2 = chi2 + _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model)
     if hdr["H_PRIOR"]:
         mean, sigma = buf[HEADER["H_PRIOR_MEAN"]], buf[HEADER["H_PRIOR_SIGMA"]]
-        res = (mean - om * (h0 / 100.0) ** 2) / sigma
+        x = om * (h0 / 100.0) ** 2 if PRIORS[hdr["H_PRIOR"]] == "omh2" else col(hdr["H_I_PRIOR"])
+        res = (mean - x) / sigma
         chi2 = chi2 + res * res
 
     bounds = _seg(buf, hdr["H_OFF_BOUNDS"], 2 * d)
@@ -818,7 +920,8 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
 
 def _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model):
     """The compressed-CMB chi^2: z* fit, r_s by GL in a, D_C by GL in
-    ln a, the three observables and the 3 x 3 whitening."""
+    ln a, the three observables and the 3 x 3 whitening; or the theta*
+    prior from the same r_s and D_C."""
     c = packed.cmb
     base = int(packed.hdr["H_OFF_CMB"])
     block = packed.buf[base:]
@@ -828,16 +931,13 @@ def _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model):
     t_dc, w_dc = nodes[2 * n_rs:2 * n_rs + n_dc], nodes[2 * n_rs + n_dc:]
     wb = col(c["C_I_OBH2"])
     wm = om * (h0 / 100.0) ** 2
-    zs = _z_star(wb, wm, Z_STAR[c["C_ZSTAR"]])
+    zs = (recombination.z_star_hu if Z_STAR[c["C_ZSTAR"]] == "hu" else recombination.z_star)(
+        wb, wm)
     cm, cr = om[:, None], o_r[:, None]
     cw, cwa = (None if x is None else x[:, None] for x in (w0, wa))
 
     rb = (3.0 * wb / block[CMB["C_OG4"]])[:, None]
-    a_end = (1.0 / (1.0 + zs))[:, None]
-    a = a_end * t_rs
-    ez = _e_of_z(1.0 / a - 1.0, cm, cr, cw, cwa, model)
-    integ = C_KM_S / (a * a * ez * torch.sqrt(3.0 * (1.0 + rb * a)))
-    rs = torch.sum(integ * (a_end * w_rs), dim=-1) / h0
+    rs = _sound_horizon(t_rs, w_rs, zs, rb, h0, cm, cr, cw, cwa, model)
 
     u0 = torch.log(1.0 / (1.0 + zs))[:, None]
     a = torch.exp(u0 * (1.0 - t_dc))
@@ -845,6 +945,9 @@ def _cmb_chi2(packed, col, h0, om, o_r, w0, wa, model):
     dm = torch.sum(C_KM_S / (a * ez) * (-u0 * w_dc), dim=-1) / h0
 
     obs = OBSERVABLES[c["C_OBS"]]
+    if obs == "theta_100":
+        res = (block[CMB["C_PRIOR"]] - 100.0 * rs / dm) / block[CMB["C_SIGMA"]]
+        return res * res
     if obs == "theta_wb_wm":
         vals = (rs / dm, wb, wm)
     else:
@@ -960,6 +1063,16 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
     once per call) are left out of the per-walker count."""
     h = packed.hdr
     ops, product = 10, 0  # derived parameters and the bounds test
+    ops += int(h["H_W0_LOG"])  # w0 = log(exp_w0)
+    rd_kind = RD_KINDS[int(h["H_RD_KIND"])]
+    if rd_kind in ("param", "over_h"):
+        ops += 1
+    elif rd_kind in ("aizpuru", "desi"):
+        ops += 20  # wm, the fitting formula's powers and sums
+    elif rd_kind == "z_drag":
+        # wm, z_drag's three powers, then per node E(z) ~19 (~24 with CPL's
+        # exponent) and the integrand and the sum ~14, as the CMB's r_s
+        ops += 12 + int(h["H_RD_N"]) * (33 + (5 if h["H_SPLIT"] else 0))
     if not h["H_SPLIT"]:
         forms = packed.forms
         for i in (1, 2)[:int(h["H_NAXES"])]:
@@ -1001,7 +1114,10 @@ def work_per_walker(packed: Packed, half: int = 0) -> tuple:
         # exponent), the integrand and the sum ~14 for r_s, ~10 for D_C;
         # the observables and 3 x 3
         cpl = 5 if h["H_SPLIT"] else 0
-        ops += 30 + n_rs * (33 + cpl) + n_dc * (29 + cpl) + 40
+        # the theta* prior: 100 r_s / D_C, its residual over sigma, squared
+        last = 5 if OBSERVABLES[packed.cmb["C_OBS"]] == "theta_100" else 40
+        ops += 30 + n_rs * (33 + cpl) + n_dc * (29 + cpl) + last
     if h["H_PRIOR"]:
-        ops += 6  # Om h^2, the residual, its division and square
+        # Om h^2 (or the sampled parameter), the residual, its division and square
+        ops += 6 if PRIORS[int(h["H_PRIOR"])] == "omh2" else 3
     return int(ops), int(product), 4 * (packed.dim + 1)

@@ -19,7 +19,10 @@ multiprobe walkers, 65,536 and 262,144 w0wacdm walkers and 131,072
 w0wacdm multiprobe walkers, walkers drawn near the box centre as
 ``chip_smoke.py``'s bench draw, and 65,536 w0wacdm walkers and 131,072
 w0wacdm multiprobe walkers uniform over the prior box (both halves of the
-split grid). Each ``--variant NAME=VALUE`` also
+split grid); and, where the tree has them, ``bao.desi_bbn`` (r_d from
+z_drag, the BBN prior) and ``bao.desi_omh2_theta_star`` (theta*, the Om
+h^2 prior) at 262,144 wzcdm and 65,536 w0wacdm walkers of the bench draw.
+Each ``--variant NAME=VALUE`` also
 builds that tree's source with the line ``constexpr int NAME = ...;``
 set to VALUE (where the tree's source has that constant), and times it
 in the same process, interleaved with the tree's own kernel (forward,
@@ -56,7 +59,11 @@ SIZES = (("bao.desi_cmb_des5y", "wzcdm", 65536, "bench"),
          ("bao.desi_cmb_des5y", "w0wacdm", 262144, "bench"),
          ("bao.desi_cmb_des5y", "w0wacdm", 65536, "uniform"),
          ("joint.multiprobe", "w0wacdm", 131072, "bench"),
-         ("joint.multiprobe", "w0wacdm", 131072, "uniform"))
+         ("joint.multiprobe", "w0wacdm", 131072, "uniform"),
+         ("bao.desi_bbn", "wzcdm", 262144, "bench"),
+         ("bao.desi_omh2_theta_star", "wzcdm", 262144, "bench"),
+         ("bao.desi_bbn", "w0wacdm", 65536, "bench"),
+         ("bao.desi_omh2_theta_star", "w0wacdm", 65536, "bench"))
 
 
 def _median_ms(fn, reps=20, inner=20):

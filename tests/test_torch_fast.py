@@ -210,13 +210,16 @@ def tucker_term_errors(packed, theta, passes):
         zero = torch.zeros_like(th[:, 0])
         h0 = th[:, h["H_I_H0"]] * buf[fl.HEADER["H_H0_SCALE"]] if h["H_I_H0"] >= 0 else zero
         o_r = buf[fl.HEADER["H_ORH2"]] / (h0 / 100.0) ** 2 if h["H_ORH2"] != 0 else zero
+        w0 = th[:, h["H_I_W0"]] if h["H_NAXES"] > 1 else None
         if a is None:
-            a = fl._tucker_coeff(pk, th[:, h["H_I_OM"]],
-                                 th[:, h["H_I_W0"]] if h["H_NAXES"] > 1 else None)
+            a = fl._tucker_coeff(pk, th[:, h["H_I_OM"]], w0)
+        # the walker's r_d, as the kernel computes it before the forms
+        rd = fl._walker_rd(pk, lambda j: th[:, int(j)], h0, th[:, h["H_I_OM"]], o_r, w0, None,
+                           fl.MODELS[int(h["H_MODEL"])]) + zero
         logps.append([])
         for i, f in enumerate(pk.forms):
             chi2, log_norm = fl._forms_chi2(pk, [f], h["H_OFF_FORMS"] + i * fl.FORM_STRIDE, a,
-                                            th, h0, (o_r / OR_REF)[:, None])
+                                            th, h0, (o_r / OR_REF)[:, None], rd)
             logps[-1].append((-0.5 * chi2 + log_norm).double())
     return [float((got - want).abs().max() / want.abs().max())
             for want, got in zip(*logps)]
