@@ -129,7 +129,30 @@ raising on failure (non-zero exit):
    wzcdm and 65,536 w0wacdm walkers (kernel and plain, the bound, the
    kernel with its branch left out, shared memory a block and blocks an
    SM, ``fit.log_prob()`` end to end with its launch count); the phase's seconds; and the CLI with ``--fast`` on
-   ``bao.desi_bbn``, 150 walkers x 20 steps, a finite (150, 4) chain.
+   ``bao.desi_bbn``, 150 walkers x 20 steps, a finite (150, 4) chain;
+15. the SN family (the ten ``sn.*`` presets) and the rest of ``cc.*``
+   (``cc.cc_pantheon``, ``cc.cc_plain``, ``cc.cc_cmb``), every preset with
+   the dense synthetic SN factors: the parity path of each in wzcdm
+   (``cc.cc_cmb`` is lcdm) at 1,024 walkers, all finite, 64 of them
+   against the f64 CPU parity path within 1e-4 of max|logp|, the chi^2
+   kernel's launches counted; the chi^2 kernel against its plain version
+   at (65,536, N) on the factors of Union2.1, Pantheon 2018, Pantheon+
+   and Pantheon+ & SH0ES (N = 580, 1048, 1590, 1657), rtol 5e-5, with
+   kernel and plain (cuBLAS) times and the bound; the fast path of each
+   in wzcdm at 4,096 walkers, the fused kernel against its plain version
+   whole and each term alone within 1e-4 of max|logp| (seeded out-of-box
+   and NaN rows -inf in both), 64 walkers against the f64 CPU fast path;
+   the presets of new structure (``sn.pantheon_shoes``, ``sn.des5y_cmb``,
+   ``sn.union21``, ``sn.des5y``, ``cc.cc_plain``) the same way in lcdm,
+   wcdm and w0wacdm (w0wacdm also uniform over the box) and on the
+   parity path at 256 walkers; ``sn.des5y`` and ``sn.des5y_cmb`` at
+   262,144 wzcdm and ``sn.pantheon_shoes`` at 65,536 w0wacdm walkers
+   timed (kernel, plain, bound, shared memory a block, blocks an SM,
+   ``fit.log_prob()`` end to end with its launch count); the phase's
+   seconds; and the CLI with ``--fast --synthetic-sys`` on
+   ``sn.pantheon_shoes``, 500 walkers x 20 steps, a finite (500, 4)
+   chain, and on the parity path on ``cc.cc_pantheon`` (SN and CC through
+   the chi^2 kernel), 150 walkers x 20 steps, a finite (150, 5) chain.
 
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
@@ -196,6 +219,15 @@ BRANCHES = (("K1 BBN prior, K2 r_s(z_drag)", "bao.desi_bbn", {}),
             ("K5 exp(w0)", "bao.desi_pantheon", {}))
 MODELS = ("lcdm", "wcdm", "wzcdm", "w0wacdm")
 FAMILY_WALKERS, FAMILY_PARITY_WALKERS = 4096, 1024
+# phase 15: the SN family and the rest of cc.*, the presets among them of a
+# structure no earlier preset had (held in the four models), and the timing
+# rows (preset, model, walkers)
+SN_FAMILY = ("sn.pantheon", "sn.pantheon_shoes", "sn.union3", "sn.des5y", "sn.union21",
+             "sn.pantheon18", "sn.des5y_bins", "sn.pantheon_cmb", "sn.union3_cmb",
+             "sn.des5y_cmb", "cc.cc_pantheon", "cc.cc_plain", "cc.cc_cmb")
+SN_NEW_STRUCTURE = ("sn.pantheon_shoes", "sn.des5y_cmb", "sn.union21", "sn.des5y", "cc.cc_plain")
+SN_TIMING = (("sn.des5y", "wzcdm", BIG_WALKERS), ("sn.des5y_cmb", "wzcdm", BIG_WALKERS),
+             ("sn.pantheon_shoes", "w0wacdm", BENCH_WALKERS))
 # planted faults of the #1e branches (variants of the source built in phase
 # 2): (edits, preset, the ``_term_alone`` key of the term whose check alone
 # must fail: its form's index, None for the theta* block, "prior")
@@ -646,7 +678,9 @@ def phase_fast(card, parity_ref, ptxas_tucker, variants):
 
 def phase_cli(card, label, preset="bao.desi_cmb_des5y", walkers=150, dim=6, fast=False,
               model="wzcdm", synthetic_sys=False):
-    """Phase 6 (parity), 8, 11, 12 and 13 (--fast): the CLI, 20 steps.
+    """Phase 6 (parity), 8, 11, 12, 13, 14 (--fast) and 15 (both): the CLI,
+    20 steps; the parity path's presets have two terms through the chi^2
+    kernel.
     ``synthetic_sys`` passes --synthetic-sys, so that the preset's build is
     the one an earlier phase made (phase 13: minutes of the host)."""
     import numpy as np
@@ -1763,6 +1797,198 @@ def phase_bao_family(card, variants):
     return dict(worst, branches=branch_worst, planted=caught, timing=timing, seconds=seconds)
 
 
+def _chi2_at(card, n, linv_np, gen):
+    """Phase 15: the chi^2 kernel against its plain version at (65,536, n)
+    on an SN whitening factor, rtol RTOL_KERNEL per walker, with kernel
+    and plain times and the bound (the triangle's W n (n + 1) flop at the
+    f32 peak). The plain version is one cuBLAS product with its
+    square-and-sum: it is the library time too."""
+    import torch
+
+    from cosmax_torch.ops.kernels.whitened_chi2 import whitened_chi2, whitened_chi2_reference
+
+    w = BENCH_WALKERS
+    linv = torch.as_tensor(linv_np, device="cuda").float()
+    delta = torch.randn((w, n), generator=gen, device="cuda")
+    got = whitened_chi2(linv, delta)
+    want = whitened_chi2_reference(linv, delta)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = float((err / want.abs()).max())
+    if not bool(torch.isfinite(got).all()) or rel > RTOL_KERNEL:
+        raise AssertionError(f"phase 15: chi^2 kernel vs plain at ({w}, {n}): max rel err "
+                             f"{rel:.3e}")
+    ms = _median_ms(lambda: whitened_chi2(linv, delta))
+    plain_ms = _median_ms(lambda: whitened_chi2_reference(linv, delta))
+    bound_ms = 1e3 * max(w * n * (n + 1) / PEAK_F32_FLOPS, 4.0 * (w * n + n * n + w) / PEAK_BYTES)
+    print(f"phase 15: whitened_chi2 vs plain at (W={w}, N={n}): max rel err {rel:.3e}, max abs "
+          f"err {float(err.max()):.3e}; on {card}: kernel {ms:.4f} ms, plain (cuBLAS) "
+          f"{plain_ms:.4f} ms (median of 20, CUDA events), bound {bound_ms:.4f} ms "
+          f"({ms / bound_ms:.2f}x)")
+    return dict(max_rel_err=rel, max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=plain_ms)
+
+
+def phase_sn_family(card):
+    """Phase 15: the SN family (the ten sn.* presets) and the rest of cc.*
+    (cc.cc_pantheon, cc.cc_plain, cc.cc_cmb) on both paths, with the dense
+    synthetic SN factors, and the chi^2 kernel at the family's sizes."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.data.loaders import load_sn, use_synthetic_sys
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
+
+    t_phase = time.perf_counter()
+    fits = {}
+
+    def fast_fit(name, model):
+        if (name, model) not in fits:
+            t0 = time.perf_counter()
+            fit = get_preset(name, model, fast=True, synthetic_sys=True, device="cuda")
+            fits[name, model] = (fit, fl.pack(fit), time.perf_counter() - t0)
+        return fits[name, model]
+
+    # the parity path in wzcdm (cc.cc_cmb is lcdm): all finite, 64 walkers
+    # against the f64 CPU parity path, the chi^2 kernel's launches counted
+    worst = dict(fused=0.0, fast=0.0, parity=0.0, alone=0.0)
+    parity_launches = {}
+    for name in SN_FAMILY:
+        par = get_preset(name, "wzcdm", synthetic_sys=True, device="cuda")
+        walkers = _flagship_walkers(par, FAMILY_PARITY_WALKERS, seed=30)
+        log_prob = par.log_prob()
+        _reset_counts()
+        lp = log_prob(torch.as_tensor(walkers, device="cuda"))
+        torch.cuda.synchronize()
+        parity_launches[name] = kmod.LAUNCHES
+        lp32 = lp.double().cpu().numpy()
+        par64 = get_preset(name, "wzcdm", synthetic_sys=True, device="cpu", dtype=torch.float64)
+        gap = _gap(lp32[:64], par64.log_prob()(torch.as_tensor(walkers[:64].astype(np.float64)))
+                   .numpy())
+        if not (np.all(np.isfinite(lp32)) and gap <= LOGP_RTOL and kmod.LAUNCHES >= 1):
+            raise AssertionError(f"phase 15 {name} parity: {int((~np.isfinite(lp32)).sum())} "
+                                 f"non-finite, f32 card vs f64 CPU {gap:.3e}, "
+                                 f"{kmod.LAUNCHES} chi^2 kernel launches")
+        worst["parity"] = max(worst["parity"], gap)
+        print(f"phase 15: {name}/{par.model} parity on the card at W={FAMILY_PARITY_WALKERS}: "
+              f"all finite, {parity_launches[name]} whitened_chi2 launches a call; f32 card vs "
+              f"f64 CPU on 64 walkers {gap:.3e} of max|logp|")
+
+    # the chi^2 kernel at the family's sizes, on each dataset's factor
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    chi2 = {}
+    with use_synthetic_sys(True):
+        for ds in ("union21", "pantheon18", "pantheon_plus", "pantheon_plus_shoes"):
+            sn = load_sn(ds)
+            chi2[sn.n] = dict(_chi2_at(card, sn.n, np.ascontiguousarray(sn.linv), gen), dataset=ds)
+
+    # the fast path in wzcdm: whole and each term alone against the plain
+    # version, f32 card against the f64 CPU fast path
+    def check(name, model, draws):
+        fit, packed, build_s = fast_fit(name, model)
+        names = [t.name for t in fit.terms if fl._emulated(t) is not None]
+        parts = []
+        for dlabel, walkers in draws(fit):
+            walkers = _bad_rows(fit, walkers)
+            rel = _check_fused(fl, packed, walkers, f"phase 15 {name}/{model} {dlabel}")
+            alone, w = _each_term(fl, packed, torch.as_tensor(walkers, device="cuda"), names,
+                                  f"phase 15 {name}/{model} {dlabel}")
+            worst["fused"], worst["alone"] = max(worst["fused"], rel), max(worst["alone"], w)
+            parts.append(f"{dlabel} {rel:.3e}, each term alone: {', '.join(alone)}")
+        return fit, packed, build_s, parts
+
+    bench = lambda fit: [("bench", _flagship_walkers(fit, FAMILY_WALKERS, seed=31))]
+    for name in SN_FAMILY:
+        fit, packed, build_s, parts = check(name, "wzcdm", bench)
+        walkers = _flagship_walkers(fit, 64, seed=32)
+        lp32 = fit.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+        ref = get_preset(name, "wzcdm", fast=True, synthetic_sys=True, device="cpu",
+                         dtype=torch.float64)
+        gap = _gap(lp32, ref.log_prob()(torch.as_tensor(walkers.astype(np.float64))).numpy())
+        if not gap <= LOGP_RTOL:
+            raise AssertionError(f"phase 15 {name}: f32 card vs f64 CPU fast {gap:.3e}")
+        worst["fast"] = max(worst["fast"], gap)
+        h = packed.hdr
+        print(f"phase 15: {name}/{fit.model} fast, built and packed in {build_s:.2f}s (Tucker "
+              f"ranks ({h['H_R1']}, {h['H_R2']}), R_all {h['H_RALL']}, {_layout(fl, packed)}); "
+              f"fused kernel vs plain at W={FAMILY_WALKERS} (of max|logp|): {'; '.join(parts)}; "
+              f"f32 card vs f64 CPU fast path on 64 walkers {gap:.3e}")
+
+    # the presets of new structure in the other models: the fast path
+    # (w0wacdm also uniform over the box, both halves), and the parity
+    # path on the card against the f64 CPU one
+    def draws(fit):
+        out = [("bench", _flagship_walkers(fit, FAMILY_WALKERS, seed=33))]
+        if fit.model == "w0wacdm":
+            out.append(("uniform", _box_walkers(fit, FAMILY_WALKERS, seed=34)))
+        return out
+
+    for name in SN_NEW_STRUCTURE:
+        for model in ("lcdm", "wcdm", "w0wacdm"):
+            fit, packed, build_s, parts = check(name, model, draws)
+            par = get_preset(name, model, synthetic_sys=True, device="cuda")
+            par64 = get_preset(name, model, synthetic_sys=True, device="cpu", dtype=torch.float64)
+            walkers = _flagship_walkers(par, FAMILY_PARITY_WALKERS // 4, seed=35)
+            lp32 = par.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+            gap = _gap(lp32, par64.log_prob()(torch.as_tensor(walkers.astype(np.float64)))
+                       .numpy())
+            if not (np.all(np.isfinite(lp32)) and gap <= LOGP_RTOL):
+                raise AssertionError(f"phase 15 {name}/{model} parity: f32 card vs f64 CPU "
+                                     f"{gap:.3e}")
+            worst["parity"] = max(worst["parity"], gap)
+            print(f"phase 15: {name}/{model} fast, built and packed in {build_s:.2f}s; fused "
+                  f"kernel vs plain (of max|logp|): {'; '.join(parts)}; parity on the card vs "
+                  f"f64 CPU at W={FAMILY_PARITY_WALKERS // 4} {gap:.3e}")
+
+    # the timing rows: the kernel, its plain version, the bound, a block's
+    # shared memory and blocks an SM, fit.log_prob() end to end
+    timing = {}
+    for name, model, w in SN_TIMING:
+        fit, packed, _ = fast_fit(name, model)
+        theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
+        ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
+        plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
+        if model == "w0wacdm":
+            bound_ms, ffma_ms, ((ops, prod), _) = _split_bound_ms(fl, fit, packed, theta)
+        else:
+            bound_ms, ffma_ms, ops, prod, _ = _tucker_bound_ms(fl, packed, w)
+        smem, blocks = fl.occupancy(packed)
+        log_prob = fit.log_prob()
+        _reset_counts()
+        lp = log_prob(theta)
+        torch.cuda.synchronize()
+        launched = fl.LAUNCHES
+        if launched < 1 or not bool(torch.isfinite(lp).all()):
+            raise AssertionError(f"phase 15 {name}/{model} log_prob: {launched} fused launches, "
+                                 f"{int((~torch.isfinite(lp)).sum())} non-finite")
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            log_prob(theta)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        print(f"phase 15: fused_log_prob {name}/{model} at W={w} on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms (median of 20 samples of 20 calls, CUDA events); bound "
+              f"{bound_ms:.4f} ms ({prod} product ops a walker at the TF32 peak, {ops} other ops "
+              f"at the f32 peak; {ms / bound_ms:.1f}x), {ffma_ms:.4f} ms with every op at the "
+              f"f32 peak; {smem} bytes of shared memory a block, {blocks} blocks an SM; "
+              f"fit.log_prob() {launched} fused launch a call, {w / dt:.1f} evals/s end to end "
+              f"({1e3 * dt:.4f} ms a call, host clock, mean of {reps})")
+        timing[f"{name}/{model}"] = dict(
+            walkers=w, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms,
+            smem_bytes=smem, blocks_per_sm=blocks, log_prob_launches=launched,
+            evals_per_s=w / dt)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 15: worst of max|logp|: fused kernel vs plain {worst['fused']:.3e}, each term "
+          f"alone {worst['alone']:.3e}, f32 card vs f64 CPU fast {worst['fast']:.3e}, parity "
+          f"{worst['parity']:.3e}; {seconds:.1f}s on {card}")
+    return dict(worst, chi2=chi2, parity_launches=parity_launches, timing=timing,
+                seconds=seconds)
+
+
 def main():
     import torch
 
@@ -1810,19 +2036,28 @@ def main():
                                      model="w0wacdm", synthetic_sys=True)
     family = phase_bao_family(card, variants)
     family["cli_launches"] = phase_cli(card, "phase 14", "bao.desi_bbn", 150, 4, fast=True)
-    print(f"phases 2-14 took {time.perf_counter() - t_start:.1f}s on {card}")
+    sn_family = phase_sn_family(card)
+    sn_family["cli_launches"] = phase_cli(card, "phase 15", "sn.pantheon_shoes", 500, 4,
+                                          fast=True, synthetic_sys=True)
+    sn_parity_cli_launches = phase_cli(card, "phase 15", "cc.cc_pantheon", 150, 5,
+                                       synthetic_sys=True)
+    print(f"phases 2-15 took {time.perf_counter() - t_start:.1f}s on {card}")
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches, **timing,
-         "multiprobe_parity_launches": mp_parity_launches},
+         "multiprobe_parity_launches": mp_parity_launches,
+         "sn_family": dict(sn_family["chi2"], parity_launches=sn_family["parity_launches"],
+                           cli_launches=sn_parity_cli_launches)},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
          "w0wacdm": dict(w0wa, cli_launches=w0wa_cli_launches),
          "w0wacdm_multiprobe": dict(w0wa_mp, cli_launches=w0wa_mp_cli_launches),
          "cc_cc": cc_cc,
-         "branches_1e": [label for label, _, _ in BRANCHES], "bao_family": family},
+         "branches_1e": [label for label, _, _ in BRANCHES], "bao_family": family,
+         "sn_family": {k: v for k, v in sn_family.items()
+                       if k not in ("chi2", "parity_launches")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Preset registry (counterpart of ``cosmax/configs/presets.py``).
 
-Ported so far (26 of the reference's 45 presets), each on the parity
+Ported so far (39 of the reference's 45 presets), each on the parity
 path and on the fast path (``fast=True``) in all four models (lcdm, wcdm,
 wzcdm, w0wacdm):
 
@@ -15,9 +15,16 @@ wzcdm, w0wacdm):
   fitting formulae), ``bao.desi_union3_omh2`` / ``bao.desi_des5y_omh2``;
 * the BAO + CMB + SN joints ``bao.desi_cmb_pantheon``,
   ``bao.desi_cmb_union3`` and the flagship ``bao.desi_cmb_des5y``;
-* the all-probe ``joint.multiprobe``, ``fs8.fs8``, ``cc.cc_union3`` and
-  ``cc.cc_des5y`` (both f conventions of the CC term) and ``cc.cc`` (CC
-  with the Om h^2 prior).
+* the SN family: ``sn.pantheon``, ``sn.pantheon18``, ``sn.union3``,
+  ``sn.union21``, ``sn.des5y`` and its binned ``sn.des5y_bins`` (a
+  magnitude at a fixed H0 = 70), ``sn.pantheon_shoes`` (a sampled H0 and
+  the Cepheid calibrators), and the SN + CMB fits ``sn.pantheon_cmb``,
+  ``sn.union3_cmb``, ``sn.des5y_cmb`` (the radiation-aware E(z) with each
+  compression's Omega_r h^2);
+* the all-probe ``joint.multiprobe``, ``fs8.fs8``, the CC fits ``cc.cc``
+  (CC with the Om h^2 prior), ``cc.cc_plain`` (the same without the f
+  nuisance), ``cc.cc_cmb`` (always lcdm), and ``cc.cc_pantheon``,
+  ``cc.cc_union3``, ``cc.cc_des5y`` (both f conventions of the CC term).
 
 Each preset reproduces the reference script's parameter order, bounds,
 grids, r_d treatment and radiation constants. The model is an argument:
@@ -56,7 +63,7 @@ from cosmax_torch.likelihoods import sn as sn_mod
 from cosmax_torch.likelihoods.base import ParamSpec, make_chi2_breakdown, make_log_prob
 from cosmax_torch.likelihoods.fastmode import use_fast_mode
 from cosmax_torch.models.linear_chi2 import set_scope_domains
-from cosmax_torch.samplers.ensemble import default_moves
+from cosmax_torch.samplers.ensemble import MoveSpec, default_moves
 
 WA_BOUNDS = (-3.0, 2.0)
 W0_PARAMS = ("w0", "exp_w0")  # exp_w0: bao.desi_pantheon samples w0 as exp(w0)
@@ -595,8 +602,45 @@ def _cc_cc(model, device, dtype):
     )
 
 
-def _cc_sn(name, sn_name, f_bounds, mag_bounds, h0_b, om_b, convention, note,
+@_register("cc.cc_plain", "cc.py docstring variant without the f nuisance")
+def _cc_plain(model, device, dtype):
+    ds = load_cc()
+    params = _adjust_params([("H0", 50, 90), ("Om", 0.15, 0.50), ("w0", -2.5, 0)], model)
+    terms = (
+        cc_mod.build_cc_term(ds, model, device=device, dtype=dtype, f_param=None),
+        priors_mod.omh2_term(),
+    )
+    return FitSpec(
+        "cc.cc_plain", model, _spec(params), terms, Derive(), device, dtype,
+        data_size=ds.n + 1, note=PRESET_NOTES["cc.cc_plain"],
+    )
+
+
+ORH2_CHEN = cmb_mod.COMPRESSIONS["chen"].omega_r_h2()
+ORH2_UNION3 = cmb_mod.COMPRESSIONS["union3"].omega_r_h2()
+
+
+@_register("cc.cc_cmb", "cosmic_chronometers/cc_cmb.py: LCDM only")
+def _cc_cmb(model, device, dtype):
+    """CC + CMB(chen); the reference hard-codes LCDM here
+    (cosmic_chronometers/cc_cmb.py:22 rho_de = 1), whatever ``model``."""
+    model = "lcdm"
+    ds = load_cc()
+    params = [("H0", 50, 85), ("Om", 0.1, 0.45), ("Obh2", 0.0210, 0.0235), ("f_cc", 0.1, 1.5)]
+    terms = (
+        cc_mod.build_cc_term(ds, model, "divide", device=device, dtype=dtype),
+        cmb_mod.build_cmb_term("chen", model, device, dtype),
+    )
+    return FitSpec(
+        "cc.cc_cmb", model, _spec(params), terms, Derive(orh2=ORH2_CHEN), device, dtype,
+        data_size=ds.n + 3, note=PRESET_NOTES["cc.cc_cmb"],
+    )
+
+
+def _cc_sn(name, sn_name, f_bounds, mag, mag_bounds, h0_b, om_b, convention, note,
            use_z_hel=True):
+    """CC + SN; an absolute magnitude M follows H0, an offset dM comes
+    before it (the reference's parameter order)."""
     @_register(name, note)
     def build(model, device, dtype):
         cc_ds = load_cc()
@@ -604,15 +648,16 @@ def _cc_sn(name, sn_name, f_bounds, mag_bounds, h0_b, om_b, convention, note,
         params = _adjust_params(
             [
                 ("f_cc", *f_bounds),
-                ("dM", *mag_bounds),
+                *([] if mag == "M" else [(mag, *mag_bounds)]),
                 ("H0", *h0_b),
+                *([(mag, *mag_bounds)] if mag == "M" else []),
                 ("Om", *om_b),
                 ("w0", -2, 0),
             ],
             model,
         )
         terms = (
-            sn_mod.build_sn_term(sn_ds, model, "dM", h0="H0", device=device, dtype=dtype,
+            sn_mod.build_sn_term(sn_ds, model, mag, h0="H0", device=device, dtype=dtype,
                                  use_z_hel=use_z_hel, name="sn"),
             cc_mod.build_cc_term(cc_ds, model, convention, device=device, dtype=dtype),
         )
@@ -626,13 +671,92 @@ def _cc_sn(name, sn_name, f_bounds, mag_bounds, h0_b, om_b, convention, note,
 
 
 _cc_sn(
-    "cc.cc_union3", "union3", (0.4, 2.5), (-0.7, 0.5), (55, 80), (0.1, 0.7), "divide",
+    "cc.cc_pantheon", "pantheon_plus", (0.1, 1.5), "M", (-20, -19), (55, 80), (0.15, 0.70),
+    "divide", "cosmic_chronometers/cc_pantheon.py: f^-2 convention",
+)
+_cc_sn(
+    "cc.cc_union3", "union3", (0.4, 2.5), "dM", (-0.7, 0.5), (55, 80), (0.1, 0.7), "divide",
     "cosmic_chronometers/cc_union3.py: f^-2 convention", use_z_hel=False,
 )
 _cc_sn(
-    "cc.cc_des5y", "des5y", (0.4, 2.5), (-0.55, 0.55), (55, 80), (0.1, 0.6), "multiply",
+    "cc.cc_des5y", "des5y", (0.4, 2.5), "dM", (-0.55, 0.55), (55, 80), (0.1, 0.6), "multiply",
     "cosmic_chronometers/cc_des5y.py: inverse f^2 convention (result f=1.47)",
 )
+
+
+def _sn_only(name, sn_name, params, note, h0=70.0, use_z_hel=True, **fit_kw):
+    """An SN-only fit whose first parameter is the magnitude (M or the
+    offset dM), at a fixed H0, or (``h0="H0"``) beside a sampled H0 with
+    the Cepheid rows."""
+    @_register(name, note)
+    def build(model, device, dtype):
+        ds = load_sn(sn_name)
+        terms = (
+            sn_mod.build_sn_term(ds, model, params[0][0], h0=h0, device=device, dtype=dtype,
+                                 use_z_hel=use_z_hel, cepheids=h0 == "H0", name="sn"),
+        )
+        return FitSpec(
+            name, model, _spec(_adjust_params(params, model)), terms, Derive(), device, dtype,
+            data_size=getattr(ds, "effective_sample_size", ds.n), note=note, **fit_kw,
+        )
+
+    return build
+
+
+_sn_only("sn.pantheon", "pantheon_plus", [("M", -20, -19), ("Om", 0, 1), ("w0", -2, 0)],
+         "sn/pantheon.py: M + fixed H0=70, full covariance")
+_sn_only("sn.pantheon_shoes", "pantheon_plus_shoes",
+         [("M", -19.5, -19.0), ("H0", 60, 85), ("Om", 0.1, 0.6), ("w0", -2, 0)],
+         "sn/pantheon_and_sh0es.py: Cepheid anchor, move weights 0.5/0.4/0.1", h0="H0",
+         n_walkers=500,
+         moves=(MoveSpec("kde", 0.5), MoveSpec("de", 0.4), MoveSpec("snooker", 0.1)))
+_sn_only("sn.union3", "union3", [("dM", -0.6, 0.6), ("Om", 0, 1), ("w0", -2, 0)],
+         "sn/union3.py: dM + fixed H0=70, (1+z_cmb) convention", use_z_hel=False)
+_sn_only("sn.des5y", "des5y", [("dM", -0.2, 0.2), ("Om", 0, 0.8), ("w0", -2, 0)],
+         "sn/des5y.py: dM + fixed H0=70; dof uses effective sample size 1735",
+         n_steps=1700)
+_sn_only("sn.union21", "union21", [("dM", -0.6, 0.6), ("Om", 0, 1), ("w0", -2, 0)],
+         "Union2.1 mu with dM offset (y2011union2 loader)", use_z_hel=False)
+_sn_only("sn.pantheon18", "pantheon18", [("M", -20, -19), ("Om", 0, 1), ("w0", -2, 0)],
+         "Pantheon 2018 apparent magnitudes (y2018pantheon loader)")
+_sn_only("sn.des5y_bins", "des5y_bins", [("dM", -0.2, 0.2), ("Om", 0, 0.8), ("w0", -2, 0)],
+         "y2024DES/data_bins.py binned compression (no reference script)")
+
+
+def _sn_cmb(name, sn_name, compression, orh2, om_b, mag, use_z_hel=True):
+    """SN + a CMB compression with the radiation-aware E(z), Or = orh2 /
+    h^2 with the compression's own Omega_r h^2."""
+    note = f"{compression} compression + {sn_name}, radiation-aware E(z)"
+
+    @_register(name, note)
+    def build(model, device, dtype):
+        ds = load_sn(sn_name)
+        params = _adjust_params(
+            [
+                ("H0", 60, 75),
+                ("Om", *om_b),
+                ("Obh2", 0.019 if mag == "dM" else 0.020, 0.025),
+                ("w0", -2, 0),
+                (mag, *((-0.7, 0.7) if mag == "dM" else (-20, -19))),
+            ],
+            model,
+        )
+        terms = (
+            cmb_mod.build_cmb_term(compression, model, device, dtype),
+            sn_mod.build_sn_term(ds, model, mag, h0="H0", device=device, dtype=dtype,
+                                 use_z_hel=use_z_hel, name="sn"),
+        )
+        return FitSpec(
+            name, model, _spec(params), terms, Derive(orh2=orh2), device, dtype,
+            data_size=ds.n + 3, note=note,
+        )
+
+    return build
+
+
+_sn_cmb("sn.pantheon_cmb", "pantheon_plus", "chen", ORH2_CHEN, (0.15, 0.40), "M")
+_sn_cmb("sn.union3_cmb", "union3", "union3", ORH2_UNION3, (0.1, 0.45), "dM", use_z_hel=False)
+_sn_cmb("sn.des5y_cmb", "des5y", "chen", ORH2_CHEN, (0.1, 0.6), "dM")
 
 
 @_register("fs8.fs8", "fs8/fs8.py: growth ODE + AP correction, seed 42")

@@ -62,6 +62,10 @@ def _synthetic_sys_for(name: str):
         z, err = b["z_hd"], b["m_b_corr_err_diag"]
     elif name == "des5y":
         z, err = b["z_hd"], b["mu_err"]
+    elif name == "union21":
+        z, err = b["z"], b["sigma_mu"]
+    elif name == "pantheon18":
+        z, err = b["z_cmb"], b["dmb"]
     else:
         raise KeyError(name)
     return synthetic_sys_cov(z, err, seed=seed_for(name))
@@ -118,15 +122,27 @@ def load_bao(name: str = "desi_dr2") -> CovDataset:
 def load_sn(name: str = "pantheon_plus") -> CovDataset:
     """Supernova compilations with the reference's selections:
 
-    * ``pantheon_plus`` — zHD > 0.01 cut, 1590 SNe
-    * ``des5y``         — 1829 SNe, cov = sys + diag(MUERR^2)
-    * ``union3``        — 22 bins, full covariance
+    * ``pantheon_plus``       — zHD > 0.01 cut, 1590 SNe
+    * ``pantheon_plus_shoes`` — calibrators kept, 1657 SNe, with
+                                ``ceph_dist`` and ``is_calibrator``
+    * ``des5y``               — 1829 SNe, cov = sys + diag(MUERR^2)
+    * ``des5y_bins``          — inverse-variance binning, 50 SNe a bin:
+                                37 bins
+    * ``union3``              — 22 bins, full covariance
+    * ``union21``             — 580 SNe, z both z_cmb and z_hel
+    * ``pantheon18``          — 1048 SNe, cov = sys + diag(dmb^2)
+    * ``pantheon18_bins``     — 40 bins with their systematic covariance
     """
     synthetic = _SYNTHETIC_SYS.get()
-    if name == "pantheon_plus":
+    if name in ("pantheon_plus", "pantheon_plus_shoes"):
         b = _bundle("pantheon_plus")
         z = b["z_hd"]
-        sel = np.where(z > 0.01)[0]
+        if name == "pantheon_plus":
+            sel = np.where(z > 0.01)[0]
+            legend = "Pantheon+ (2022)"
+        else:
+            sel = np.where((b["is_calibrator"] == 1) | (z > 0.01))[0]
+            legend = "Pantheon+ and SH0ES"
         if "cov" in b:
             cov, synth = b["cov"][np.ix_(sel, sel)], False
         else:
@@ -135,7 +151,9 @@ def load_sn(name: str = "pantheon_plus") -> CovDataset:
                 cov = cov + _synthetic_sys_for("pantheon_plus")[np.ix_(sel, sel)]
             synth = True
         extras = dict(z_cmb=z[sel], z_hel=b["z_hel"][sel])
-        return CovDataset("Pantheon+ (2022)", b["m_b_corr"][sel], cov, synth, extras)
+        if name == "pantheon_plus_shoes":
+            extras.update(ceph_dist=b["ceph_dist"][sel], is_calibrator=b["is_calibrator"][sel])
+        return CovDataset(legend, b["m_b_corr"][sel], cov, synth, extras)
 
     if name == "des5y":
         b = _bundle("des5y")
@@ -158,6 +176,9 @@ def load_sn(name: str = "pantheon_plus") -> CovDataset:
             ),
         )
 
+    if name == "des5y_bins":
+        return _des5y_bins()
+
     if name == "union3":
         b = _bundle("union3")
         return CovDataset(
@@ -165,8 +186,59 @@ def load_sn(name: str = "pantheon_plus") -> CovDataset:
             dict(z_cmb=b["z_cmb"], z_hel=b["z_hel"]),
         )
 
-    raise KeyError(
-        f"SN dataset {name!r} is not ported yet (ported: pantheon_plus, des5y, union3)"
+    if name == "union21":
+        b = _bundle("union21")
+        if "cov" in b:
+            cov, synth = b["cov"], False
+        else:
+            cov = np.diag(b["sigma_mu"] ** 2)
+            if synthetic:
+                cov = cov + _synthetic_sys_for("union21")
+            synth = True
+        return CovDataset(str(b["legend"]), b["mu"], cov, synth, dict(z_cmb=b["z"], z_hel=b["z"]))
+
+    if name in ("pantheon18", "pantheon18_bins"):
+        # only the bins bundle carries a systematic covariance
+        b = _bundle(name)
+        if "cov_sys" in b:
+            cov, synth = b["cov_sys"] + np.diag(b["dmb"] ** 2), False
+        else:
+            cov = np.diag(b["dmb"] ** 2)
+            if synthetic and name == "pantheon18":
+                cov = cov + _synthetic_sys_for("pantheon18")
+            synth = True
+        return CovDataset(
+            str(b["legend"]), b["mb"], cov, synth, dict(z_cmb=b["z_cmb"], z_hel=b["z_hel"])
+        )
+
+    raise KeyError(f"unknown SN dataset {name!r}")
+
+
+def _des5y_bins(bin_size: int = 50) -> CovDataset:
+    """Inverse-variance-weighted equal-count binning of DES5Y with its
+    full binned covariance (reference y2024DES/data_bins.py:27-61)."""
+    full = load_sn("des5y")
+    n = full.n
+    z, mu, cov = full.z_cmb, full.values, full.cov
+    idx_split = np.array_split(np.arange(n), int(np.ceil(n / bin_size)))
+    weights, z_bins, mu_bins = [], [], []
+    for idx in idx_split:
+        w = np.sum(np.linalg.inv(cov[np.ix_(idx, idx)]), axis=1)
+        w = w / np.sum(w)
+        weights.append(w)
+        z_bins.append(np.mean(z[idx]))
+        mu_bins.append(np.sum(w * mu[idx]))
+    nb = len(idx_split)
+    cov_bins = np.zeros((nb, nb))
+    for i in range(nb):
+        for j in range(nb):
+            cov_bins[i, j] = weights[i] @ cov[np.ix_(idx_split[i], idx_split[j])] @ weights[j]
+    return CovDataset(
+        f"DES-SN5YR - {bin_size} bins",
+        np.asarray(mu_bins),
+        cov_bins,
+        full.synthetic_cov,
+        dict(z_cmb=np.asarray(z_bins), z_hel=np.asarray(z_bins)),
     )
 
 

@@ -11,10 +11,12 @@ Examples::
     python -m cosmax_torch.fit --preset cc.cc --model lcdm --fast
     python -m cosmax_torch.fit --preset bao.desi_bbn --model lcdm --fast
     python -m cosmax_torch.fit --preset bao.desi_des5y --model w0wacdm --fast
+    python -m cosmax_torch.fit --preset sn.pantheon_shoes --model wzcdm --fast
     python -m cosmax_torch.fit --list
 
 ``--fast`` takes every ported preset in every model (every ``bao.*``
-preset among them); ``--list`` prints each ported preset with its note.
+and ``sn.*`` preset among them); ``--list`` prints each ported preset
+with its note.
 
 Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).
 Flags whose code is not ported yet raise and name the ROADMAP item.

@@ -9,6 +9,9 @@ conventions, both reproduced:
 * ``multiply``: chi^2 = f^2 d^T C^-1 d, normalisation N ln 2pi + ln|C|
   - 2N ln f (cosmic_chronometers/cc_des5y.py:58-79).
 
+With ``f_param=None`` the plain Gaussian chi^2 is used, with no
+normalisation (the "CC without f" variant of the cc.py docstring).
+
 * Parity path: H(z) = H0 E(z) per walker and the whitened residual
   (the CUDA chi^2 kernel on the card).
 * Fast path (``fast_mode()``): the whitened residual Linv (H_obs - H0
@@ -26,8 +29,6 @@ from cosmax_torch.likelihoods.fastmode import fast_mode
 from cosmax_torch.models.background import e_of_z, expand_params, hubble
 from cosmax_torch.ops.linalg import chi2_from_whitener
 
-F_PARAM = "f_cc"  # the error-rescaling parameter
-
 
 def build_cc_term(
     dataset: CovDataset,
@@ -36,7 +37,10 @@ def build_cc_term(
     *,
     device,
     dtype=torch.float32,
+    f_param="f_cc",
 ) -> Term:
+    """``f_param`` names the error-rescaling parameter, or is None for
+    the plain chi^2."""
     z = np.asarray(dataset.z, dtype=np.float64)
     h_obs = np.asarray(dataset.values, dtype=np.float64)
     linv = dataset.linv
@@ -77,6 +81,9 @@ def build_cc_term(
 
         meta.update(constants=c)
 
+    if f_param is None:
+        return Term(name="cc", chi2=base_chi2, meta=meta)
+
     power = -2.0 if convention == "divide" else 2.0
     # the constant part folded at build time in f64, so that the f32
     # runtime does not round the large N ln 2pi + ln|C|
@@ -84,13 +91,13 @@ def build_cc_term(
     sign = 1.0 if convention == "divide" else -1.0
 
     def chi2(p):
-        f = p[F_PARAM]
+        f = p[f_param]
         return (f**power) * base_chi2(p)
 
     def log_norm(p):
-        return const_norm - sign * n * torch.log(p[F_PARAM])
+        return const_norm - sign * n * torch.log(p[f_param])
 
     # chi2 * f^power and log_norm = const + coef * ln f, for the packer
-    meta.update(rescale=dict(param=F_PARAM, power=power, ln_const=const_norm,
+    meta.update(rescale=dict(param=f_param, power=power, ln_const=const_norm,
                              ln_coef=-sign * n))
     return Term(name="cc", chi2=chi2, log_norm=log_norm, meta=meta)

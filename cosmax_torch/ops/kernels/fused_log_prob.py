@@ -177,8 +177,7 @@ Z_STAR = ("aizpuru", "hu")
 _FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_J", "F_MAG_IDX", "F_F_IDX",
               "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
 
-_ITEM_PRESETS = "ROADMAP.md queue 1, item 10a (the SN family) or 10c (the rest)"
-_ITEM_REST = "ROADMAP.md queue 1, item 10c"
+_ITEM_PRESETS = "ROADMAP.md queue 1, item 10c"
 _ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
 
 
@@ -326,7 +325,7 @@ def _rd_layout(emulated, names, model):
         return dict(H_RD_KIND=RD_KINDS.index("none")), None
     rd = rds[0]
     if any(r != rd for r in rds):
-        _refuse(f"BAO terms with different r_d treatments {rds!r}", _ITEM_REST)
+        _refuse(f"BAO terms with different r_d treatments {rds!r}", _ITEM_PRESETS)
     if isinstance(rd, RdFixed):
         return dict(H_RD_KIND=RD_KINDS.index("fixed"), H_RD=float(rd.value)), None
     if isinstance(rd, (RdParam, RdOverH)):
@@ -340,12 +339,12 @@ def _rd_layout(emulated, names, model):
     if isinstance(rd, RdFromZDrag):
         if rd.model != model or rd.order > MAX_GL_RD:
             _refuse(f"r_s(z_drag) of model {rd.model!r} by GL-{rd.order} in a {model} fit (GL "
-                    f"of at most {MAX_GL_RD} nodes)", _ITEM_REST)
+                    f"of at most {MAX_GL_RD} nodes)", _ITEM_PRESETS)
         # 4 og as one constant: the per-term path divides by 4.0 * og, a
         # Python float, cast once to the runtime dtype
         out.update(H_RD_KIND=RD_KINDS.index("z_drag"), H_RD=4.0 * O_GAMMA_H2, H_RD_N=rd.order)
         return out, np.concatenate(gl_nodes_01(rd.order))
-    _refuse(f"the r_d treatment {rd!r}", _ITEM_REST)
+    _refuse(f"the r_d treatment {rd!r}", _ITEM_PRESETS)
 
 
 def _prior_layout(priors, names, has_h0):
@@ -361,7 +360,7 @@ def _prior_layout(priors, names, has_h0):
         out = dict(H_PRIOR=PRIORS.index("param"),
                    H_I_PRIOR=_index(names, sp["param"], "the prior's parameter"))
     else:
-        _refuse(f"the prior terms {[t.name for t in priors]!r}", _ITEM_REST)
+        _refuse(f"the prior terms {[t.name for t in priors]!r}", _ITEM_PRESETS)
     return dict(out, H_PRIOR_MEAN=sp["mean"], H_PRIOR_SIGMA=sp["sigma"])
 
 
@@ -462,7 +461,7 @@ def pack(fit) -> Packed:
             _refuse(f"term {t.name!r}", _ITEM_PRESETS)
     if len(cmb_terms) > 1:
         # one CMB block: a compression or the theta* prior (no preset has both)
-        _refuse(f"more than one CMB term {[t.name for t in cmb_terms]!r}", _ITEM_REST)
+        _refuse(f"more than one CMB term {[t.name for t in cmb_terms]!r}", _ITEM_PRESETS)
     hdr.update(_prior_layout(priors, names, has_h0))
     if cmb_terms and not has_h0:
         _refuse("a CMB term in a fit without H0", _ITEM_PRESETS)
