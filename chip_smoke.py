@@ -8,9 +8,9 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from ``cosmax_torch/csrc`` and eight variants
-   of the fused one's source for phases 7, 9, 12 and 14 (one nvcc each,
-   all in parallel) and print each ptxas report;
+2. build both CUDA kernels from ``cosmax_torch/csrc`` and eleven variants
+   of the fused one's source for phases 7, 9, 12, 14 and 16 (one nvcc
+   each, all in parallel) and print each ptxas report;
 3. the kernel against its plain PyTorch version at the flagship shape
    (65,536 walkers x N = 1829) and at ragged shapes, rtol 5e-5, with a
    NaN row kept to its own row; kernel and plain times (CUDA events,
@@ -152,7 +152,33 @@ raising on failure (non-zero exit):
    seconds; and the CLI with ``--fast --synthetic-sys`` on
    ``sn.pantheon_shoes``, 500 walkers x 20 steps, a finite (500, 4)
    chain, and on the parity path on ``cc.cc_pantheon`` (SN and CC through
-   the chi^2 kernel), 150 walkers x 20 steps, a finite (150, 5) chain.
+   the chi^2 kernel), 150 walkers x 20 steps, a finite (150, 5) chain;
+16. the last six presets (the five ``qsr.*`` and ``cmb.cmb``) and the
+   fused kernel's branches they take (a lift of more than MAX_K values,
+   ``qsr.des5y``'s 50 quasar bins, in chunks; a fit with no emulated term,
+   ``cmb.cmb``; a Tucker outer axis of rank above 16, ``qsr.pantheon``'s
+   w0 axis in wcdm): the parity path of each in wzcdm (``cmb.cmb`` lcdm)
+   at 1,024 walkers, all finite, 64 against the f64 CPU parity path; the
+   fast path of each in lcdm, wcdm, wzcdm and w0wacdm (``cmb.cmb`` in
+   lcdm) at 4,096 walkers (w0wacdm also uniform over the box), the fused
+   kernel against its plain version whole and each term alone (the
+   50-value lift alone among them) within 1e-4 of max|logp|, 64 walkers
+   against the f64 CPU fast path; near the published point of
+   ``qsr.desi`` and ``qsr.des5y_desi`` in w0wacdm the f32 error against
+   the f64 CPU fast path, printed and not held (a fault of the
+   reference's emulator, ROADMAP queue 3); three planted faults (the
+   lift's second chunk left out, one of the CMB's three residuals
+   dropped, an outer axis past rank 16 projected as rank 16) that must
+   fail; ``qsr.des5y`` at 262,144 wzcdm and 65,536 w0wacdm and
+   ``cmb.cmb`` at 262,144 lcdm and ``qsr.pantheon`` (its outer axis of
+   rank 20) at 262,144 wcdm walkers timed (kernel, plain, bound,
+   shared memory a block, blocks an SM, ``fit.log_prob()`` end to end
+   with its launch count; ``qsr.des5y`` also without the lift's second
+   chunk); the CLI with ``--fast`` on ``qsr.des5y``, 150 walkers x 20
+   steps, a finite (150, 5) chain; and ``sn.union3_cmb`` in w0wacdm (its
+   half 1 left Tucker by the compressor, packed as a tensor train) at
+   4,096 walkers (bench and uniform draws) against the plain version and
+   the f64 CPU fast path, with its build seconds.
 
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
@@ -228,6 +254,37 @@ SN_FAMILY = ("sn.pantheon", "sn.pantheon_shoes", "sn.union3", "sn.des5y", "sn.un
 SN_NEW_STRUCTURE = ("sn.pantheon_shoes", "sn.des5y_cmb", "sn.union21", "sn.des5y", "cc.cc_plain")
 SN_TIMING = (("sn.des5y", "wzcdm", BIG_WALKERS), ("sn.des5y_cmb", "wzcdm", BIG_WALKERS),
              ("sn.pantheon_shoes", "w0wacdm", BENCH_WALKERS))
+# phase 16: the last six presets (cmb.cmb is lcdm in every model); the
+# presets of phases 14-15 whose w0wacdm fast path runs on the card nowhere
+# else and takes a path of its own: sn.union3_cmb, whose half 1 the
+# compressor leaves Tucker (packed as a tensor train); and the timing rows
+# (preset, model, walkers)
+QSR_FAMILY = ("qsr.pantheon", "qsr.union3", "qsr.desi", "qsr.des5y_desi", "qsr.des5y", "cmb.cmb")
+# the published lcdm medians (BASELINE.md) of the two presets whose w0wacdm
+# fast path is ill-conditioned in float32 (ROADMAP queue 3), w0 = -1, wa = 0
+QSR_PUBLISHED = {"qsr.desi": dict(dM_qsr=-0.197, s=0.408, rd=144.857, Om=0.299),
+                 "qsr.des5y_desi": dict(dM_qsr=-0.181, s=0.402, dM=-0.003, rd=143.48,
+                                        Om=0.312)}
+QSR_TIMING = (("qsr.des5y", "wzcdm", BIG_WALKERS), ("qsr.des5y", "w0wacdm", BENCH_WALKERS),
+              ("cmb.cmb", "lcdm", BIG_WALKERS), ("qsr.pantheon", "wcdm", BIG_WALKERS))
+# planted faults of phase 16's three branches (variants built in phase 2):
+# (edits, preset, its models, the ``_term_alone`` key of the term whose
+# check alone must fail: "lift" for the quasar form, None for the CMB,
+# "whole" for the whole fit)
+QSR_PLANTED = {
+    "the lift's second chunk left out": (
+        (("for (int k0 = 0; k0 < K; k0 += MAX_K) {",
+          "for (int k0 = 0; k0 < min(K, MAX_K); k0 += MAX_K) {"),),
+        "qsr.des5y", ("wzcdm", "w0wacdm"), "lift"),
+    "one of the CMB's three residuals dropped": (
+        (("for (int i = 0; i < 3; ++i) {", "for (int i = 0; i < 2; ++i) {"),),
+        "cmb.cmb", ("lcdm",), None),
+    # qsr.pantheon's w0 axis in wcdm, rank 19-20: the outer axis
+    "an outer axis past rank 16 projected as rank 16": (
+        (("project_axis<MAX_RANK_OUTER>(x, nodes, bw, u, n, rows, wp_out);",
+          "project_axis<16>(x, nodes, bw, u, n, rows, wp_out);"),),
+        "qsr.pantheon", ("wcdm",), "whole"),
+}
 # planted faults of the #1e branches (variants of the source built in phase
 # 2): (edits, preset, the ``_term_alone`` key of the term whose check alone
 # must fail: its form's index, None for the theta* block, "prior")
@@ -970,7 +1027,7 @@ def _ptxas_of(log, marker):
 
 def _start_variants():
     """Write each variant of the fused kernel's source (PLANTED,
-    TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED) under
+    TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED, QSR_PLANTED) under
     ``build/chip_smoke_variants/`` and start one nvcc for each. Returns
     {name: (process, library path)}."""
     from cosmax_torch.ops.kernels import build
@@ -979,7 +1036,8 @@ def _start_variants():
     ncol = f"constexpr int NCOL = {fl.NCOL};"
     variants = dict(PLANTED, **TUCKER_PLANTED, **{f"NCOL={NARROW_NCOL}": (
         (ncol, f"constexpr int NCOL = {NARROW_NCOL};"),)},
-        **{name: edits for name, (edits, _, _) in BAO_PLANTED.items()})
+        **{name: edits for name, (edits, _, _) in BAO_PLANTED.items()},
+        **{name: edits for name, (edits, _, _, _) in QSR_PLANTED.items()})
     src = (build.CSRC / "fused_log_prob.cu").read_text()
     out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1071,6 +1129,20 @@ def _half1_walkers(fit, n, seed):
     draw = (mid + span * rng.standard_normal((2 * n, fit.spec.dim))).astype(np.float32)
     keep = (draw[:, i_w0] + draw[:, i_wa] > 0) & np.all((lo < draw) & (draw < hi), axis=1)
     return np.ascontiguousarray(draw[keep][:n])
+
+
+def published_walkers(fit, n=None, seed=48):
+    """``n`` (FAMILY_WALKERS) float32 walkers within 1% of the box about
+    the preset's published point (QSR_PUBLISHED, w0 = -1, wa = 0). Takes
+    any fit whose ``spec`` has ``names`` and ``bounds``: the port's, or
+    the JAX package's in ``reference_f32_error.py``."""
+    import numpy as np
+
+    lo, hi = fit.spec.bounds[:, 0], fit.spec.bounds[:, 1]
+    centre = dict(QSR_PUBLISHED[fit.name], w0=-1.0, wa=0.0)
+    mid = np.array([centre[nm] for nm in fit.spec.names])
+    draw = np.random.default_rng(seed).standard_normal((n or FAMILY_WALKERS, len(lo)))
+    return (mid + 0.01 * (hi - lo) * draw).astype(np.float32)
 
 
 def _mixed_blocks(lower, upper, c1, block=128):
@@ -1753,45 +1825,13 @@ def phase_bao_family(card, variants):
     for name in ("bao.desi_bbn", "bao.desi_omh2_theta_star"):
         for model, w in (("wzcdm", BIG_WALKERS), ("w0wacdm", BENCH_WALKERS)):
             fit, packed, _ = fast_fit(name, model)
-            theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
-            ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
-            plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
             part, slots = left_out[name]
             probe = dataclasses.replace(packed, buf=packed.buf.clone())
             for k, v in slots.items():
                 probe.buf[fl.HEADER[k]] = v
-            probe_ms = _median_ms(lambda: fl.fused_log_prob(probe, theta), inner=20)
-            if model == "w0wacdm":
-                bound_ms, ffma_ms, ((ops, prod), _) = _split_bound_ms(fl, fit, packed, theta)
-            else:
-                bound_ms, ffma_ms, ops, prod, _ = _tucker_bound_ms(fl, packed, w)
-            smem, blocks = fl.occupancy(packed)
-            log_prob = fit.log_prob()
-            _reset_counts()
-            lp = log_prob(theta)
-            torch.cuda.synchronize()
-            launched = fl.LAUNCHES
-            if launched < 1 or not bool(torch.isfinite(lp).all()):
-                raise AssertionError(f"phase 14 {name}/{model} log_prob: {launched} fused "
-                                     f"launches, {int((~torch.isfinite(lp)).sum())} non-finite")
-            reps = 20
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                log_prob(theta)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / reps
-            print(f"phase 14: fused_log_prob {name}/{model} at W={w} on {card}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20 samples of 20 calls, "
-                  f"CUDA events); bound {bound_ms:.4f} ms ({prod} product ops a walker at the "
-                  f"TF32 peak, {ops} other ops at the f32 peak), {ffma_ms:.4f} ms with every "
-                  f"op at the f32 peak; {smem} bytes of shared memory a block, {blocks} blocks "
-                  f"an SM; fit.log_prob() {launched} fused launch a call, {w / dt:.1f} evals/s "
-                  f"end to end ({1e3 * dt:.4f} ms a call, host clock, mean of {reps}); without "
-                  f"{part} {probe_ms:.4f} ms ({100 * (1 - probe_ms / ms):.1f}% of the kernel)")
-            timing[f"{name}/{model}"] = dict(
-                walkers=w, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms,
-                smem_bytes=smem, blocks_per_sm=blocks, log_prob_launches=launched,
-                evals_per_s=w / dt, ms_without_branch=probe_ms)
+            timing[f"{name}/{model}"] = _fast_timing(
+                fl, card, f"phase 14: fused_log_prob {name}/{model}", fit, packed, w,
+                (part, lambda theta, probe=probe: fl.fused_log_prob(probe, theta)))
     seconds = time.perf_counter() - t_phase
     print(f"phase 14: {seconds:.1f}s on {card}")
     return dict(worst, branches=branch_worst, planted=caught, timing=timing, seconds=seconds)
@@ -1948,45 +1988,264 @@ def phase_sn_family(card):
     timing = {}
     for name, model, w in SN_TIMING:
         fit, packed, _ = fast_fit(name, model)
-        theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
-        ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
-        plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
-        if model == "w0wacdm":
-            bound_ms, ffma_ms, ((ops, prod), _) = _split_bound_ms(fl, fit, packed, theta)
-        else:
-            bound_ms, ffma_ms, ops, prod, _ = _tucker_bound_ms(fl, packed, w)
-        smem, blocks = fl.occupancy(packed)
-        log_prob = fit.log_prob()
-        _reset_counts()
-        lp = log_prob(theta)
-        torch.cuda.synchronize()
-        launched = fl.LAUNCHES
-        if launched < 1 or not bool(torch.isfinite(lp).all()):
-            raise AssertionError(f"phase 15 {name}/{model} log_prob: {launched} fused launches, "
-                                 f"{int((~torch.isfinite(lp)).sum())} non-finite")
-        reps = 20
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            log_prob(theta)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / reps
-        print(f"phase 15: fused_log_prob {name}/{model} at W={w} on {card}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (median of 20 samples of 20 calls, CUDA events); bound "
-              f"{bound_ms:.4f} ms ({prod} product ops a walker at the TF32 peak, {ops} other ops "
-              f"at the f32 peak; {ms / bound_ms:.1f}x), {ffma_ms:.4f} ms with every op at the "
-              f"f32 peak; {smem} bytes of shared memory a block, {blocks} blocks an SM; "
-              f"fit.log_prob() {launched} fused launch a call, {w / dt:.1f} evals/s end to end "
-              f"({1e3 * dt:.4f} ms a call, host clock, mean of {reps})")
-        timing[f"{name}/{model}"] = dict(
-            walkers=w, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms,
-            smem_bytes=smem, blocks_per_sm=blocks, log_prob_launches=launched,
-            evals_per_s=w / dt)
+        timing[f"{name}/{model}"] = _fast_timing(
+            fl, card, f"phase 15: fused_log_prob {name}/{model}", fit, packed, w)
     seconds = time.perf_counter() - t_phase
     print(f"phase 15: worst of max|logp|: fused kernel vs plain {worst['fused']:.3e}, each term "
           f"alone {worst['alone']:.3e}, f32 card vs f64 CPU fast {worst['fast']:.3e}, parity "
           f"{worst['parity']:.3e}; {seconds:.1f}s on {card}")
     return dict(worst, chi2=chi2, parity_launches=parity_launches, timing=timing,
                 seconds=seconds)
+
+
+def _gap_to_f64(fit, seed):
+    """f32 card against the f64 CPU fast path on 64 bench walkers (in
+    w0wacdm up to 32 of them from half 1), of max|logp|."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+
+    walkers = _flagship_walkers(fit, 64, seed=seed)
+    if fit.model == "w0wacdm":
+        upper = _half1_walkers(fit, 32, seed)
+        walkers = np.concatenate([walkers[:64 - len(upper)], upper])
+    lp32 = fit.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+    ref = get_preset(fit.name, fit.model, fast=True, synthetic_sys=True, device="cpu",
+                     dtype=torch.float64)
+    return _gap(lp32, ref.log_prob()(torch.as_tensor(walkers.astype(np.float64))).numpy())
+
+
+def _fast_timing(fl, card, label, fit, packed, w, probe=None):
+    """The kernel, its plain version and the bound at ``w`` bench walkers;
+    a block's shared memory and blocks an SM; fit.log_prob() end to end
+    with its launch count; and ``probe`` (the part left out and a function
+    of the walkers that launches the kernel without it, not held against
+    the plain version) timed on the same walkers."""
+    import torch
+
+    theta = torch.as_tensor(_flagship_walkers(fit, w), device="cuda")
+    ms = _median_ms(lambda: fl.fused_log_prob(packed, theta), inner=20)
+    plain_ms = _median_ms(lambda: fl.fused_log_prob_reference(packed, theta), inner=20)
+    if packed.hdr["H_SPLIT"]:
+        bound_ms, ffma_ms, ((ops, prod), _) = _split_bound_ms(fl, fit, packed, theta)
+    else:
+        bound_ms, ffma_ms, ops, prod, _ = _tucker_bound_ms(fl, packed, w)
+    smem, blocks = fl.occupancy(packed)
+    log_prob = fit.log_prob()
+    _reset_counts()
+    lp = log_prob(theta)
+    torch.cuda.synchronize()
+    launched = fl.LAUNCHES
+    if launched < 1 or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"{label} log_prob: {launched} fused launches, "
+                             f"{int((~torch.isfinite(lp)).sum())} non-finite")
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        log_prob(theta)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    row = dict(walkers=w, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_ffma=ffma_ms,
+               smem_bytes=smem, blocks_per_sm=blocks, log_prob_launches=launched,
+               evals_per_s=w / dt)
+    left_out = ""
+    if probe is not None:
+        part, without = probe
+        row["ms_without"] = _median_ms(lambda: without(theta), inner=20)
+        left_out = (f"; without {part} {row['ms_without']:.4f} ms "
+                    f"({100 * (1 - row['ms_without'] / ms):.1f}% of the kernel)")
+    print(f"{label} at W={w} on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median "
+          f"of 20 samples of 20 calls, CUDA events); bound {bound_ms:.4f} ms ({prod} product "
+          f"ops a walker at the TF32 peak, {ops} other ops at the f32 peak, "
+          f"{fl.work_per_walker(packed)[2]} bytes; {ms / bound_ms:.1f}x), {ffma_ms:.4f} ms "
+          f"with every op at the f32 peak; {smem} bytes of shared memory a block, {blocks} "
+          f"blocks an SM; fit.log_prob() {launched} fused launch a call, {w / dt:.1f} evals/s "
+          f"end to end ({1e3 * dt:.4f} ms a call, host clock, mean of {reps}){left_out}")
+    return row
+
+
+def phase_qsr_family(card, variants):
+    """Phase 16: the last six presets (ROADMAP item 10c: the five qsr.* and
+    cmb.cmb) on both paths, with the fused kernel's two branches they take
+    (a lift form of more than MAX_K values, qsr.des5y's 50 quasar bins; a
+    fit with no emulated term, cmb.cmb); and, of the presets of phases
+    14-15 whose fast path had run w0wacdm only on the CPU, sn.union3_cmb,
+    whose packing is new (ROADMAP item 10c lists the rest)."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    t_phase = time.perf_counter()
+    fits = {}
+
+    def fast_fit(name, model):
+        if (name, model) not in fits:
+            t0 = time.perf_counter()
+            fit = get_preset(name, model, fast=True, synthetic_sys=True, device="cuda")
+            fits[name, model] = (fit, fl.pack(fit), time.perf_counter() - t0)
+        return fits[name, model]
+
+    def models(name):
+        return ("lcdm",) if name == "cmb.cmb" else MODELS
+
+    def lift_index(packed):
+        """The index of the quasar lift among the forms, or None."""
+        return next((i for i, f in enumerate(packed.forms) if fl.KINDS[f["F_KIND"]] == "lift"),
+                    None)
+
+    # the parity path in wzcdm (cmb.cmb: lcdm): all finite, 64 walkers
+    # against the f64 CPU parity path
+    worst = dict(fused=0.0, alone=0.0, lift=0.0, fast=0.0, parity=0.0)
+    for name in QSR_FAMILY:
+        par = get_preset(name, "wzcdm", synthetic_sys=True, device="cuda")
+        walkers = _flagship_walkers(par, FAMILY_PARITY_WALKERS, seed=40)
+        lp32 = par.log_prob()(torch.as_tensor(walkers, device="cuda")).double().cpu().numpy()
+        par64 = get_preset(name, "wzcdm", synthetic_sys=True, device="cpu", dtype=torch.float64)
+        gap = _gap(lp32[:64], par64.log_prob()(torch.as_tensor(walkers[:64].astype(np.float64)))
+                   .numpy())
+        if not (np.all(np.isfinite(lp32)) and gap <= LOGP_RTOL):
+            raise AssertionError(f"phase 16 {name} parity: {int((~np.isfinite(lp32)).sum())} "
+                                 f"non-finite, f32 card vs f64 CPU {gap:.3e}")
+        worst["parity"] = max(worst["parity"], gap)
+        print(f"phase 16: {name}/{par.model} parity on the card at W={FAMILY_PARITY_WALKERS}: "
+              f"all finite; f32 card vs f64 CPU on 64 walkers {gap:.3e} of max|logp|")
+
+    # the fast path in each model: whole and each term alone (the lift
+    # alone among them) against the plain version, on the bench draw (and
+    # in w0wacdm uniform over the box, both halves); f32 card against the
+    # f64 CPU fast path
+    for name in QSR_FAMILY:
+        for model in models(name):
+            fit, packed, build_s = fast_fit(name, model)
+            names = [t.name for t in fit.terms if fl._emulated(t) is not None]
+            draws = [("bench", _flagship_walkers(fit, FAMILY_WALKERS, seed=41))]
+            if model == "w0wacdm":
+                draws.append(("uniform", _box_walkers(fit, FAMILY_WALKERS, seed=42)))
+            parts = []
+            for dlabel, walkers in draws:
+                walkers = _bad_rows(fit, walkers)
+                label = f"phase 16 {name}/{model} {dlabel}"
+                rel = _check_fused(fl, packed, walkers, label)
+                alone, w = _each_term(fl, packed, torch.as_tensor(walkers, device="cuda"), names,
+                                      label)
+                worst["fused"], worst["alone"] = max(worst["fused"], rel), max(worst["alone"], w)
+                parts.append(f"{dlabel} {rel:.3e}, each term alone: {', '.join(alone)}")
+            i = lift_index(packed)
+            lift = None if i is None else packed.forms[i]["F_K"]
+            if lift is not None and lift > fl.MAX_K:  # the lift alone, worst of the draws
+                for _, walkers in draws:
+                    err, scale, _ = _fused_vs_plain(fl, _term_alone(fl, packed, i),
+                                                    torch.as_tensor(walkers, device="cuda"))
+                    worst["lift"] = max(worst["lift"], err / scale)
+            gap = _gap_to_f64(fit, 43)
+            if not gap <= LOGP_RTOL:
+                raise AssertionError(f"phase 16 {name}/{model}: f32 card vs f64 CPU fast "
+                                     f"{gap:.3e}")
+            worst["fast"] = max(worst["fast"], gap)
+            h = packed.hdr
+            grid = (_tt_ranks(packed) if h["H_SPLIT"] else
+                    f"Tucker ranks ({h['H_R1']}, {h['H_R2']}), {_layout(fl, packed)}"
+                    if packed.forms else f"no grid, {_layout(fl, packed)}")
+            print(f"phase 16: {name}/{model} fast, built and packed in {build_s:.2f}s ({grid}; "
+                  f"{len(packed.forms)} forms, a lift of {lift or 'no'} values); fused kernel "
+                  f"vs plain at W={FAMILY_WALKERS} (of max|logp|): {'; '.join(parts)}; f32 card "
+                  f"vs f64 CPU fast path on 64 walkers {gap:.3e}")
+
+    # the float32 conditioning of the two widest split-grid bundles (ROADMAP
+    # queue 3: their BAO table's scale is set by the Om -> 0 corner of the
+    # box): kernel and plain version against the f64 CPU fast path, whole
+    # and the BAO alone, near the published point; a measurement, not held.
+    # Beside it the BAO form's table scale (F_SCALE: the max of its group's
+    # table over the padded grid) in wzcdm and in each w0wacdm half
+    def bao_scales(name, model):
+        fit, packed, _ = fast_fit(name, model)
+        i = [t.name for t in fit.terms if fl._emulated(t) is not None].index("bao")
+        offs = [lay["T_OFF_FORMS"] for lay in packed.halves] or [packed.hdr["H_OFF_FORMS"]]
+        return [float(packed.buf[o + i * fl.FORM_STRIDE + fl.FORM["F_SCALE"]]) for o in offs]
+
+    conditioning = {}
+    for name in QSR_PUBLISHED:
+        fit, packed, _ = fast_fit(name, "w0wacdm")
+        ref = get_preset(name, "w0wacdm", fast=True, synthetic_sys=True, device="cpu",
+                         dtype=torch.float64)
+        walkers = published_walkers(fit)
+        theta = torch.as_tensor(walkers, device="cuda")
+        names = [t.name for t in fit.terms if fl._emulated(t) is not None]
+        parts = []
+        for label, key in (("whole", "whole"), ("bao alone", names.index("bao"))):
+            p32 = packed if key == "whole" else _term_alone(fl, packed, key)
+            p64 = fl.pack(ref) if key == "whole" else _term_alone(fl, fl.pack(ref), key)
+            lp64 = fl.fused_log_prob_reference(p64, torch.as_tensor(walkers.astype(np.float64)))
+            for which, lp in (("kernel", fl.fused_log_prob(p32, theta)),
+                              ("plain", fl.fused_log_prob_reference(p32, theta))):
+                gap = _gap(lp.double().cpu().numpy(), lp64.numpy())
+                conditioning[f"{name} {label} {which}"] = gap
+                parts.append(f"{label} {which} {gap:.3e}")
+        scales = {model: bao_scales(name, model) for model in ("wzcdm", "w0wacdm")}
+        conditioning[f"{name} bao table scale"] = scales
+        halves = " / ".join(f"{x:.4g}" for x in scales["w0wacdm"])
+        print(f"phase 16: {name}/w0wacdm near its published point (ROADMAP queue 3, not held): "
+              f"f32 card vs f64 CPU (of max|logp|): {', '.join(parts)}; the BAO table's scale "
+              f"{scales['wzcdm'][0]:.4g} in wzcdm, {halves} in the w0wacdm halves")
+
+    # the planted faults: each must fail its term's check alone
+    caught = {}
+    for fault, (_, name, fault_models, key) in QSR_PLANTED.items():
+        for model in fault_models:
+            fit, packed, _ = fast_fit(name, model)
+            i = lift_index(packed) if key == "lift" else key
+            theta = torch.as_tensor(_flagship_walkers(fit, FAMILY_WALKERS, seed=44), device="cuda")
+            alone = packed if key == "whole" else _term_alone(fl, packed, i)
+            err, scale, _ = _fused_vs_plain(fl, alone, theta)
+            if not err <= FUSED_RTOL * scale:
+                raise AssertionError(f"phase 16 {name}/{model}: the term alone failed before "
+                                     f"the fault: {err / scale:.3e}")
+            err, scale, _ = _fused_vs_plain(fl, alone, theta, variants[fault][0])
+            if err <= FUSED_RTOL * scale:
+                raise AssertionError(f"phase 16 {name}/{model}: the term alone missed the "
+                                     f"planted fault {fault!r}: {err / scale:.3e}")
+            caught[f"{fault} {model}"] = err / scale
+    print(f"phase 16: planted faults caught by their term alone (limit {FUSED_RTOL:g} of its "
+          f"own max|logp|): " + "; ".join(f"{k} {v:.3e}" for k, v in caught.items()))
+
+    # sn.union3_cmb, whose fast path had run w0wacdm on the CPU only (its
+    # half 1 at full width Tucker, packed as a tensor train): the kernel
+    # against its plain version on the bench and uniform draws, f32 card
+    # against the f64 CPU fast path
+    name = "sn.union3_cmb"
+    fit, packed, build_s = fast_fit(name, "w0wacdm")
+    rels = [_check_fused(fl, packed, _bad_rows(fit, walkers), f"phase 16 {name}/w0wacdm {dlabel}")
+            for dlabel, walkers in (("bench", _flagship_walkers(fit, FAMILY_WALKERS, seed=45)),
+                                    ("uniform", _box_walkers(fit, FAMILY_WALKERS, seed=46)))]
+    gap = _gap_to_f64(fit, 47)
+    if not gap <= LOGP_RTOL:
+        raise AssertionError(f"phase 16 {name}/w0wacdm: f32 card vs f64 CPU fast {gap:.3e}")
+    on_card = dict(fused=max(rels), fast=gap, build_seconds={name: build_s})
+    print(f"phase 16: {name}/w0wacdm fast, built and packed in {build_s:.2f}s "
+          f"({_tt_ranks(packed)}); fused kernel vs plain at W={FAMILY_WALKERS}: bench "
+          f"{rels[0]:.3e}, uniform {rels[1]:.3e}; f32 card vs f64 CPU fast path on 64 walkers "
+          f"{gap:.3e} (of max|logp|)")
+
+    # the timing rows; qsr.des5y's also without the lift's second chunk
+    # (the planted variant, timed as a probe)
+    timing = {}
+    for name, model, w in QSR_TIMING:
+        fit, packed, _ = fast_fit(name, model)
+        lib = variants["the lift's second chunk left out"][0]
+        probe = (("the lift's second chunk", lambda theta: _launch_variant(fl, lib, packed, theta))
+                 if name == "qsr.des5y" else None)
+        timing[f"{name}/{model}"] = _fast_timing(
+            fl, card, f"phase 16: fused_log_prob {name}/{model}", fit, packed, w, probe)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 16: worst of max|logp|: fused kernel vs plain {worst['fused']:.3e}, each term "
+          f"alone {worst['alone']:.3e} (the 50-value lift alone {worst['lift']:.3e}), f32 card "
+          f"vs f64 CPU fast {worst['fast']:.3e}, parity {worst['parity']:.3e}; {seconds:.1f}s "
+          f"on {card}")
+    return dict(worst, planted=caught, timing=timing, conditioning=conditioning,
+                w0wacdm=on_card, seconds=seconds)
 
 
 def main():
@@ -2041,7 +2300,9 @@ def main():
                                           fast=True, synthetic_sys=True)
     sn_parity_cli_launches = phase_cli(card, "phase 15", "cc.cc_pantheon", 150, 5,
                                        synthetic_sys=True)
-    print(f"phases 2-15 took {time.perf_counter() - t_start:.1f}s on {card}")
+    qsr_family = phase_qsr_family(card, variants)
+    qsr_family["cli_launches"] = phase_cli(card, "phase 16", "qsr.des5y", 150, 5, fast=True)
+    print(f"phases 2-16 took {time.perf_counter() - t_start:.1f}s on {card}")
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
@@ -2057,7 +2318,8 @@ def main():
          "cc_cc": cc_cc,
          "branches_1e": [label for label, _, _ in BRANCHES], "bao_family": family,
          "sn_family": {k: v for k, v in sn_family.items()
-                       if k not in ("chi2", "parity_launches")}},
+                       if k not in ("chi2", "parity_launches")},
+         "qsr_family": qsr_family},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Preset registry (counterpart of ``cosmax/configs/presets.py``).
 
-Ported so far (39 of the reference's 45 presets), each on the parity
-path and on the fast path (``fast=True``) in all four models (lcdm, wcdm,
-wzcdm, w0wacdm):
+All 45 of the reference's presets, each on the parity path and on the
+fast path (``fast=True``) in all four models (lcdm, wcdm, wzcdm,
+w0wacdm):
 
 * the BAO family: ``bao.desi``, ``bao.sdss`` (the SDSS DR16 compilation),
   ``bao.desi_omh2``, ``bao.desi_bbn`` (r_d integrated from z_drag),
@@ -24,7 +24,15 @@ wzcdm, w0wacdm):
 * the all-probe ``joint.multiprobe``, ``fs8.fs8``, the CC fits ``cc.cc``
   (CC with the Om h^2 prior), ``cc.cc_plain`` (the same without the f
   nuisance), ``cc.cc_cmb`` (always lcdm), and ``cc.cc_pantheon``,
-  ``cc.cc_union3``, ``cc.cc_des5y`` (both f conventions of the CC term).
+  ``cc.cc_union3``, ``cc.cc_des5y`` (both f conventions of the CC term);
+* the quasar fits (Lusso+2020, a magnitude offset and an intrinsic
+  scatter, the stretch move alone; each takes ``sigma_mu_type``):
+  ``qsr.pantheon`` and ``qsr.union3`` (22 bins with an SN set at a fixed
+  H0 = 70), ``qsr.des5y`` (50 bins with DES-SN5YR), ``qsr.desi`` (22 bins
+  with DESI BAO, H0 = 70 for every walker, a sampled r_d) and
+  ``qsr.des5y_desi`` (the three probes);
+* ``cmb.cmb``, a CMB compression alone (its ``compression`` option),
+  always lcdm.
 
 Each preset reproduces the reference script's parameter order, bounds,
 grids, r_d treatment and radiation constants. The model is an argument:
@@ -63,7 +71,7 @@ from cosmax_torch.likelihoods import sn as sn_mod
 from cosmax_torch.likelihoods.base import ParamSpec, make_chi2_breakdown, make_log_prob
 from cosmax_torch.likelihoods.fastmode import use_fast_mode
 from cosmax_torch.models.linear_chi2 import set_scope_domains
-from cosmax_torch.samplers.ensemble import MoveSpec, default_moves
+from cosmax_torch.samplers.ensemble import MoveSpec, default_moves, stretch_only
 
 WA_BOUNDS = (-3.0, 2.0)
 W0_PARAMS = ("w0", "exp_w0")  # exp_w0: bao.desi_pantheon samples w0 as exp(w0)
@@ -187,9 +195,7 @@ def get_preset(
     ``compression`` of bao.desi_cmb, ``z_star`` of
     bao.desi_omh2_theta_star, ``dataset`` of bao.desi)."""
     if name not in PRESETS:
-        raise KeyError(
-            f"unknown or unported preset {name!r}; ported: {', '.join(list_presets())}"
-        )
+        raise KeyError(f"unknown preset {name!r}; available: {', '.join(list_presets())}")
     device, dtype = resolve(device, dtype)
     with use_synthetic_sys(synthetic_sys), use_fast_mode(fast):
         fit = PRESETS[name](model, device, dtype, **kwargs)
@@ -438,7 +444,7 @@ _bao_sn_cc(
 )
 
 
-@_register("bao.desi_cmb", "bao/desi_cmb.py with a CMB compression (default chen)")
+@_register("bao.desi_cmb", "bao/desi_cmb.py with the chen compression")
 def _bao_desi_cmb(model, device, dtype, compression="chen"):
     ds = load_bao("desi_dr2")
     comp = cmb_mod.COMPRESSIONS[compression]
@@ -759,6 +765,58 @@ _sn_cmb("sn.union3_cmb", "union3", "union3", ORH2_UNION3, (0.1, 0.45), "dM", use
 _sn_cmb("sn.des5y_cmb", "des5y", "chen", ORH2_CHEN, (0.1, 0.6), "dM")
 
 
+def _qsr(name, n_bins, params, note, sn=None, bao=False):
+    """Quasars (a magnitude offset dM_qsr and a scatter s first) with an
+    SN set at a fixed H0 = 70 (``sn``: (dataset, magnitude, use_z_hel,
+    SN grid points)) and/or DESI BAO with a sampled r_d, H0 = 70 for every
+    walker; 8 walkers a parameter, the stretch move alone."""
+    @_register(name, note)
+    def build(model, device, dtype, sigma_mu_type="sem_errors"):
+        _, z, mu, sig = load_quasars(n_bins, sigma_mu_type)
+        terms = [qsr_mod.build_quasar_term(z, mu, sig, model, device=device, dtype=dtype)]
+        size = z.size
+        if sn is not None:
+            sn_name, mag, use_z_hel, grid_num = sn
+            sn_ds = load_sn(sn_name)
+            terms.append(sn_mod.build_sn_term(sn_ds, model, mag, h0=70.0, device=device,
+                                              dtype=dtype, use_z_hel=use_z_hel,
+                                              grid_num=grid_num, name="sn"))
+            size += getattr(sn_ds, "effective_sample_size", sn_ds.n)
+        if bao:
+            bao_ds = load_bao("desi_dr2")
+            terms.append(bao_mod.build_bao_term(bao_ds, model, bao_mod.rd_param("rd"), device,
+                                                dtype, grid=("fixed_trapz", 3000)))
+            size += bao_ds.n
+        adjusted = _adjust_params(params, model)
+        return FitSpec(
+            name, model, _spec(adjusted), tuple(terms), Derive(h0=70.0) if bao else Derive(),
+            device, dtype, n_walkers=8 * len(adjusted), n_steps=10000, burn_in=2000,
+            moves=stretch_only(), data_size=size, note=note,
+        )
+
+    return build
+
+
+_qsr("qsr.pantheon", 22,
+     [("dM_qsr", -0.5, 0.5), ("s", 0, 3), ("M", -20, -19), ("Om", 0, 1), ("w0", -4, 0)],
+     "quasars/qsr_pantheon.py: 22 bins, default StretchMove",
+     sn=("pantheon_plus", "M", True, 1000))
+_qsr("qsr.union3", 22,
+     [("dM_qsr", -0.5, 0.5), ("s", 0, 2.5), ("dM", -0.4, 0.3), ("Om", 0, 1), ("w0", -3, 0)],
+     "quasars/qsr_union3.py", sn=("union3", "dM", False, 1000))
+_qsr("qsr.des5y", 50,
+     [("dM_qsr", -0.5, 0.5), ("s", 0, 3), ("dM", -0.6, 0.6), ("Om", 0, 0.8), ("w0", -2, 0)],
+     "quasars/qsr_des5y.py: 50 quasar bins", sn=("des5y", "dM", True, 1000))
+_qsr("qsr.desi", 22,
+     [("dM_qsr", -0.6, 0.5), ("s", 0, 1.5), ("rd", 110, 155), ("Om", 0, 0.6), ("w0", -1.6, 0)],
+     "quasars/qsr_desi.py: H0=70 fixed, 3000-pt grids", bao=True)
+_qsr("qsr.des5y_desi", 22,
+     [("dM_qsr", -1, 1), ("s", 0, 2.5), ("dM", -0.6, 0.6), ("rd", 110, 170), ("Om", 0, 0.6),
+      ("w0", -1.5, 0)],
+     "quasars/qsr_des5y_desi.py: three-probe with H0=70 fixed",
+     sn=("des5y", "dM", True, 3000), bao=True)
+
+
 @_register("fs8.fs8", "fs8/fs8.py: growth ODE + AP correction, seed 42")
 def _fs8(model, device, dtype):
     ds = load_fs8()
@@ -770,6 +828,20 @@ def _fs8(model, device, dtype):
         "fs8.fs8", model, _spec(params), terms, Derive(), device, dtype,
         n_walkers=50, n_steps=1100, burn_in=100, seed=42, data_size=ds.n,
         note=PRESET_NOTES["fs8.fs8"],
+    )
+
+
+@_register("cmb.cmb", "cmb/cmb.py with the chen compression")
+def _cmb_cmb(model, device, dtype, compression="chen"):
+    """A CMB compression alone; the reference's E(z) is LCDM only
+    (cmb/cmb.py:12-19), whatever ``model``."""
+    model = "lcdm"
+    comp = cmb_mod.COMPRESSIONS[compression]
+    params = [("H0", 60, 70), ("Om", 0.15, 0.45), ("Obh2", 0.020, 0.024)]
+    terms = (cmb_mod.build_cmb_term(compression, model, device, dtype),)
+    return FitSpec(
+        "cmb.cmb", model, _spec(params), terms, Derive(orh2=comp.omega_r_h2()), device, dtype,
+        n_walkers=200, data_size=3, note=f"cmb/cmb.py with the {compression} compression",
     )
 
 

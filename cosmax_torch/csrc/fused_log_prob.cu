@@ -36,7 +36,9 @@
 //        1, c / (H0 r_d) with the walker's r_d, or H0;
 //      * lift (quasars): dmu[K] += a_i (scale B_t)[i, :] pair by pair,
 //        then d = (mu - mu_ref) - dmu - dM, chi2 = sum d^2 / (sigma^2 +
-//        s^2), log_norm = -1/2 sum ln(sigma^2 + s^2);
+//        s^2), log_norm = -1/2 sum ln(sigma^2 + s^2); the K values (at
+//        most MAX_LIFT, qsr.des5y's 50) in chunks of MAX_K held in
+//        registers, the window walked again for each chunk;
 //      * amp_pair (fs8): quads (u, du, v, dv) of one rank index, r = scale
 //        ((u + t du) - amp (v + t dv)), chi2 = |r|^2
 //        (cosmax/models/linear_chi2.py:679-689);
@@ -50,6 +52,8 @@
 //      (H0/100)^2 or a sampled parameter (the BBN omega_b);
 //   5. -chi2/2 + log_norm, or -inf outside the strict interior of the f32
 //      bounds or where the sum is not finite.
+// A fit with no emulated term (cmb.cmb: the CMB block alone, lcdm) has no
+// grid and no forms, and skips steps 2 and 3.
 // The constants come packed by cosmax_torch/ops/kernels/fused_log_prob.py
 // (pack): a header of sizes and offsets (the H_* slots below, the same in
 // both files), 14 KB for the flagship, 45 KB for the multiprobe joint in
@@ -77,7 +81,8 @@
 // * The Tucker instance (fused_log_prob_kernel) contracts on the tensor
 //   cores, per warp: its 32 walkers' projections go to the warp's slices
 //   of shared memory, the outer factor w1 [KO][WLD] and the inner one w2
-//   [KI][WLD] (the axis the packer chose, its rank padded to k-steps of 8),
+//   [KI][WLD] (the axis the packer chose, its rank padded to k-steps of 8:
+//   at most 16; the outer one, read row by row, up to MAX_RANK_OUTER),
 //   and each column pass of a form's window is C[32, 8 NT] = sum_j w1[j]
 //   D_j with D_j = W2[32, KI] B_j[KI, 8 NT], B_j the rows j KI.. of the
 //   core stored as the matrix [KO KI][H_LDB] (its row stride 8 or 24 mod
@@ -96,7 +101,8 @@
 // * Register pressure stays flat in R_all: a window is contracted one
 //   column pass (at most NCOLT columns) at a time and each quad is
 //   consumed at once, so the live state is the pass and the form's sums
-//   (dmu[MAX_K] for a lift). On the split grid the tail is contracted QC
+//   (dmu[MAX_K] for a lift; a longer lift walks its window again for each
+//   further chunk of MAX_K values). On the split grid the tail is contracted QC
 //   quads at a time (acc[QC], float4) from per-thread slices of the sweep
 //   vectors.
 // * The TT sweep (the split instance, its own kernel
@@ -146,11 +152,13 @@ namespace {
 
 constexpr int MAX_DIM = 16;
 constexpr int MAX_NODES = 64;
-constexpr int MAX_RANK = 16;
+constexpr int MAX_RANK = 16;  // Tucker rank of the inner axis, and of any axis but the outer
+constexpr int MAX_RANK_OUTER = 24;  // Tucker rank of the outer axis
 constexpr int MAX_BOND = 128;
 constexpr int MAX_RALL = 256;
 constexpr int MAX_FORMS = 8;
-constexpr int MAX_K = 32;
+constexpr int MAX_K = 32;  // values of a lift form in registers at once (a chunk)
+constexpr int MAX_LIFT = 64;  // values of a lift form, in chunks of MAX_K
 constexpr int MAX_GL = 64;
 constexpr int MAX_GL_RD = 128;  // nodes of r_s(z_drag) (the packer refuses more)
 constexpr int MAX_FLOATS = 40960;
@@ -208,7 +216,8 @@ constexpr int TUCKER_THREADS = 32 * TUCKER_WARPS;
 static_assert(VLD >= THREADS && VLD % 32 == 8 && SLD >= NCOL && SLD % 32 == 8, "bank layout");
 static_assert(WLD >= 32 && WLD % 32 == 8 && CLD >= 32 && CLD % 16 == 4 && NCOLT % 8 == 0,
               "bank layout of the Tucker contraction");
-static_assert(MAX_RANK == 16, "ranks pad to 8 or 16: one or two k-steps");
+static_assert(MAX_RANK == 16, "inner ranks pad to 8 or 16: one or two k-steps");
+static_assert(MAX_RANK_OUTER % 8 == 0 && MAX_RANK_OUTER <= 24, "factor rows of 8, 16 or 24");
 static_assert(KSLICE % 8 == 0 && NCOL % 8 == 0 && STAGES >= 2, "tile shapes");
 static_assert(MIN_RIN >= 8, "a k-step of 8 columns wraps r_in at most once");
 static_assert(WPAD * MIN_RIN >= KSLICE, "G's padding rows lie on the zero rows of weights");
@@ -535,13 +544,16 @@ __device__ void project_axis(float x, const float* nodes, const float* bw, const
     if (j < rows) wp_out[j * WLD] = near >= 0 ? un[j] : wp[j] * inv;
 }
 
-// project_axis for a factor of rank r (its stored width (r + 7) & ~7)
+// project_axis for a factor of rank r (its stored width (r + 7) & ~7; above
+// 16 only the outer axis's, which the contraction reads row by row)
 __device__ __forceinline__ void project(float x, const float* nodes, const float* bw,
                                         const float* u, int n, int r, int rows, float* wp_out) {
   if (r <= 8) {
     project_axis<8>(x, nodes, bw, u, n, rows, wp_out);
-  } else {
+  } else if (r <= 16) {
     project_axis<16>(x, nodes, bw, u, n, rows, wp_out);
+  } else {
+    project_axis<MAX_RANK_OUTER>(x, nodes, bw, u, n, rows, wp_out);
   }
 }
 
@@ -1110,32 +1122,38 @@ __device__ __forceinline__ void eval_forms(const float* s, const float* forms, i
         fchi += pair_term(bs, v.z, v.w, t, prow[2 * q + 1], ga, gb);
       });
     } else if (kind == KIND_LIFT) {
-      // rows: d_ref [K], sigma^2 [K], scale B_t [2 fnq][K]
+      // rows: d_ref [K], sigma^2 [K], scale B_t [2 fnq][K]; the K values
+      // in chunks of MAX_K, the window walked again for each chunk (its
+      // dmu in registers; a lift of at most MAX_K values takes one)
       const int K = static_cast<int>(F[F_K]);
-      const float* bt = rows + 2 * K;
-      float dmu[MAX_K];
-#pragma unroll
-      for (int k = 0; k < MAX_K; ++k) dmu[k] = 0.0f;
-      window(q0, fnq, [&](int q, float4 v) {
-        const float a0 = fmaf(t, v.y, v.x);
-        const float a1 = fmaf(t, v.w, v.z);
-        const float* b0 = bt + 2 * q * K;
-        const float* b1 = b0 + K;
-#pragma unroll
-        for (int k = 0; k < MAX_K; ++k)
-          if (k < K) dmu[k] = fmaf(a1, b1[k], fmaf(a0, b0[k], dmu[k]));
-      });
       const float sc = th[static_cast<int>(F[F_I_S])];
       const float s2 = sc * sc;
       const float off = th[static_cast<int>(F[F_I_OFF])];
       float log_sum = 0.0f;
+#pragma unroll 1
+      for (int k0 = 0; k0 < K; k0 += MAX_K) {
+        const int kn = min(MAX_K, K - k0);
+        const float* bt = rows + 2 * K + k0;
+        float dmu[MAX_K];
 #pragma unroll
-      for (int k = 0; k < MAX_K; ++k) {
-        if (k < K) {
-          const float var = rows[K + k] + s2;
-          const float d = rows[k] - dmu[k] - off;
-          fchi += d * d / var;
-          log_sum += logf(var);
+        for (int k = 0; k < MAX_K; ++k) dmu[k] = 0.0f;
+        window(q0, fnq, [&](int q, float4 v) {
+          const float a0 = fmaf(t, v.y, v.x);
+          const float a1 = fmaf(t, v.w, v.z);
+          const float* b0 = bt + 2 * q * K;
+          const float* b1 = b0 + K;
+#pragma unroll
+          for (int k = 0; k < MAX_K; ++k)
+            if (k < kn) dmu[k] = fmaf(a1, b1[k], fmaf(a0, b0[k], dmu[k]));
+        });
+#pragma unroll
+        for (int k = 0; k < MAX_K; ++k) {
+          if (k < kn) {
+            const float var = rows[K + k0 + k] + s2;
+            const float d = rows[k0 + k] - dmu[k] - off;
+            fchi += d * d / var;
+            log_sum += logf(var);
+          }
         }
       }
       log_norm -= 0.5f * log_sum;
@@ -1300,7 +1318,7 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
                    contract_window<VLD>(tail, nq, q0, nw, r3, 1, v, one, consume);
                  });
     }
-  } else {
+  } else if (n_forms > 0) {  // a fit with no emulated term (cmb.cmb) has no grid
     // 2. barycentric weights folded into the factor projections, each
     // walker's into its row of its warp's slices: the outer factor w1
     // [ko][WLD] and the inner one w2 [ki][WLD] (the axis H_INNER, its rank
@@ -1444,7 +1462,8 @@ int launch(const float* consts, int n_consts, const float* tt, int stride, const
 
 bool bad_args(int n_consts, int D, int split, int stride) {
   return n_consts > MAX_FLOATS || D > MAX_DIM || D < 1 || (split != 0 && split != 1) ||
-         stride < 1 || stride > (split ? MAX_NODES + WPAD + 2 * MAX_BOND : 2 * MAX_RANK);
+         stride < (split ? 1 : 0) ||
+         stride > (split ? MAX_NODES + WPAD + 2 * MAX_BOND : MAX_RANK_OUTER + MAX_RANK);
 }
 
 }  // namespace

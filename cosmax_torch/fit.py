@@ -12,11 +12,13 @@ Examples::
     python -m cosmax_torch.fit --preset bao.desi_bbn --model lcdm --fast
     python -m cosmax_torch.fit --preset bao.desi_des5y --model w0wacdm --fast
     python -m cosmax_torch.fit --preset sn.pantheon_shoes --model wzcdm --fast
+    python -m cosmax_torch.fit --preset qsr.des5y --model wzcdm --fast
+    python -m cosmax_torch.fit --preset cmb.cmb --model lcdm --fast
     python -m cosmax_torch.fit --list
 
-``--fast`` takes every ported preset in every model (every ``bao.*``
-and ``sn.*`` preset among them); ``--list`` prints each ported preset
-with its note.
+``--fast`` takes every preset in every model (``cmb.cmb`` and
+``cc.cc_cmb`` are lcdm whatever the model); ``--list`` prints each
+preset with its note from the static index ``_preset_index.py``.
 
 Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).
 Flags whose code is not ported yet raise and name the ROADMAP item.
@@ -68,7 +70,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.list:
-        from cosmax_torch.configs.presets import PRESET_NOTES
+        # the static index: building the registry loads every dataset
+        from cosmax_torch._preset_index import PRESET_NOTES
 
         for name in sorted(PRESET_NOTES):
             print(f"{name:28s} {PRESET_NOTES[name]}")

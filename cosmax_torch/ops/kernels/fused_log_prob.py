@@ -35,9 +35,13 @@ coefficient vector a[R_all]:
   walker's, computed once before the forms), H0 (CC) or 1, and the SN
   nuisance columns;
 * ``lift`` (quasars): the curve values dmu[K] = a^T (scale B_t), then the
-  diagonal metric sigma_i^2 + s^2 and its log-normalisation;
+  diagonal metric sigma_i^2 + s^2 and its log-normalisation (K at most
+  MAX_LIFT; the kernel takes them in chunks of MAX_K);
 * ``amp_pair`` (fs8): r = scale ((a_u + t a_du) - amp (a_v + t a_dv))
   over (u, du, v, dv) column quads, chi^2 = |r|^2.
+
+A fit with no emulated term (``cmb.cmb``, lcdm) packs no grid and no
+forms: the kernel's native-grid instance computes its CMB block alone.
 
 A form may carry a rescaling parameter f (CC's f_cc, fs8's f_err):
 chi^2 * f^power and log_norm = const + coef * ln f. The packer orders
@@ -45,10 +49,11 @@ the core's columns form by form, each form's window padded with zero
 columns to whole quads (four columns, one float4), so that the kernel
 contracts and reduces one window at a time. The core is stored as the
 matrix of the kernel's block product, [KO KI, LDB]: row j KI + p for the
-outer axis's index j and the inner one's p (the inner axis is the one
-whose rank pads to whole k-steps of 8 with the fewer rows; one axis: KO =
-1), its row stride LDB 8 or 24 mod 32 and covering the n-tiles of 8
-columns that start at each window's first column.
+outer axis's index j and the inner one's p (the inner axis is the one of
+rank at most MAX_RANK whose rank pads to whole k-steps of 8 with the fewer
+rows, the outer one of rank at most MAX_RANK_OUTER; one axis: KO = 1),
+its row stride LDB 8 or 24 mod 32 and covering the n-tiles of 8 columns
+that start at each window's first column.
 
 The split w0wacdm grid: each walker takes half 0 if s = w0 + wa <= 0,
 else half 1, and computes that half only. Its coefficient vector comes
@@ -57,7 +62,9 @@ G[n, p, r] over the later cores, a = v^T tail; each core is stored as
 the matrix [n r_prev][r] of the kernel's block product, its rows padded
 with zeros to whole slices of KSLICE and its columns to a multiple of 8,
 the tail [r_last, 4 nq] with its columns ordered form by form as the
-Tucker core's.
+Tucker core's. A half that the compressor left as Tucker (``sn.union3_cmb``'s
+half 1) is packed as the same function in tensor-train form
+(``_tucker_as_tt``).
 
 The buffer is in the fit's dtype: float32 on the card (the f64 build
 constants cast once, as the per-term path casts them), float64 for the
@@ -85,11 +92,13 @@ LAUNCHES = 0
 # anything larger.
 MAX_DIM = 16  # sampled parameters
 MAX_NODES = 64  # Chebyshev nodes per emulator axis
-MAX_RANK = 16  # Tucker rank per axis
+MAX_RANK = 16  # Tucker rank of the inner axis (one or two k-steps of 8), and of one axis
+MAX_RANK_OUTER = 24  # Tucker rank of the outer axis, which the kernel reads row by row
 MAX_BOND = 128  # tensor-train bond rank
 MAX_RALL = 256  # coefficient columns, each form's window padded to quads
 MAX_FORMS = 8  # emulated terms
-MAX_K = 32  # values of a lift form (quasar bins)
+MAX_K = 32  # values of a lift form the kernel holds in registers at once (a chunk)
+MAX_LIFT = 64  # values of a lift form (quasar bins), in chunks of MAX_K
 MAX_GL = 64  # nodes of each CMB quadrature
 MAX_GL_RD = 128  # nodes of r_s(z_drag)
 MAX_FLOATS = 40960  # constant-buffer floats (160 KB of shared memory)
@@ -202,6 +211,16 @@ class Packed:
     def dim(self) -> int:
         return int(self.hdr["H_DIM"])
 
+    def f64(self):
+        """(``buf``, ``dev``) in float64: cast once, and again only after an
+        in-place change to either."""
+        key = (self.buf._version, self.dev._version)
+        cached = self.__dict__.get("_f64")
+        if cached is None or cached[0] != key:
+            cached = (key, self.buf.double(), self.dev.double())
+            object.__setattr__(self, "_f64", cached)
+        return cached[1:]
+
 
 def _refuse(what: str, item: str):
     raise NotImplementedError(f"the fused log-prob kernel does not take {what} ({item})")
@@ -263,8 +282,8 @@ def _lift_form(t, cv, names, h):
     form = cv.form(h)
     b = form["b_scaled"]
     n, k = b.shape
-    if k > MAX_K:
-        _refuse(f"a lift form of {k} values (at most {MAX_K})", _ITEM_KERNEL)
+    if k > MAX_LIFT:
+        _refuse(f"a lift form of {k} values (at most {MAX_LIFT})", _ITEM_KERNEL)
     f = dict(F_K=k, F_I_OFF=_index(names, t.meta["offset"], "the quasar offset"),
              F_I_S=_index(names, t.meta["scatter"], "the quasar scatter"))
     cols = [c for i in range(n) for c in (form["sl_a"].start + i, form["sl_d"].start + i)]
@@ -382,6 +401,21 @@ def _vrows(t):
     return max(r1, *(max(a, b) if b <= NCOL else a + b for a, b in ((r1, r2), (r2, r3))))
 
 
+def _tucker_as_tt(rep):
+    """A split half's Tucker representation (factors [n, r_i] of the grid
+    axes, core [r0, r1, r2, R]) as the same function in the tensor-train
+    form the kernel sweeps: the two axes of the smallest ranks a and b
+    first, their bond the Kronecker pair (p, q) of r_a r_b rows, then the
+    third axis's factor folded into the core, and an identity tail."""
+    _, factors, core = rep
+    a, b, c = sorted(range(3), key=lambda i: factors[i].shape[1])
+    ra, rb = factors[a].shape[1], factors[b].shape[1]
+    g1 = np.einsum("pq,jr->pjqr", np.eye(ra), factors[b]).reshape(ra, -1, ra * rb)
+    g2 = np.einsum("kt,pqtm->pqkm", factors[c], np.transpose(core, (a, b, c, 3)))
+    return ("tt", (a, b, c), [factors[a], g1, g2.reshape(ra * rb, -1, core.shape[3])],
+            np.eye(core.shape[3]))
+
+
 def _core_ld(forms) -> int:
     """Row stride of the native grid's core matrix: 8 or 24 mod 32, and
     wide enough for the n-tiles of 8 columns that start at each window's
@@ -465,15 +499,23 @@ def pack(fit) -> Packed:
     hdr.update(_prior_layout(priors, names, has_h0))
     if cmb_terms and not has_h0:
         _refuse("a CMB term in a fit without H0", _ITEM_PRESETS)
-    if not emulated or len(emulated) > MAX_FORMS:
-        _refuse(f"{len(emulated)} emulated terms (1 to {MAX_FORMS})", _ITEM_KERNEL)
-    bundle = emulated[0][2].bundle
-    if any(obj.bundle is not bundle for _, _, obj in emulated):
-        _refuse("terms from more than one emulator bundle", _ITEM_KERNEL)
-    kind, halves = bundle.finalized()
-    split = kind == "split"
-    if split != (fit.model == "w0wacdm") or len(halves) != (2 if split else 1):
-        _refuse(f"the {kind} emulator grid of {len(halves)} halves", _ITEM_KERNEL)
+    if len(emulated) > MAX_FORMS:
+        _refuse(f"{len(emulated)} emulated terms (at most {MAX_FORMS})", _ITEM_KERNEL)
+    if emulated:
+        bundle = emulated[0][2].bundle
+        if any(obj.bundle is not bundle for _, _, obj in emulated):
+            _refuse("terms from more than one emulator bundle", _ITEM_KERNEL)
+        kind, halves = bundle.finalized()
+        split = kind == "split"
+        if split != (fit.model == "w0wacdm") or len(halves) != (2 if split else 1):
+            _refuse(f"the {kind} emulator grid of {len(halves)} halves", _ITEM_KERNEL)
+    else:
+        # no grid: the CMB block alone (cmb.cmb, always lcdm) in the native
+        # grid's instance, which then skips the projection and the contraction
+        if not cmb_terms or fit.model == "w0wacdm":
+            _refuse(f"a {fit.model} fit with no emulated term"
+                    + ("" if cmb_terms else " and no CMB term"), _ITEM_PRESETS)
+        split, halves = False, ()
 
     # per half: its forms and the columns of its coefficient vector,
     # reordered form by form, each window padded to whole quads
@@ -509,8 +551,8 @@ def pack(fit) -> Packed:
     hdr.update(rd_fields)
     if rd_nodes is not None:
         hdr["H_OFF_RD"] = put(rd_nodes)
-    half_layouts, dev = (), None
-    if not split:
+    half_layouts, dev, forms = (), None, []  # no emulated term: no grid, no forms
+    if emulated and not split:
         # the representation as Tucker factors and a [r1, r2, R_all] core;
         # an exact table is Tucker with identity factors, one axis has r2 = 1
         half = halves[0]
@@ -525,9 +567,9 @@ def pack(fit) -> Packed:
         if n_axes == 1:
             core = core[:, None, :]
         for u in factors:
-            if u.shape[0] > MAX_NODES or u.shape[1] > MAX_RANK:
+            if u.shape[0] > MAX_NODES or u.shape[1] > MAX_RANK_OUTER:
                 _refuse(f"an emulator axis of {u.shape[0]} nodes at rank {u.shape[1]} "
-                        f"(at most {MAX_NODES} and {MAX_RANK})", _ITEM_KERNEL)
+                        f"(at most {MAX_NODES} and {MAX_RANK_OUTER})", _ITEM_KERNEL)
         forms, form_rows, cols = per_half[0]
         for i in range(2):
             hdr[f"H_OFF_AX{i + 1}"] = put(half["axes"][i] if i < n_axes else np.zeros(0))
@@ -538,11 +580,17 @@ def pack(fit) -> Packed:
                                          align=4)
         # the core as the matrix of the kernel's block product: row j KI + p
         # for the outer index j and the inner one p (the inner axis the one
-        # whose padding to k-steps of 8 costs the fewer rows; one axis: the
-        # outer index is 0), columns in window order, zero padding
+        # of rank at most MAX_RANK whose padding to k-steps of 8 costs the
+        # fewer rows; one axis: the outer index is 0), columns in window
+        # order, zero padding
         core = _by_cols(core, cols)  # [r1, r2, 4 nq]
         r1, r2 = core.shape[:2]
-        inner = 1 if n_axes == 1 or r2 * _pad8(r1) < r1 * _pad8(r2) else 2
+        cost = {1: r2 * _pad8(r1), 2: r1 * _pad8(r2)}
+        inner = min((i for i in ((2, 1) if n_axes > 1 else (1,)) if (r1, r2)[i - 1] <= MAX_RANK),
+                    key=cost.get, default=None)
+        if inner is None:
+            _refuse(f"Tucker ranks {(r1, r2)[:n_axes]} (an inner axis of rank at most "
+                    f"{MAX_RANK})", _ITEM_KERNEL)
         mat = core[:, 0][None] if n_axes == 1 else (
             core.transpose(1, 0, 2) if inner == 1 else core)  # [outer, inner, 4 nq]
         ldb = _core_ld(forms)
@@ -556,7 +604,7 @@ def pack(fit) -> Packed:
             H_NQ=len(cols) // 4, H_RALL=sum(c >= 0 for c in cols),
             H_KO=stored.shape[0], H_KI=stored.shape[1], H_LDB=ldb, H_INNER=inner,
         )
-    else:
+    elif split:
         # (Om, wa) axes shared by both halves, one s axis per half; every
         # axis of the split grid has the halves' one node count and bw
         axes0 = halves[0]["axes"]
@@ -575,6 +623,8 @@ def pack(fit) -> Packed:
         half_layouts = []
         for h, half in enumerate(halves):
             rep = half["rep"]
+            if rep[0] == "tucker" and len(rep[1]) == 3:  # a half the compressor left Tucker
+                rep = _tucker_as_tt(rep)
             if rep[0] != "tt" or len(rep[2]) != 3:
                 _refuse(f"a split half as {rep[0]!r} (a three-core tensor train only)",
                         _ITEM_KERNEL)
@@ -777,8 +827,14 @@ def _tucker_coeff(packed, om, w0):
 def _tt_coeff(packed, h, coords):
     """[W, 4 nq] of half ``h`` of the split grid at ``coords`` (Om, wa,
     s): the tensor-train sweep over the device buffer's cores, through
-    ``emu_core.coeff_contract``."""
-    lay, buf, dev = packed.halves[h], packed.buf, packed.dev
+    ``emu_core.coeff_contract``, in float64 whatever the buffers' dtype
+    (the stored values read exactly), cast back to it. On the widest
+    split-grid bundles (qsr.desi, qsr.des5y_desi) float32 sums in the
+    sweep lose up to ~1e-4 of max|logp|: a float32 chain here would err
+    as much as the kernel it is the oracle of."""
+    lay = packed.halves[h]
+    buf, dev = packed.f64()
+    coords = [x.double() for x in coords]
     bw = _seg(buf, packed.hdr["H_OFF_BW1"], int(packed.hdr["H_N1"]))
     weights, cores, perm = [None] * 3, [], []
     r_prev = 1
@@ -794,7 +850,7 @@ def _tt_coeff(packed, h, coords):
         weights[axis] = bary_vector(coords[axis], _seg(buf, lay[f"T_AX{i}"], n), bw)
         r_prev = r
     tail = _seg(dev, lay["T_TAIL"], r_prev * 4 * lay["T_NQ"], (r_prev, 4 * lay["T_NQ"]))
-    return coeff_contract(weights, ("tt", tuple(perm), cores, tail))
+    return coeff_contract(weights, ("tt", tuple(perm), cores, tail)).to(packed.buf.dtype)
 
 
 def _forms_chi2(packed, forms, forms_off, a, theta, h0, t, rd):
@@ -884,7 +940,9 @@ def fused_log_prob_reference(packed: Packed, theta: torch.Tensor) -> torch.Tenso
     t = (o_r / OR_REF)[:, None]
     rd = _walker_rd(packed, col, h0, om, o_r, w0, wa, model) + zero
 
-    if not hdr["H_SPLIT"]:
+    if not packed.forms:  # no emulated term: the CMB block alone
+        chi2, log_norm = torch.zeros_like(zero), torch.zeros_like(zero)
+    elif not hdr["H_SPLIT"]:
         a = _tucker_coeff(packed, om, w0)
         chi2, log_norm = _forms_chi2(packed, packed.forms, hdr["H_OFF_FORMS"], a, theta, h0, t,
                                      rd)

@@ -21,7 +21,10 @@ w0wacdm multiprobe walkers, walkers drawn near the box centre as
 w0wacdm multiprobe walkers uniform over the prior box (both halves of the
 split grid); and, where the tree has them, ``bao.desi_bbn`` (r_d from
 z_drag, the BBN prior) and ``bao.desi_omh2_theta_star`` (theta*, the Om
-h^2 prior) at 262,144 wzcdm and 65,536 w0wacdm walkers of the bench draw.
+h^2 prior) at 262,144 wzcdm and 65,536 w0wacdm walkers of the bench draw,
+``sn.des5y`` and ``qsr.des5y`` (a lift of 50 values) at 262,144 wzcdm,
+``sn.pantheon_shoes`` and ``qsr.des5y`` at 65,536 w0wacdm, and ``cmb.cmb``
+(no emulated term) at 262,144 lcdm walkers.
 Each ``--variant NAME=VALUE`` also
 builds that tree's source with the line ``constexpr int NAME = ...;``
 set to VALUE (where the tree's source has that constant), and times it
@@ -63,7 +66,12 @@ SIZES = (("bao.desi_cmb_des5y", "wzcdm", 65536, "bench"),
          ("bao.desi_bbn", "wzcdm", 262144, "bench"),
          ("bao.desi_omh2_theta_star", "wzcdm", 262144, "bench"),
          ("bao.desi_bbn", "w0wacdm", 65536, "bench"),
-         ("bao.desi_omh2_theta_star", "w0wacdm", 65536, "bench"))
+         ("bao.desi_omh2_theta_star", "w0wacdm", 65536, "bench"),
+         ("sn.des5y", "wzcdm", 262144, "bench"),
+         ("sn.pantheon_shoes", "w0wacdm", 65536, "bench"),
+         ("qsr.des5y", "wzcdm", 262144, "bench"),
+         ("qsr.des5y", "w0wacdm", 65536, "bench"),
+         ("cmb.cmb", "lcdm", 262144, "bench"))
 
 
 def _median_ms(fn, reps=20, inner=20):

@@ -297,15 +297,13 @@ def test_sn_emulated_sampled_h0_radiation():
 
 def test_sn_emulated_cepheids():
     """SH0ES variant: the calibrator rows are constants plus M; the H0
-    shift must not touch them. The port's emulated and dense SN against
-    the JAX package's compressed and dense SN, on the JAX loader's
-    Pantheon+ & SH0ES table (the port's loader for it is ROADMAP item 10)."""
+    shift must not touch them. The port's emulated and dense SN on the
+    port's Pantheon+ & SH0ES table against the JAX package's compressed
+    and dense SN on the JAX loader's."""
     from cosmax.likelihoods.sn import build_sn_term as jsn
-    from cosmax_torch.data.loaders import CovDataset
 
     jds = jax_load_sn("pantheon_plus_shoes")
-    ds = CovDataset(jds.legend, jds.values, jds.cov, jds.synthetic_cov,
-                    dict(z_cmb=jds.z_cmb, z_hel=jds.z_hel, ceph_dist=jds.ceph_dist))
+    ds = load_sn("pantheon_plus_shoes")
     kw = dict(mag_param="M", h0="H0", cepheids=True)
     emu = tsn.build_sn_term(ds, "wzcdm", **kw, device="cpu", dtype=F64, method="emulated")
     dense = tsn.build_sn_term(ds, "wzcdm", **kw, device="cpu", dtype=F64)
@@ -417,8 +415,8 @@ def test_kernel_source_agrees_with_the_packer(flagship):
     for table in want.values():
         for k, v in table.items():
             assert consts[k] == v, k
-    for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_BOND", "MAX_RALL", "MAX_FORMS", "MAX_K",
-              "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE",
+    for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_RANK_OUTER", "MAX_BOND", "MAX_RALL",
+              "MAX_FORMS", "MAX_K", "MAX_LIFT", "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE",
               "THREADS", "VLD", "KSLICE", "NCOL", "SLD", "STAGES", "MIN_RIN", "WPAD",
               "WLD", "CLD", "NCOLT", "TUCKER_WARPS"):
         assert consts[k] == getattr(fl, k), k

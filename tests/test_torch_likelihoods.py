@@ -185,8 +185,8 @@ def test_unported_paths_raise(monkeypatch):
     monkeypatch.setattr("cosmax_torch.models.linear_chi2._FINALIZE_MEMO", {})
     with pytest.raises(_Building):
         get_preset("joint.multiprobe", "w0wacdm", fast=True, device="cpu")
-    with pytest.raises(KeyError, match="ported"):
-        get_preset("qsr.desi", "lcdm", device="cpu")
+    with pytest.raises(KeyError, match="unknown preset"):
+        get_preset("qsr.no_such_preset", "lcdm", device="cpu")
     from cosmax_torch.likelihoods import sn
 
     with pytest.raises(_Building):

@@ -156,9 +156,11 @@ def test_cc_plain_has_no_normalisation():
 
 
 def test_cli_lists_every_ported_preset(capsys):
+    from cosmax.configs import list_presets as jax_presets
     from cosmax_torch import fit as fit_cli
     from tests.test_torch_bao_family import FAMILY as BAO
 
     assert fit_cli.main(["--list"]) == 0
     listed = {ln.split()[0] for ln in capsys.readouterr().out.splitlines() if ln.strip()}
-    assert set(FAMILY) | set(BAO) <= listed and len(listed) == 39
+    assert set(FAMILY) | set(BAO) <= listed and len(listed) == 45
+    assert listed == set(jax_presets())
