@@ -8,13 +8,22 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from ``cosmax_torch/csrc`` and eleven variants
-   of the fused one's source for phases 7, 9, 12, 14 and 16 (one nvcc
-   each, all in parallel) and print each ptxas report;
-3. the kernel against its plain PyTorch version at the flagship shape
-   (65,536 walkers x N = 1829) and at ragged shapes, rtol 5e-5, with a
-   NaN row kept to its own row; kernel and plain times (CUDA events,
-   median of 20 runs after warm-up);
+2. build both CUDA kernels from ``cosmax_torch/csrc`` (with the shared
+   header ``tf32.cuh``), twelve variants of the fused one's source for
+   phases 7, 9, 12, 14 and 16 and two of the chi^2 kernel's for phases 3
+   and 15 (one nvcc each, all in parallel) and print each ptxas report
+   (the fused kernel's three instances: Tucker, split, split with the f64
+   sweep);
+3. the chi^2 kernel (3xTF32 on the tensor cores) against its plain PyTorch
+   version at the flagship shape (65,536 walkers x N = 1829) and at ragged
+   shapes, rtol 5e-5, with a NaN row kept to its own row; on realistic
+   residuals of DES-SN5YR's covariance (delta_w = z_w L^T) at (65,536,
+   1829) against the plain version in f64 on the card, rtol
+   RTOL_CHI2_F64 = 1e-6, where two planted faults (one TF32 pass; one
+   accumulator over the whole K) must fail; kernel and plain (cuBLAS)
+   times (CUDA events, median of 20 runs after warm-up) beside the bounds
+   by operations (FFMA at the f32 peak, 3xTF32 at the TF32 peak) and by
+   bytes (each input once; delta as often as the row tiles read it);
 4. the ``bao.desi`` LCDM parity anchor, chi^2(h=0.690, Om=0.298) =
    10.2753 within 2e-3 in f32;
 5. the flagship ``bao.desi_cmb_des5y``/wzcdm (dense synthetic 1829^2
@@ -137,8 +146,10 @@ raising on failure (non-zero exit):
    against the f64 CPU parity path within 1e-4 of max|logp|, the chi^2
    kernel's launches counted; the chi^2 kernel against its plain version
    at (65,536, N) on the factors of Union2.1, Pantheon 2018, Pantheon+
-   and Pantheon+ & SH0ES (N = 580, 1048, 1590, 1657), rtol 5e-5, with
-   kernel and plain (cuBLAS) times and the bound; the fast path of each
+   and Pantheon+ & SH0ES (N = 580, 1048, 1590, 1657), rtol 5e-5, and on
+   realistic residuals of each covariance against the f64 plain version
+   as in phase 3 (the planted faults at N = 580), with kernel and plain
+   (cuBLAS) times and the bounds; the fast path of each
    in wzcdm at 4,096 walkers, the fused kernel against its plain version
    whole and each term alone within 1e-4 of max|logp| (seeded out-of-box
    and NaN rows -inf in both), 64 walkers against the f64 CPU fast path;
@@ -164,9 +175,14 @@ raising on failure (non-zero exit):
    kernel against its plain version whole and each term alone (the
    50-value lift alone among them) within 1e-4 of max|logp|, 64 walkers
    against the f64 CPU fast path; near the published point of
-   ``qsr.desi`` and ``qsr.des5y_desi`` in w0wacdm the f32 error against
-   the f64 CPU fast path, printed and not held (a fault of the
-   reference's emulator, ROADMAP queue 3); three planted faults (the
+   ``qsr.desi`` and ``qsr.des5y_desi`` in w0wacdm, whose bundles the packer
+   gives the split kernel's f64 sweep (``H_SWEEP_F64``; no other bundle of
+   the run takes it), the kernel's float32 log-prob within 1e-4 of
+   max|logp| of the f64 CPU fast path, whole and the BAO alone, where the
+   kernel with the f64 sweep forced off (a planted variant: the 3xTF32
+   sweep) must fail, with the plain version's error, the BAO table's scale
+   and the kernel's time at 65,536 walkers with each sweep (and the bound,
+   the sweep's products at the f64 tensor cores' peak); three planted faults (the
    lift's second chunk left out, one of the CMB's three residuals
    dropped, an outer axis past rank 16 projected as rank 16) that must
    fail; ``qsr.des5y`` at 262,144 wzcdm and 65,536 w0wacdm and
@@ -199,6 +215,13 @@ SOURCE = "cosmax_torch/csrc/whitened_chi2.cu"
 FUSED_REPLACES = "cosmax/ops/pallas/megakernel.py:99"
 FUSED_SOURCE = "cosmax_torch/csrc/fused_log_prob.cu"
 RTOL_KERNEL = 5e-5  # as tests/test_pallas_ops.py for the TPU kernel
+# the chi^2 kernel on realistic residuals, delta_w = z_w L^T with z ~ N(0, I)
+# and L the Cholesky factor of an SN covariance, against the plain version
+# in f64 on the card, per walker: the cancellation inside Linv delta that
+# correlated residuals bring, where a CPU emulation of the arithmetic puts
+# 3xTF32 at ~4e-8, f32 at ~1.3e-7 and one pass of TF32 at >= 8e-5
+# (tests/test_torch_chi2_emulation.py)
+RTOL_CHI2_F64 = 1e-6
 ANCHOR_CHI2, ANCHOR_ATOL = 10.2753, 2e-3
 LOGP_RTOL = 1e-4  # f32 card vs f64 CPU, relative to max|logp|
 # fused kernel vs its plain version, both f32 on the card: different
@@ -212,8 +235,9 @@ NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
 W0WA_MP_OTHERS = ("fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s, dense
-# TF32 tensor-core FLOP/s and HBM3 bytes/s
+# TF32 tensor-core FLOP/s and HBM3 bytes/s; and the f64 tensor cores'
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
+PEAK_F64_TC_FLOPS = 67e12
 # variants of the fused kernel's source, built beside it (phase 2) for
 # phases 7, 9, 12 and 14, each as (text, replacement) edits: two planted faults that its
 # checks must catch (one TF32 pass, or one of the two small terms of
@@ -229,6 +253,21 @@ TUCKER_LO_MMA = ("mma_tf32(d[t][jj], alo[s][t], bhi0, bhi1);",
 TUCKER_PLANTED = {"Tucker one TF32 pass": tuple((m, "(void)0;") for m in TUCKER_LO_MMA),
                   "Tucker a_lo b_hi dropped": ((TUCKER_LO_MMA[0], "(void)0;"),)}
 NARROW_NCOL = 16
+# the split kernel's f64 sweep (H_SWEEP_F64) forced off: the bundles that
+# the packer gives it run the 3xTF32 sweep instead (phase 16 must catch it)
+F64_SWEEP_OFF = "the f64 sweep forced off"
+F64_SWEEP_OFF_EDITS = (("  return launch(split, consts,", "  return launch(split == 2 ? 1 : split, consts,"),)
+# planted faults of the chi^2 kernel (whitened_chi2.cu), built in phase 2:
+# each must fail the realistic-residual check (RTOL_CHI2_F64) at N = 580 and
+# N = 1829
+CHI2_PLANTED = {
+    "chi^2 one TF32 pass": (
+        ("mma_tf32(part[i][n], alo[i], bhi[n][0], bhi[n][1]);", "(void)0;"),
+        ("mma_tf32(part[i][n], ahi[i], blo[n][0], blo[n][1]);", "(void)0;")),
+    "chi^2 one accumulator over the whole K": (
+        ("fold(acc, part);", "if (last) fold(acc, part);"),),
+}
+CHI2_PLANTED_AT = (580, 1829)
 RAGGED = BENCH_WALKERS + 37  # a last block of 37 walkers
 # phase 14: the BAO family, and the fused kernel's #1e branches, each on one
 # preset that needs it, in the four models: (label, preset, its options)
@@ -352,11 +391,120 @@ def _spd_linv(rng, n):
     return np.ascontiguousarray(whitening_operator(a @ a.T / n + np.eye(n)))
 
 
-def phase_kernel(card):
-    """Phase 3: kernel vs plain at the flagship shape and ragged shapes."""
+# the bundles this run packs that take the split kernel's f64 sweep
+# (H_SWEEP_F64): QSR_PUBLISHED in w0wacdm, and no other
+SWEEP_F64 = set()
+
+
+def _pack(fl, fit):
+    """``fl.pack(fit)``, holding the packer's choice of the f64 sweep to
+    QSR_PUBLISHED's presets in w0wacdm."""
+    packed = fl.pack(fit)
+    want = fit.name in QSR_PUBLISHED and fit.model == "w0wacdm"
+    if bool(packed.hdr["H_SWEEP_F64"]) != want:
+        raise AssertionError(f"{fit.name}/{fit.model}: H_SWEEP_F64 = {packed.hdr['H_SWEEP_F64']}"
+                             f" (sweep_cancellation {_cancellation(fl, fit):.4g})")
+    if want:
+        SWEEP_F64.add(f"{fit.name}/{fit.model}")
+    return packed
+
+
+def _cancellation(fl, fit):
+    """The packer's ``sweep_cancellation`` of a split fit, the worse half."""
+    emulated = [(t, *fl._emulated(t)) for t in fit.terms if fl._emulated(t) is not None]
+    return max(fl.sweep_cancellation(emulated, h) for h in range(2))
+
+
+def _chi2_variant(lib, linv, delta):
+    """chi^2 from a variant library of the chi^2 kernel, launched straight
+    through its C entry (the wrapper's launch count stays as it is)."""
+    import torch
+
+    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
+
+    out = torch.empty(delta.shape[0], dtype=torch.float32, device=delta.device)
+    err = kmod._entry(lib)(linv.data_ptr(), delta.data_ptr(), out.data_ptr(), delta.shape[0],
+                           delta.shape[1], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chi^2 kernel variant launch failed: cudaError {err}")
+    return out
+
+
+def _chi2_passes(n, rows=128):
+    """The passes over delta that the chi^2 kernel's design reads: each row
+    tile of ``rows`` rows of Linv reads k < min(its end, N)."""
+    return sum(min(r0 + rows, n) for r0 in range(0, n, rows)) / n
+
+
+def _chi2_realistic(card, label, cov, linv_np, variants, gen):
+    """The chi^2 kernel on realistic residuals at (65,536, N): delta_w = z_w
+    L^T, z ~ N(0, I), L the Cholesky factor of ``cov`` (the SN covariance
+    whose whitening is ``linv_np``), against the plain version in f64 on the
+    card, RTOL_CHI2_F64 per walker; at N in CHI2_PLANTED_AT each planted
+    fault must fail that check. Kernel and plain (cuBLAS, f32) times and the
+    bounds: by operations (the triangle's W N (N + 1) flop in FFMA at the
+    f32 peak, and as three TF32 products at the tensor-core peak), and by
+    bytes (each input once; and delta read as often as the design's row
+    tiles read it)."""
     import numpy as np
     import torch
 
+    from cosmax_torch.ops.kernels.whitened_chi2 import whitened_chi2, whitened_chi2_reference
+
+    w, n = BENCH_WALKERS, cov.shape[0]
+    chol = torch.as_tensor(np.linalg.cholesky(cov), device="cuda")
+    z = torch.randn((w, n), generator=gen, device="cuda", dtype=torch.float64)
+    delta = (z @ chol.T).float()
+    del z, chol
+    linv = torch.as_tensor(linv_np, device="cuda").float()
+    want = whitened_chi2_reference(linv.double(), delta.double())
+
+    def rel_err(got):
+        torch.cuda.synchronize()
+        return float(((got.double() - want).abs() / want.abs()).max())
+
+    got = whitened_chi2(linv, delta)
+    rel = rel_err(got)
+    if not bool(torch.isfinite(got).all()) or rel > RTOL_CHI2_F64:
+        raise AssertionError(f"{label}: chi^2 kernel vs f64 plain on realistic residuals at "
+                             f"({w}, {n}): max rel err {rel:.3e}")
+    caught = {}
+    if n in CHI2_PLANTED_AT:
+        for name in CHI2_PLANTED:
+            caught[name] = rel_err(_chi2_variant(variants[name][0], linv, delta))
+            if caught[name] <= RTOL_CHI2_F64:
+                raise AssertionError(f"{label}: the realistic-residual check missed the planted "
+                                     f"fault {name!r} at N = {n}: {caught[name]:.3e}")
+    ms = _median_ms(lambda: whitened_chi2(linv, delta))
+    plain_ms = _median_ms(lambda: whitened_chi2_reference(linv, delta))
+    flop = w * n * (n + 1)  # useful work on the triangle: N (N + 1) / 2 MACs a walker
+    ffma_ms, tc_ms = 1e3 * flop / PEAK_F32_FLOPS, 1e3 * 3 * flop / PEAK_TF32_FLOPS
+    once_ms = 1e3 * 4.0 * (w * n + n * n + w) / PEAK_BYTES
+    passes = _chi2_passes(n)
+    passes_ms = 1e3 * 4.0 * (w * n * passes + n * n + w) / PEAK_BYTES
+    bound_ms = max(tc_ms, once_ms)
+    faults = "".join(f"; planted {k!r} caught at {v:.3e}" for k, v in caught.items())
+    print(f"{label}: whitened_chi2 on realistic residuals at (W={w}, N={n}): max rel err "
+          f"{rel:.3e} against the f64 plain version (limit {RTOL_CHI2_F64:g}){faults}; on {card}: "
+          f"kernel {ms:.4f} ms, plain (cuBLAS, f32) {plain_ms:.4f} ms (median of 20, CUDA "
+          f"events); bounds by operations {tc_ms:.4f} ms in 3xTF32 at the TF32 peak, "
+          f"{ffma_ms:.4f} ms in FFMA at the f32 peak; by bytes {once_ms:.4f} ms (each input "
+          f"once), {passes_ms:.4f} ms (delta {passes:.2f} times, as the row tiles read it); "
+          f"{ms / bound_ms:.2f}x the bound")
+    return dict(max_rel_err_f64=rel, planted=caught, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations", bound_ms_ffma=ffma_ms,
+                bound_ms_bytes=once_ms, bound_ms_bytes_passes=passes_ms, delta_passes=passes,
+                library_ms=plain_ms)
+
+
+def phase_kernel(card, variants):
+    """Phase 3: kernel vs plain at the flagship shape and ragged shapes, and
+    on realistic residuals at (65,536, 1829) against the f64 plain version,
+    with its times and bounds."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.data.loaders import load_sn, use_synthetic_sys
     from cosmax_torch.ops.kernels.whitened_chi2 import whitened_chi2, whitened_chi2_reference
 
     rng = np.random.default_rng(0)
@@ -382,21 +530,15 @@ def phase_kernel(card):
         print(f"phase 3: kernel vs plain at (W={w}, N={n}): max rel err {rel:.3e}, "
               f"max abs err {float(err.max()):.3e}; NaN row stays in its row")
         if (w, n) == (BENCH_WALKERS, N_SN):
-            delta[bad, n // 2] = 0.0
-            ms = _median_ms(lambda: whitened_chi2(linv, delta))
-            plain_ms = _median_ms(lambda: whitened_chi2_reference(linv, delta))
-            flop = 2.0 * w * n * n
-            print(f"phase 3: whitened_chi2 at (W={w}, N={n}) on {card}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events); "
-                  f"kernel {flop / 2 / ms / 1e9:.2f} TFLOP/s on the triangle "
-                  f"({flop / ms / 1e9:.2f} dense-equivalent)")
-            # useful work on the triangle: N(N+1)/2 MACs per walker
-            bound_s = max(w * n * (n + 1) / PEAK_F32_FLOPS,
-                          4.0 * (w * n + n * n + w) / PEAK_BYTES)
-            # the plain version is itself one cuBLAS product with its
-            # square-and-sum: it is the library time too
-            result = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                          bound_ms=1e3 * bound_s, bound_by="operations", library_ms=plain_ms)
+            result = dict(max_abs_err=float(err.max()))
+        del linv, delta, got, want
+    # realistic residuals on DES-SN5YR's covariance (the flagship's
+    # whitening), timed there; the plain version is itself one cuBLAS
+    # product with its square-and-sum: it is the library time too
+    with use_synthetic_sys(True):
+        sn = load_sn("des5y")
+    result.update(_chi2_realistic(card, "phase 3", sn.cov, np.ascontiguousarray(sn.linv),
+                                  variants, gen))
     return result
 
 
@@ -612,7 +754,7 @@ def phase_fast(card, parity_ref, ptxas_tucker, variants):
     fit = get_preset("bao.desi_cmb_des5y", "wzcdm", fast=True, synthetic_sys=True, device="cuda")
     log_prob = fit.log_prob()
     build_s = time.perf_counter() - t0
-    packed = fl.pack(fit)  # the buffer log_prob packed, for the plain version
+    packed = _pack(fl, fit)  # the buffer log_prob packed, for the plain version
     h = packed.hdr
     print(f"phase 7: fast flagship bao.desi_cmb_des5y/wzcdm (synthetic dense 1829^2 SN) built "
           f"and packed in {build_s:.2f}s: Tucker ranks ({h['H_R1']}, {h['H_R2']}), "
@@ -651,7 +793,7 @@ def phase_fast(card, parity_ref, ptxas_tucker, variants):
         worst, layouts = 0.0, []
         for model in ("lcdm", "wcdm", "wzcdm"):
             other = get_preset(name, model, fast=True, device="cuda")
-            p = fl.pack(other)
+            p = _pack(fl, other)
             theta = torch.as_tensor(_flagship_walkers(other, 4096, seed=7), device="cuda")
             err, scale, _ = _fused_vs_plain(fl, p, theta)
             if not err <= FUSED_RTOL * scale:
@@ -782,7 +924,8 @@ def _launch_variant(fl, lib, packed, theta):
     split = int(packed.hdr["H_SPLIT"])
     out = torch.empty(theta.shape[0], dtype=torch.float32, device=theta.device)
     err = fl._entry(lib)(packed.buf.data_ptr(), packed.buf.numel(),
-                         packed.dev.data_ptr() if split else None, split, fl._stride(packed),
+                         packed.dev.data_ptr() if split else None, fl.instance(packed),
+                         fl._stride(packed),
                          theta.data_ptr(), out.data_ptr(), theta.shape[0], packed.dim,
                          torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -851,7 +994,7 @@ def phase_multiprobe_fast(card, variants):
     fit = get_preset("joint.multiprobe", "wzcdm", fast=True, synthetic_sys=True, device="cuda")
     log_prob = fit.log_prob()
     build_s = time.perf_counter() - t0
-    packed = fl.pack(fit)
+    packed = _pack(fl, fit)
     h = packed.hdr
     kinds = ", ".join(f"{t.name}:{fl.KINDS[f['F_KIND']]}" for t, f in
                       zip([t for t in fit.terms if "compression" not in t.meta], packed.forms))
@@ -917,7 +1060,7 @@ def phase_multiprobe_fast(card, variants):
         worst, layouts = 0.0, []
         for model in ("lcdm", "wcdm", "wzcdm"):
             other = get_preset(name, model, fast=True, device="cuda")
-            p = fl.pack(other)
+            p = _pack(fl, other)
             theta = torch.as_tensor(_flagship_walkers(other, 4096, seed=7), device="cuda")
             err, scale, _ = _fused_vs_plain(fl, p, theta)
             if not err <= FUSED_RTOL * scale:
@@ -1027,33 +1170,35 @@ def _ptxas_of(log, marker):
 
 def _start_variants():
     """Write each variant of the fused kernel's source (PLANTED,
-    TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED, QSR_PLANTED) under
+    TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED, QSR_PLANTED, the f64
+    sweep forced off) and of the chi^2 kernel's (CHI2_PLANTED) under
     ``build/chip_smoke_variants/`` and start one nvcc for each. Returns
     {name: (process, library path)}."""
     from cosmax_torch.ops.kernels import build
     from cosmax_torch.ops.kernels import fused_log_prob as fl
 
     ncol = f"constexpr int NCOL = {fl.NCOL};"
-    variants = dict(PLANTED, **TUCKER_PLANTED, **{f"NCOL={NARROW_NCOL}": (
+    fused = dict(PLANTED, **TUCKER_PLANTED, **{f"NCOL={NARROW_NCOL}": (
         (ncol, f"constexpr int NCOL = {NARROW_NCOL};"),)},
         **{name: edits for name, (edits, _, _) in BAO_PLANTED.items()},
-        **{name: edits for name, (edits, _, _, _) in QSR_PLANTED.items()})
-    src = (build.CSRC / "fused_log_prob.cu").read_text()
+        **{name: edits for name, (edits, _, _, _) in QSR_PLANTED.items()},
+        **{F64_SWEEP_OFF: F64_SWEEP_OFF_EDITS})
+    variants = [(name, FUSED_SOURCE, edits) for name, edits in fused.items()]
+    variants += [(name, SOURCE, edits) for name, edits in CHI2_PLANTED.items()]
     out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     try:
-        for i, (name, edits) in enumerate(variants.items()):
-            text = src
+        for i, (name, source, edits) in enumerate(variants):
+            text = (build.CSRC / os.path.basename(source)).read_text()
             for old, new in edits:
                 if text.count(old) != 1:
-                    raise AssertionError(f"variant {name}: {old!r} is not once in {FUSED_SOURCE}")
+                    raise AssertionError(f"variant {name}: {old!r} is not once in {source}")
                 text = text.replace(old, new)
-            cu = out_dir / f"fused_log_prob_variant{i}.cu"
+            cu = out_dir / f"{os.path.basename(source)[:-3]}_variant{i}.cu"
             cu.write_text(text)
             so = cu.with_suffix(".so")
-            jobs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                                            str(cu)], stdout=subprocess.PIPE,
+            jobs[name] = (subprocess.Popen(build.nvcc_command(cu, so), stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE, text=True), so)
     except BaseException:
         _stop(jobs)
@@ -1197,9 +1342,10 @@ def _group_padding(fit, theta, block=128):
 
 def _split_bound_ms(fl, fit, packed, theta):
     """The least time for this batch: each walker's minimal work in its
-    own half, the sweep's products at the TF32 tensor-core peak and the
-    rest at the f32 peak, against both constant buffers read once; and
-    beside it the bound with every operation at the f32 peak."""
+    own half, the sweep's products at the TF32 tensor-core peak (at the f64
+    tensor cores' for the f64 sweep) and the rest at the f32 peak, against
+    both constant buffers read once; and beside it the bound with every
+    operation at the f32 peak."""
     lower, upper = _halves_of(fit, theta)
     ops0, prod0, nbytes = fl.work_per_walker(packed, 0)
     ops1, prod1, _ = fl.work_per_walker(packed, 1)
@@ -1208,7 +1354,8 @@ def _split_bound_ms(fl, fit, packed, theta):
     bytes_s = (w * nbytes + const_bytes) / PEAK_BYTES
     ops = lower * ops0 + upper * ops1
     prod = lower * prod0 + upper * prod1
-    bound_ms = 1e3 * max(prod / PEAK_TF32_FLOPS + ops / PEAK_F32_FLOPS, bytes_s)
+    peak = PEAK_F64_TC_FLOPS if packed.hdr["H_SWEEP_F64"] else PEAK_TF32_FLOPS
+    bound_ms = 1e3 * max(prod / peak + ops / PEAK_F32_FLOPS, bytes_s)
     ffma_ms = 1e3 * max((prod + ops) / PEAK_F32_FLOPS, bytes_s)
     return bound_ms, ffma_ms, ((ops0, prod0), (ops1, prod1))
 
@@ -1235,7 +1382,7 @@ def phase_w0wa_fast(card, ptxas_split, variants):
                      device="cuda")
     log_prob = fit.log_prob()
     build_s = time.perf_counter() - t0
-    packed = fl.pack(fit)
+    packed = _pack(fl, fit)
     h = packed.hdr
     ranks = _tt_ranks(packed)
     print(f"phase 12: fast w0wacdm flagship bao.desi_cmb_des5y/w0wacdm (synthetic dense 1829^2 "
@@ -1352,7 +1499,7 @@ def phase_w0wa_fast(card, ptxas_split, variants):
     ncol = fl.NCOL
     fl.NCOL = NARROW_NCOL
     try:
-        narrow = fl.pack(fit)
+        narrow = _pack(fl, fit)
     finally:
         fl.NCOL = ncol
     passes = "; ".join(
@@ -1406,7 +1553,7 @@ def phase_w0wa_fast(card, ptxas_split, variants):
     for name in W0WA_OTHERS:
         t0 = time.perf_counter()
         other = get_preset(name, "w0wacdm", fast=True, device="cuda")
-        p = fl.pack(other)
+        p = _pack(fl, other)
         other_s = time.perf_counter() - t0
         worst = []
         for draw in (_flagship_walkers(other, 4096, seed=7), _box_walkers(other, 4096, seed=8)):
@@ -1484,7 +1631,7 @@ def phase_w0wa_multiprobe(card, ptxas_split, variants):
                      device="cuda")
     log_prob = fit.log_prob()
     build_s = time.perf_counter() - t0
-    packed = fl.pack(fit)
+    packed = _pack(fl, fit)
     h = packed.hdr
     _, halves = fit.terms[0].meta["linear_chi2"].bundle.finalized()
     seconds = [half["seconds"] for half in halves]
@@ -1627,7 +1774,7 @@ def phase_w0wa_multiprobe(card, ptxas_split, variants):
         for model in models:
             t0 = time.perf_counter()
             other = get_preset(name, model, fast=True, device="cuda")
-            p = fl.pack(other)
+            p = _pack(fl, other)
             other_s = time.perf_counter() - t0
             names = [t.name for t in other.terms if fl._emulated(t) is not None]
             parts = []
@@ -1709,7 +1856,7 @@ def phase_bao_family(card, variants):
         if key not in fits:
             t0 = time.perf_counter()
             fit = get_preset(name, model, fast=True, device="cuda", **opts)
-            fits[key] = (fit, fl.pack(fit), time.perf_counter() - t0)
+            fits[key] = (fit, _pack(fl, fit), time.perf_counter() - t0)
         return fits[key]
 
     # each preset in wzcdm: the kernel against its plain version, f32 card
@@ -1837,17 +1984,20 @@ def phase_bao_family(card, variants):
     return dict(worst, branches=branch_worst, planted=caught, timing=timing, seconds=seconds)
 
 
-def _chi2_at(card, n, linv_np, gen):
+def _chi2_at(card, sn, variants, gen):
     """Phase 15: the chi^2 kernel against its plain version at (65,536, n)
-    on an SN whitening factor, rtol RTOL_KERNEL per walker, with kernel
-    and plain times and the bound (the triangle's W n (n + 1) flop at the
-    f32 peak). The plain version is one cuBLAS product with its
-    square-and-sum: it is the library time too."""
+    on an SN dataset's whitening factor, rtol RTOL_KERNEL per walker, and on
+    realistic residuals of its covariance against the f64 plain version,
+    with kernel and plain times and the bounds (``_chi2_realistic``). The
+    plain version is one cuBLAS product with its square-and-sum: it is the
+    library time too."""
+    import numpy as np
     import torch
 
     from cosmax_torch.ops.kernels.whitened_chi2 import whitened_chi2, whitened_chi2_reference
 
-    w = BENCH_WALKERS
+    w, n = BENCH_WALKERS, sn.n
+    linv_np = np.ascontiguousarray(sn.linv)
     linv = torch.as_tensor(linv_np, device="cuda").float()
     delta = torch.randn((w, n), generator=gen, device="cuda")
     got = whitened_chi2(linv, delta)
@@ -1858,18 +2008,14 @@ def _chi2_at(card, n, linv_np, gen):
     if not bool(torch.isfinite(got).all()) or rel > RTOL_KERNEL:
         raise AssertionError(f"phase 15: chi^2 kernel vs plain at ({w}, {n}): max rel err "
                              f"{rel:.3e}")
-    ms = _median_ms(lambda: whitened_chi2(linv, delta))
-    plain_ms = _median_ms(lambda: whitened_chi2_reference(linv, delta))
-    bound_ms = 1e3 * max(w * n * (n + 1) / PEAK_F32_FLOPS, 4.0 * (w * n + n * n + w) / PEAK_BYTES)
     print(f"phase 15: whitened_chi2 vs plain at (W={w}, N={n}): max rel err {rel:.3e}, max abs "
-          f"err {float(err.max()):.3e}; on {card}: kernel {ms:.4f} ms, plain (cuBLAS) "
-          f"{plain_ms:.4f} ms (median of 20, CUDA events), bound {bound_ms:.4f} ms "
-          f"({ms / bound_ms:.2f}x)")
-    return dict(max_rel_err=rel, max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, library_ms=plain_ms)
+          f"err {float(err.max()):.3e}")
+    del linv, delta, got, want
+    return dict(max_rel_err=rel, max_abs_err=float(err.max()),
+                **_chi2_realistic(card, "phase 15", sn.cov, linv_np, variants, gen))
 
 
-def phase_sn_family(card):
+def phase_sn_family(card, variants):
     """Phase 15: the SN family (the ten sn.* presets) and the rest of cc.*
     (cc.cc_pantheon, cc.cc_plain, cc.cc_cmb) on both paths, with the dense
     synthetic SN factors, and the chi^2 kernel at the family's sizes."""
@@ -1888,7 +2034,7 @@ def phase_sn_family(card):
         if (name, model) not in fits:
             t0 = time.perf_counter()
             fit = get_preset(name, model, fast=True, synthetic_sys=True, device="cuda")
-            fits[name, model] = (fit, fl.pack(fit), time.perf_counter() - t0)
+            fits[name, model] = (fit, _pack(fl, fit), time.perf_counter() - t0)
         return fits[name, model]
 
     # the parity path in wzcdm (cc.cc_cmb is lcdm): all finite, 64 walkers
@@ -1923,7 +2069,7 @@ def phase_sn_family(card):
     with use_synthetic_sys(True):
         for ds in ("union21", "pantheon18", "pantheon_plus", "pantheon_plus_shoes"):
             sn = load_sn(ds)
-            chi2[sn.n] = dict(_chi2_at(card, sn.n, np.ascontiguousarray(sn.linv), gen), dataset=ds)
+            chi2[sn.n] = dict(_chi2_at(card, sn, variants, gen), dataset=ds)
 
     # the fast path in wzcdm: whole and each term alone against the plain
     # version, f32 card against the f64 CPU fast path
@@ -2065,6 +2211,89 @@ def _fast_timing(fl, card, label, fit, packed, w, probe=None):
     return row
 
 
+def _published_point(card, fast_fit, variants):
+    """Phase 16: near the published point of QSR_PUBLISHED's presets in
+    w0wacdm (``fast_fit(name, model)`` -> (fit, packed, seconds))."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    # the float32 conditioning of the two widest split-grid bundles: their
+    # BAO table's scale is set by the Om -> 0 corner of the box, so the
+    # packer gives them the f64 sweep (H_SWEEP_F64). Held near the published
+    # point: the kernel's float32 log-prob within LOGP_RTOL of max|logp| of
+    # the f64 CPU fast path, whole and the BAO alone; the kernel with the
+    # f64 sweep forced off (the 3xTF32 sweep on the same buffer) must fail
+    # that check. Beside it the plain version's error, the BAO form's table
+    # scale (F_SCALE: the max of its group's table over the padded grid) in
+    # wzcdm and in each w0wacdm half, and the kernel's time at BENCH_WALKERS
+    # w0wacdm walkers with each sweep
+    def bao_scales(name, model):
+        fit, packed, _ = fast_fit(name, model)
+        i = [t.name for t in fit.terms if fl._emulated(t) is not None].index("bao")
+        offs = [lay["T_OFF_FORMS"] for lay in packed.halves] or [packed.hdr["H_OFF_FORMS"]]
+        return [float(packed.buf[o + i * fl.FORM_STRIDE + fl.FORM["F_SCALE"]]) for o in offs]
+
+    conditioning, missed = {}, {}
+    off_lib = variants[F64_SWEEP_OFF][0]
+    for name in QSR_PUBLISHED:
+        fit, packed, _ = fast_fit(name, "w0wacdm")
+        if not packed.hdr["H_SWEEP_F64"]:
+            raise AssertionError(f"phase 16 {name}/w0wacdm: the packer did not choose the f64 "
+                                 f"sweep")
+        ref = get_preset(name, "w0wacdm", fast=True, synthetic_sys=True, device="cpu",
+                         dtype=torch.float64)
+        walkers = published_walkers(fit)
+        theta = torch.as_tensor(walkers, device="cuda")
+        names = [t.name for t in fit.terms if fl._emulated(t) is not None]
+        parts = []
+        for label, key in (("whole", "whole"), ("bao alone", names.index("bao"))):
+            p32 = packed if key == "whole" else _term_alone(fl, packed, key)
+            p64 = _pack(fl, ref) if key == "whole" else _term_alone(fl, _pack(fl, ref), key)
+            lp64 = fl.fused_log_prob_reference(p64, torch.as_tensor(walkers.astype(np.float64)))
+            for which, lp in (("kernel", fl.fused_log_prob(p32, theta)),
+                              ("plain", fl.fused_log_prob_reference(p32, theta)),
+                              (F64_SWEEP_OFF, _launch_variant(fl, off_lib, p32, theta))):
+                gap = _gap(lp.double().cpu().numpy(), lp64.numpy())
+                conditioning[f"{name} {label} {which}"] = gap
+                parts.append(f"{label} {which} {gap:.3e}")
+                if which == "kernel" and not gap <= LOGP_RTOL:
+                    raise AssertionError(f"phase 16 {name}/w0wacdm near its published point, "
+                                         f"{label}: f32 kernel vs f64 CPU {gap:.3e}")
+            if not conditioning[f"{name} {label} {F64_SWEEP_OFF}"] > LOGP_RTOL:
+                missed[f"{name} {label}"] = conditioning[f"{name} {label} {F64_SWEEP_OFF}"]
+        scales = {model: bao_scales(name, model) for model in ("wzcdm", "w0wacdm")}
+        conditioning[f"{name} bao table scale"] = scales
+        halves = " / ".join(f"{x:.4g}" for x in scales["w0wacdm"])
+        bench = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device="cuda")
+        sweep_ms = {"f64": _median_ms(lambda: fl.fused_log_prob(packed, bench), inner=20),
+                    "3xTF32": _median_ms(lambda: _launch_variant(fl, off_lib, packed, bench),
+                                         inner=20)}
+        smem, blocks = fl.occupancy(packed)
+        bound_ms = _split_bound_ms(fl, fit, packed, bench)[0]
+        conditioning[f"{name} ms"] = dict(sweep_ms, bound_ms=bound_ms, smem_bytes=smem,
+                                          blocks_per_sm=blocks)
+        print(f"phase 16: {name}/w0wacdm near its published point (the f64 sweep, "
+              f"sweep_cancellation {_cancellation(fl, fit):.4g}): f32 card vs f64 CPU (of "
+              f"max|logp|, limit {LOGP_RTOL:g}): {', '.join(parts)}; the BAO table's scale "
+              f"{scales['wzcdm'][0]:.4g} in wzcdm, {halves} in the w0wacdm halves; at "
+              f"W={BENCH_WALKERS} bench walkers on {card}: kernel {sweep_ms['f64']:.4f} ms with "
+              f"the f64 sweep ({smem} bytes of shared memory a block, {blocks} blocks an SM; "
+              f"bound {bound_ms:.4f} ms, its products at the f64 tensor-core peak), "
+              f"{sweep_ms['3xTF32']:.4f} ms with the 3xTF32 sweep (median of 20 samples of 20 "
+              f"calls)")
+    # the f64 sweep forced off must fail the check on each preset, whole or
+    # the BAO alone
+    for name in QSR_PUBLISHED:
+        if all(f"{name} {label}" in missed for label in ("whole", "bao alone")):
+            raise AssertionError(f"phase 16 {name}/w0wacdm: the check near the published point "
+                                 f"missed {F64_SWEEP_OFF!r}: {missed}")
+
+    return conditioning
+
+
 def phase_qsr_family(card, variants):
     """Phase 16: the last six presets (ROADMAP item 10c: the five qsr.* and
     cmb.cmb) on both paths, with the fused kernel's two branches they take
@@ -2085,7 +2314,7 @@ def phase_qsr_family(card, variants):
         if (name, model) not in fits:
             t0 = time.perf_counter()
             fit = get_preset(name, model, fast=True, synthetic_sys=True, device="cuda")
-            fits[name, model] = (fit, fl.pack(fit), time.perf_counter() - t0)
+            fits[name, model] = (fit, _pack(fl, fit), time.perf_counter() - t0)
         return fits[name, model]
 
     def models(name):
@@ -2154,42 +2383,7 @@ def phase_qsr_family(card, variants):
                   f"vs plain at W={FAMILY_WALKERS} (of max|logp|): {'; '.join(parts)}; f32 card "
                   f"vs f64 CPU fast path on 64 walkers {gap:.3e}")
 
-    # the float32 conditioning of the two widest split-grid bundles (ROADMAP
-    # queue 3: their BAO table's scale is set by the Om -> 0 corner of the
-    # box): kernel and plain version against the f64 CPU fast path, whole
-    # and the BAO alone, near the published point; a measurement, not held.
-    # Beside it the BAO form's table scale (F_SCALE: the max of its group's
-    # table over the padded grid) in wzcdm and in each w0wacdm half
-    def bao_scales(name, model):
-        fit, packed, _ = fast_fit(name, model)
-        i = [t.name for t in fit.terms if fl._emulated(t) is not None].index("bao")
-        offs = [lay["T_OFF_FORMS"] for lay in packed.halves] or [packed.hdr["H_OFF_FORMS"]]
-        return [float(packed.buf[o + i * fl.FORM_STRIDE + fl.FORM["F_SCALE"]]) for o in offs]
-
-    conditioning = {}
-    for name in QSR_PUBLISHED:
-        fit, packed, _ = fast_fit(name, "w0wacdm")
-        ref = get_preset(name, "w0wacdm", fast=True, synthetic_sys=True, device="cpu",
-                         dtype=torch.float64)
-        walkers = published_walkers(fit)
-        theta = torch.as_tensor(walkers, device="cuda")
-        names = [t.name for t in fit.terms if fl._emulated(t) is not None]
-        parts = []
-        for label, key in (("whole", "whole"), ("bao alone", names.index("bao"))):
-            p32 = packed if key == "whole" else _term_alone(fl, packed, key)
-            p64 = fl.pack(ref) if key == "whole" else _term_alone(fl, fl.pack(ref), key)
-            lp64 = fl.fused_log_prob_reference(p64, torch.as_tensor(walkers.astype(np.float64)))
-            for which, lp in (("kernel", fl.fused_log_prob(p32, theta)),
-                              ("plain", fl.fused_log_prob_reference(p32, theta))):
-                gap = _gap(lp.double().cpu().numpy(), lp64.numpy())
-                conditioning[f"{name} {label} {which}"] = gap
-                parts.append(f"{label} {which} {gap:.3e}")
-        scales = {model: bao_scales(name, model) for model in ("wzcdm", "w0wacdm")}
-        conditioning[f"{name} bao table scale"] = scales
-        halves = " / ".join(f"{x:.4g}" for x in scales["w0wacdm"])
-        print(f"phase 16: {name}/w0wacdm near its published point (ROADMAP queue 3, not held): "
-              f"f32 card vs f64 CPU (of max|logp|): {', '.join(parts)}; the BAO table's scale "
-              f"{scales['wzcdm'][0]:.4g} in wzcdm, {halves} in the w0wacdm halves")
+    conditioning = _published_point(card, fast_fit, variants)
 
     # the planted faults: each must fail its term's check alone
     caught = {}
@@ -2270,15 +2464,20 @@ def main():
         _stop(jobs)
         raise
     variants = _finish_variants(jobs)
-    print(f"phase 2: built both kernels and {len(variants)} variants of the fused one in "
+    print(f"phase 2: built both kernels and {len(variants)} variants of their sources in "
           f"{time.perf_counter() - t_start:.2f}s (in parallel)")
     for src, b in zip((SOURCE, FUSED_SOURCE), built):
         ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
     ptxas_split = _ptxas_of(built[1].log, "split_kernel") or "ptxas report not found"
     ptxas_tucker = _ptxas_of(built[1].log, "fused_log_prob_kernel") or "ptxas report not found"
+    ptxas_f64 = _ptxas_of(built[1].log, "split_f64_kernel") or "ptxas report not found"
+    ptxas_chi2 = _ptxas_of(built[0].log, "whitened_chi2_kernel") or "ptxas report not found"
+    print(f"phase 2: ptxas: whitened_chi2_kernel {ptxas_chi2}; fused_log_prob_kernel "
+          f"{ptxas_tucker}; fused_log_prob_split_kernel {ptxas_split}; "
+          f"fused_log_prob_split_f64_kernel {ptxas_f64}")
 
-    timing = phase_kernel(card)
+    timing = phase_kernel(card, variants)
     phase_anchor()
     parity_ref = phase_flagship(card)
     launches = phase_cli(card, "phase 6")
@@ -2295,7 +2494,7 @@ def main():
                                      model="w0wacdm", synthetic_sys=True)
     family = phase_bao_family(card, variants)
     family["cli_launches"] = phase_cli(card, "phase 14", "bao.desi_bbn", 150, 4, fast=True)
-    sn_family = phase_sn_family(card)
+    sn_family = phase_sn_family(card, variants)
     sn_family["cli_launches"] = phase_cli(card, "phase 15", "sn.pantheon_shoes", 500, 4,
                                           fast=True, synthetic_sys=True)
     sn_parity_cli_launches = phase_cli(card, "phase 15", "cc.cc_pantheon", 150, 5,
@@ -2306,7 +2505,7 @@ def main():
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches, **timing,
+         "replaces": REPLACES, "launches": launches, **timing, "ptxas": ptxas_chi2,
          "multiprobe_parity_launches": mp_parity_launches,
          "sn_family": dict(sn_family["chi2"], parity_launches=sn_family["parity_launches"],
                            cli_launches=sn_parity_cli_launches)},
@@ -2319,7 +2518,7 @@ def main():
          "branches_1e": [label for label, _, _ in BRANCHES], "bao_family": family,
          "sn_family": {k: v for k, v in sn_family.items()
                        if k not in ("chi2", "parity_launches")},
-         "qsr_family": qsr_family},
+         "qsr_family": qsr_family, "sweep_f64": sorted(SWEEP_F64), "ptxas_f64": ptxas_f64},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

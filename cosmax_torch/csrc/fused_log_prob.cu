@@ -136,6 +136,25 @@
 //   writes its output over its input,
 //   which keeps the flagship's block at 76 KB of shared memory and 168
 //   registers: three blocks an SM.
+// * The f64 sweep (a third kernel, fused_log_prob_split_f64_kernel, chosen
+//   by the packer's H_SWEEP_F64 through the launch's instance): where a
+//   bundle's group scale exceeds its values at a half's reference centre
+//   more than 1e3 times (qsr.desi and qsr.des5y_desi in w0wacdm, whose
+//   boxes reach Om = 0: the BAO table's scale is ~9e4 there against ~15 in
+//   wzcdm), the tensor train carries the group's columns as cancellations
+//   of corner-sized terms, and a float32 sweep, 3xTF32 or not, loses more
+//   than 1e-4 of max|logp|. That instance keeps the cores float32 in device
+//   memory and runs everything from the weights to the tail in f64: the
+//   barycentric weights, the first step, each later step's block product
+//   on the f64 tensor cores (mma.sync m8n8k4, IEEE double: no per-slice
+//   flush), A = w_m v_b[p] formed in f64, B widened at fragment load, the
+//   sweep vectors kept in f64 between steps, and a = v^T tail; each quad of
+//   a is then rounded to f32 for the forms, as the plain version casts its
+//   f64 sweep. Its m-tiles of 16 rows are two tiles of 8 whose C takes the
+//   TF32 fragment's places, so the half's rows, warps and padding rows are
+//   block_step's. The rows of doubles take twice the shared memory: one
+//   block an SM, and the f64 tensor cores' peak is a seventh of TF32's;
+//   the two bundles pay that for their accuracy (times in PERF.md).
 // * Accurate libm functions and IEEE division and square root (no
 //   --use_fast_math): the CMB term divides theta* by its sigma ~ 2.6e-6,
 //   and the quasar term takes 22 logf a walker.
@@ -147,6 +166,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tf32.cuh"  // tf32_rna, split_tf32, mma_tf32
 
 namespace {
 
@@ -191,6 +212,12 @@ constexpr int MT_WARP = THREADS / 16 / WARPS;  // m-tiles of 16 rows a warp
 // blocks of the split instance an SM should hold (registers capped to fit;
 // the flagship's shared memory, 76 KB a block, fits three)
 constexpr int SPLIT_BLOCKS = 3;
+// the split instance's f64 sweep (H_SWEEP_F64): the sweep's weights and
+// vectors in doubles at a stride of VLD_F64 (4 mod 16, so that a
+// half-warp's 8-byte loads of A, lanes 4 g + t at row t, column g, fall on
+// 32 banks), one block an SM (its rows take twice the shared memory)
+constexpr int VLD_F64 = 132;
+constexpr int SPLIT_F64_BLOCKS = 1;
 // timing probes of the Tucker instance, built only by `fused_ab.py --variant
 // PROBE=n` (0 is the kernel): bit 1 leaves out the CMB, bit 2 the core
 // contraction (each quad of a window takes wp1[0] wp2[0]), bit 4 the
@@ -214,6 +241,7 @@ constexpr int TUCKER_WARPS = 8;
 constexpr int TUCKER_SM_WARPS = 16;
 constexpr int TUCKER_THREADS = 32 * TUCKER_WARPS;
 static_assert(VLD >= THREADS && VLD % 32 == 8 && SLD >= NCOL && SLD % 32 == 8, "bank layout");
+static_assert(VLD_F64 >= THREADS && VLD_F64 % 16 == 4, "bank layout of the f64 sweep");
 static_assert(WLD >= 32 && WLD % 32 == 8 && CLD >= 32 && CLD % 16 == 4 && NCOLT % 8 == 0,
               "bank layout of the Tucker contraction");
 static_assert(MAX_RANK == 16, "inner ranks pad to 8 or 16: one or two k-steps");
@@ -270,6 +298,7 @@ constexpr int H_I_RD = 43;
 constexpr int H_RD_N = 44;
 constexpr int H_OFF_RD = 45;
 constexpr int H_I_PRIOR = 46;
+constexpr int H_SWEEP_F64 = 47;  // 1: the split grid's sweep in f64 (the launch's instance)
 
 // one half of the split grid (HALF)
 // (per core i = 0, 1, 2 the slots T_PERM0 + i, T_AX0 + i, T_N0 + i,
@@ -596,6 +625,41 @@ __device__ __forceinline__ void contract_window(const float4* core, int nq, int 
   }
 }
 
+// the split grid's tail in the f64 sweep: contract_window's a = v^T tail
+// (r2 = 1) with v and the sums in f64, each quad rounded to f32 for consume
+// (as the plain version casts its f64 sweep's coefficients)
+template <typename Consume>
+__device__ __forceinline__ void tail_window_f64(const float4* tail, int nq, int q0, int n, int r,
+                                                const double* v, Consume&& consume) {
+  for (int c0 = 0; c0 < n; c0 += QC) {
+    const int nc = min(QC, n - c0);
+    double acc[QC][4];
+#pragma unroll
+    for (int c = 0; c < QC; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.0;
+    for (int j = 0; j < r; ++j) {
+      const double vj = v[j * VLD_F64];
+      const float4* row = tail + j * nq + q0 + c0;
+#pragma unroll
+      for (int c = 0; c < QC; ++c) {
+        if (c < nc) {
+          const float4 u = row[c];
+          acc[c][0] = fma(vj, static_cast<double>(u.x), acc[c][0]);
+          acc[c][1] = fma(vj, static_cast<double>(u.y), acc[c][1]);
+          acc[c][2] = fma(vj, static_cast<double>(u.z), acc[c][2]);
+          acc[c][3] = fma(vj, static_cast<double>(u.w), acc[c][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < QC; ++c) {
+      if (c < nc) {
+        consume(c0 + c, make_float4(static_cast<float>(acc[c][0]), static_cast<float>(acc[c][1]),
+                                    static_cast<float>(acc[c][2]), static_cast<float>(acc[c][3])));
+      }
+    }
+  }
+}
+
 // e (e - 2 v + 2 P g) of one (base, delta) pair of a linear form
 __device__ __forceinline__ float pair_term(float bs, float base, float delta, float t,
                                            float4 row, float ga, float gb) {
@@ -682,15 +746,40 @@ __device__ float cmb_chi2(const float* c, const float* th, float h0, float om, f
   return chi2;
 }
 
+// The split grid's sweep runs in T = float (the 3xTF32 instance) or T =
+// double (the f64 instance, H_SWEEP_F64): its weights and vectors are T
+// rows at a stride of sweep_ld<T>() in shared memory; the stored nodes,
+// barycentric weights and cores are f32, read exactly into T.
+template <bool F64>
+struct Sweep {
+  using type = float;
+};
+template <>
+struct Sweep<true> {
+  using type = double;
+};
+
+template <typename T>
+__device__ __forceinline__ constexpr int sweep_ld() {
+  return sizeof(T) == sizeof(double) ? VLD_F64 : VLD;
+}
+
+// fmaf / fabsf in float, fma / fabs in double
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
+
 // the barycentric sum of x on the n nodes, and how many nodes lie within
 // 1e-14 of x (then the weights are a one-hot)
-__device__ __forceinline__ float bary_sum(float x, const float* nodes, const float* bw, int n,
-                                          int& n_near) {
-  float sum = 0.0f;
+template <typename T>
+__device__ __forceinline__ T bary_sum(float x, const float* nodes, const float* bw, int n,
+                                      int& n_near) {
+  T sum = 0;
   n_near = 0;
   for (int m = 0; m < n; ++m) {
-    const float d = x - nodes[m];
-    if (fabsf(d) < 1e-14f) {
+    const T d = static_cast<T>(x) - static_cast<T>(nodes[m]);
+    if (abs_t(d) < static_cast<T>(1e-14)) {
       ++n_near;
     } else {
       sum += bw[m] / d;
@@ -699,59 +788,63 @@ __device__ __forceinline__ float bary_sum(float x, const float* nodes, const flo
   return sum;
 }
 
-__device__ __forceinline__ float bary_weight(float x, float node, float bw, float sum, int n_near) {
-  const float d = x - node;
-  const bool near = fabsf(d) < 1e-14f;
-  return n_near > 0 ? (near ? 1.0f : 0.0f) : (bw / d) / sum;
+template <typename T>
+__device__ __forceinline__ T bary_weight(float x, float node, float bw, T sum, int n_near) {
+  const T d = static_cast<T>(x) - static_cast<T>(node);
+  const bool near = abs_t(d) < static_cast<T>(1e-14);
+  return n_near > 0 ? (near ? T(1) : T(0)) : (bw / d) / sum;
 }
 
 // the first tensor-train step of one walker: v[r] = sum_n w[n] G[n][r] for
 // the nq output quads of r, the weights recomputed per chunk of RC quads so
 // that they are never stored. G is [n][4 nq] in device memory, read as
 // float4 through the read-only path; v is the walker's column of the
-// block's sweep vectors, at [r * VLD].
+// block's sweep vectors, at [r * sweep_ld<T>()].
+template <typename T>
 __device__ __forceinline__ void tt_first(const float4* __restrict__ g, int nq, float x,
-                                         const float* nodes, const float* bw, int n, float* v) {
+                                         const float* nodes, const float* bw, int n, T* v) {
+  constexpr int LD = sweep_ld<T>();
   int n_near;
-  const float sum = bary_sum(x, nodes, bw, n, n_near);
+  const T sum = bary_sum<T>(x, nodes, bw, n, n_near);
   for (int q0 = 0; q0 < nq; q0 += RC) {
     const int nc = min(RC, nq - q0);
-    float4 acc[RC];
+    T acc[RC][4];
 #pragma unroll
-    for (int c = 0; c < RC; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int c = 0; c < RC; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = T(0);
     for (int m = 0; m < n; ++m) {
-      const float wm = bary_weight(x, nodes[m], bw[m], sum, n_near);
+      const T wm = bary_weight<T>(x, nodes[m], bw[m], sum, n_near);
       const float4* row = g + m * nq + q0;
 #pragma unroll
       for (int c = 0; c < RC; ++c) {
         if (c < nc) {
           const float4 u = __ldg(row + c);
-          acc[c].x = fmaf(wm, u.x, acc[c].x);
-          acc[c].y = fmaf(wm, u.y, acc[c].y);
-          acc[c].z = fmaf(wm, u.z, acc[c].z);
-          acc[c].w = fmaf(wm, u.w, acc[c].w);
+          acc[c][0] = fma_t(wm, static_cast<T>(u.x), acc[c][0]);
+          acc[c][1] = fma_t(wm, static_cast<T>(u.y), acc[c][1]);
+          acc[c][2] = fma_t(wm, static_cast<T>(u.z), acc[c][2]);
+          acc[c][3] = fma_t(wm, static_cast<T>(u.w), acc[c][3]);
         }
       }
     }
 #pragma unroll
     for (int c = 0; c < RC; ++c) {
       if (c < nc) {
-        float* o = v + 4 * (q0 + c) * VLD;
-        o[0] = acc[c].x;
-        o[VLD] = acc[c].y;
-        o[2 * VLD] = acc[c].z;
-        o[3 * VLD] = acc[c].w;
+        T* o = v + 4 * (q0 + c) * LD;
+        o[0] = acc[c][0];
+        o[LD] = acc[c][1];
+        o[2 * LD] = acc[c][2];
+        o[3 * LD] = acc[c][3];
       }
     }
   }
 }
 
-// the walker's barycentric weights of x on the n nodes, at w[m * VLD]
+// the walker's barycentric weights of x on the n nodes, at w[m * sweep_ld<T>()]
+template <typename T>
 __device__ __forceinline__ void bary_weights(float x, const float* nodes, const float* bw, int n,
-                                             float* w) {
+                                             T* w) {
   int n_near;
-  const float sum = bary_sum(x, nodes, bw, n, n_near);
-  for (int m = 0; m < n; ++m) w[m * VLD] = bary_weight(x, nodes[m], bw[m], sum, n_near);
+  const T sum = bary_sum<T>(x, nodes, bw, n, n_near);
+  for (int m = 0; m < n; ++m) w[m * sweep_ld<T>()] = bary_weight<T>(x, nodes[m], bw[m], sum, n_near);
 }
 
 // 16 bytes from device memory into shared memory, asynchronously (L2 only)
@@ -767,31 +860,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: the bits of cvt.rna.tf32.f32 for a finite x, in two integer
-// operations (sm_90 has no such cvt; ptxas expands it into a sequence
-// that also keeps infinities)
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to f32 accuracy: hi = tf32(x), lo = tf32(x - hi), as TF32
-// bit patterns
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// c += a b on the tensor cores: a 16 x 8 (row-major fragment), b 8 x 8
-// (column-major), c 16 x 8 f32
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // the operands of one later tensor-train step as a block product: the
@@ -885,6 +953,86 @@ __device__ __forceinline__ void mma_slice_nt(int nt, const float* st, int row0, 
     }
   }
   mma_slice<MT, NT>(st, row0, a, acc);
+}
+
+// the operands of one later tensor-train step in the f64 sweep, as StepA:
+// this lane's one column of A in the current k-step of 4, k = m r_in + p at
+// k0 + tg
+struct StepA64 {
+  const double* w;
+  const double* v_in;
+  int rin;
+  int m0, p0;
+  // the next k-step: p moves 4 on and wraps at most once (r_in >= 8)
+  __device__ __forceinline__ void advance() {
+    p0 += 4;
+    const bool wrap = p0 >= rin;
+    p0 = wrap ? p0 - rin : p0;
+    m0 += wrap;
+  }
+};
+
+// c += a b on the f64 tensor cores: a 8 x 4 (row-major fragment: row g,
+// column t of lane 4 g + t), b 4 x 8 (column-major: row t, column g), c 8 x 8
+// (row g, columns 2 t and 2 t + 1); IEEE double arithmetic
+__device__ __forceinline__ void mma_f64(double& c0, double& c1, double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c0), "+d"(c1)
+      : "d"(a), "d"(b));
+}
+
+// mma_slice of the f64 sweep: each m-tile of 16 rows is two tiles of 8
+// (rows row and row + 8, whose C takes acc[t][j][0, 1] and [2, 3] as the
+// TF32 fragment's), A[b, (m, p)] = w_m(b) v_b[p] formed in f64, B read from
+// the f32 stage and widened at fragment load. The f64 tensor cores round
+// every step, so the sums run in the accumulators over the whole K.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_slice(const float* st, int row0, StepA64& a,
+                                          double (&acc)[MT_WARP][NCOL / 8][4]) {
+#pragma unroll KUNROLL
+  for (int kk = 0; kk < KSLICE; kk += 4) {
+    const double* w0 = a.w + a.m0 * VLD_F64;
+    const double* v0 = a.v_in + a.p0 * VLD_F64;
+    double top[MT], bot[MT];
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const int row = row0 + 16 * WARPS * t;
+      top[t] = w0[row] * v0[row];
+      bot[t] = w0[row + 8] * v0[row + 8];
+    }
+    a.advance();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const double b = st[kk * SLD + 8 * j];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        mma_f64(acc[t][j][0], acc[t][j][1], top[t], b);
+        mma_f64(acc[t][j][2], acc[t][j][3], bot[t], b);
+      }
+    }
+  }
+}
+
+template <int MT, int NT = 1>
+__device__ __forceinline__ void mma_slice_nt(int nt, const float* st, int row0, StepA64& a,
+                                             double (&acc)[MT_WARP][NCOL / 8][4]) {
+  if constexpr (NT < NCOL / 8) {
+    if (nt != NT) {
+      mma_slice_nt<MT, NT + 1>(nt, st, row0, a, acc);
+      return;
+    }
+  }
+  mma_slice<MT, NT>(st, row0, a, acc);
+}
+
+// the step's A operand and this lane's first columns: k = tg and tg + 4 in
+// a k-step of 8 (3xTF32), k = tg in a k-step of 4 (f64)
+__device__ __forceinline__ StepA step_a(const float* w, const float* v_in, int rin, int tg) {
+  return StepA{w, v_in, rin, 0, tg, 0, tg + 4};
+}
+
+__device__ __forceinline__ StepA64 step_a(const double* w, const double* v_in, int rin, int tg) {
+  return StepA64{w, v_in, rin, 0, tg};
 }
 
 // one column pass of the Tucker contraction for the warp's 32 walkers (row
@@ -995,16 +1143,19 @@ __device__ __forceinline__ void tucker_tiles_nt(int nt, const float* b, int ldb,
 // one later tensor-train step as a block product over one half's rows
 // [lo, hi) (lo = 0, or hi = THREADS), in m-tiles of 16 rows whose padding
 // rows lie on the other half's rows: v_out[r][b] = sum_{m, p} (w[m][b] v_in[p][b])
-// G[m r_in + p][r] for r < rout, in 3xTF32 on the tensor cores. G is
+// G[m r_in + p][r] for r < rout, in 3xTF32 on the tensor cores (T = float)
+// or on the f64 tensor cores (T = double, mma.sync m8n8k4). G is
 // [kp][np] in device memory (kp = n r_in padded to KSLICE rows of zeros, np
 // = rout padded to 8), streamed through the ring by cp.async, NCOL columns
 // a pass. A warp owns the m-tiles warp and warp + WARPS, or in a half of
 // one or two m-tiles one m-tile and a share of the n-tiles. v_out may be
 // v_in when np <= NCOL (one pass). Every thread of the block calls it (it
 // holds the barriers).
+template <typename T>
 __device__ __forceinline__ void block_step(const float* __restrict__ g, int n, int rin, int rout,
-                                           int lo, int hi, const float* w, const float* v_in,
-                                           float* v_out, float* ring) {
+                                           int lo, int hi, const T* w, const T* v_in,
+                                           T* v_out, float* ring) {
+  constexpr int LD = sweep_ld<T>();
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int gr = (tid & 31) >> 2;  // the fragments' row (A, C) or column (B) in the tile
@@ -1041,14 +1192,14 @@ __device__ __forceinline__ void block_step(const float* __restrict__ g, int n, i
       if (sl < nslices) issue(sl);
       cp_async_commit();
     }
-    float acc[MT_WARP][NCOL / 8][4];
+    T acc[MT_WARP][NCOL / 8][4];
 #pragma unroll
     for (int t = 0; t < MT_WARP; ++t)
 #pragma unroll
       for (int j = 0; j < NCOL / 8; ++j)
-        acc[t][j][0] = acc[t][j][1] = acc[t][j][2] = acc[t][j][3] = 0.0f;
-    // k = tg and tg + 4 lie on node 0 (r_in >= 8)
-    StepA a{w, v_in, rin, 0, tg, 0, tg + 4};
+        acc[t][j][0] = acc[t][j][1] = acc[t][j][2] = acc[t][j][3] = T(0);
+    // k = tg (and tg + 4) lie on node 0 (r_in >= 8)
+    auto a = step_a(w, v_in, rin, tg);
     for (int sl = 0; sl < nslices; ++sl) {
       cp_async_wait<STAGES - 2>();
       __syncthreads();  // slice sl landed for all; slice sl - 1's stage is free
@@ -1074,12 +1225,12 @@ __device__ __forceinline__ void block_step(const float* __restrict__ g, int n, i
       for (int j = 0; j < NCOL / 8; ++j) {
         const int col = c0 + 8 * (j0 + j) + 2 * tg;
         if (t < tiles && j < ntw && col < rout) {
-          if (in0) v_out[col * VLD + row] = acc[t][j][0];
-          if (in8) v_out[col * VLD + row + 8] = acc[t][j][2];
+          if (in0) v_out[col * LD + row] = acc[t][j][0];
+          if (in8) v_out[col * LD + row + 8] = acc[t][j][2];
         }
         if (t < tiles && j < ntw && col + 1 < rout) {
-          if (in0) v_out[(col + 1) * VLD + row] = acc[t][j][1];
-          if (in8) v_out[(col + 1) * VLD + row + 8] = acc[t][j][3];
+          if (in0) v_out[(col + 1) * LD + row] = acc[t][j][1];
+          if (in8) v_out[(col + 1) * LD + row + 8] = acc[t][j][3];
         }
       }
     }
@@ -1202,11 +1353,12 @@ __device__ __forceinline__ int group_rows(int mine, int& count0, int& count1) {
 }
 
 // SPLIT: the split w0wacdm grid, the TT sweep of each half as block
-// products over ``tt``; otherwise the native grid's Tucker core in shared
-// memory. ``stride``: on the native grid the rows of WLD floats of a warp's
-// projections (H_KO + H_KI); on the split grid the rows of VLD floats of the
-// sweep's weights and vectors (the node count, WPAD and H_VROWS).
-template <bool SPLIT>
+// products over ``tt`` (in f64 for F64, H_SWEEP_F64); otherwise the native
+// grid's Tucker core in shared memory. ``stride``: on the native grid the
+// rows of WLD floats of a warp's projections (H_KO + H_KI); on the split grid
+// the rows of the sweep's weights and vectors (the node count, WPAD and
+// H_VROWS), of VLD floats or VLD_F64 doubles.
+template <bool SPLIT, bool F64 = false>
 __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts, int n_consts,
                                                const float* __restrict__ tt, int stride,
                                                const float* __restrict__ theta,
@@ -1230,7 +1382,8 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
   // the last walker, and writes nothing
   const float* th = theta + min(w, W - 1) * D;
   // per warp [stride][WLD] projections and [NCOLT][CLD] C (native grid), or
-  // the sweep's [stride][VLD] rows (split grid)
+  // the sweep's [stride][VLD] rows (split grid; [stride][VLD_F64] doubles in
+  // the f64 sweep)
   float* scratch = s + ((n_consts + 3) & ~3);
 
   // 1. derived parameters
@@ -1259,10 +1412,12 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
     const int n = static_cast<int>(s[H_N1]);  // every axis of the split grid
     const int vrows = stride - n - WPAD;
     const float* bw = s + static_cast<int>(s[H_OFF_BW1]);
-    float* s_w = scratch;                   // [n + WPAD][VLD] the weights of one step
-    float* s_v = s_w + (n + WPAD) * VLD;    // [vrows][VLD] the sweep vectors
-    float* ring = s_w + stride * VLD;       // [STAGES][KSLICE][SLD] slices of G
-    for (int i = tid; i < WPAD * VLD; i += THREADS) s_w[n * VLD + i] = 0.0f;
+    using T = typename Sweep<F64>::type;
+    constexpr int LD = sweep_ld<T>();
+    T* s_w = reinterpret_cast<T*>(scratch);  // [n + WPAD][LD] the weights of one step
+    T* s_v = s_w + (n + WPAD) * LD;          // [vrows][LD] the sweep vectors
+    float* ring = reinterpret_cast<float*>(s_w + stride * LD);  // [STAGES][KSLICE][SLD] slices of G
+    for (int i = tid; i < WPAD * LD; i += THREADS) s_w[n * LD + i] = T(0);
     int count0, count1;
     const int pos = group_rows(mine, count0, count1);  // its barrier publishes the zeros
     const float* halves = s + static_cast<int>(s[H_OFF_HALVES]);
@@ -1284,8 +1439,8 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
                ((static_cast<int>(hm[T_R1]) + 7) & ~7) >> 2, coord(0),
                s + static_cast<int>(hm[T_AX0]), bw, n, s_v + pos);
     }
-    float* v0 = s_v;  // each half's sweep vectors
-    float* v1 = s_v;
+    T* v0 = s_v;  // each half's sweep vectors
+    T* v1 = s_v;
 #pragma unroll 1
     for (int i = 1; i < 3; ++i) {
       if (live) bary_weights(coord(i), s + static_cast<int>(hm[T_AX0 + i]), bw, n, s_w + pos);
@@ -1297,8 +1452,8 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
         const float* hb = halves + h * HALF_STRIDE;
         const int r = static_cast<int>(hb[T_R1 + i]);
         const int np = (r + 7) & ~7;
-        float* v_in = h == 0 ? v0 : v1;
-        float* v_out = np <= NCOL ? v_in : (v_in == s_v ? s_v + (vrows - np) * VLD : s_v);
+        T* v_in = h == 0 ? v0 : v1;
+        T* v_out = np <= NCOL ? v_in : (v_in == s_v ? s_v + (vrows - np) * LD : s_v);
         block_step(tt + static_cast<int>(hb[T_G0 + i]), n, static_cast<int>(hb[T_R1 + i - 1]), r,
                    h == 0 ? 0 : THREADS - count, h == 0 ? count : THREADS, s_w, v_in, v_out,
                    ring);
@@ -1312,10 +1467,14 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
       const int nq = static_cast<int>(hm[T_NQ]);
       const int r3 = static_cast<int>(hm[T_R3]);
       const float* one = hm + T_ONE;
-      const float* v = (mine > 0 ? v1 : v0) + pos;
+      const T* v = (mine > 0 ? v1 : v0) + pos;
       eval_forms(s, s + static_cast<int>(hm[T_OFF_FORMS]), n_forms, th, h0, t, rd, chi2, log_norm,
                  [&](int q0, int nw, auto&& consume) {
-                   contract_window<VLD>(tail, nq, q0, nw, r3, 1, v, one, consume);
+                   if constexpr (F64) {
+                     tail_window_f64(tail, nq, q0, nw, r3, v, consume);
+                   } else {
+                     contract_window<VLD>(tail, nq, q0, nw, r3, 1, v, one, consume);
+                   }
                  });
     }
   } else if (n_forms > 0) {  // a fit with no emulated term (cmb.cmb) has no grid
@@ -1402,8 +1561,8 @@ __device__ __forceinline__ void fused_log_prob(const float* __restrict__ consts,
   out[w] = ok ? ll : -INFINITY;
 }
 
-// the two instances as kernels: the split one with its registers capped so
-// that SPLIT_BLOCKS blocks fit an SM
+// the instances as kernels: the split ones with their registers capped so
+// that SPLIT_BLOCKS (3xTF32) or SPLIT_F64_BLOCKS (f64 sweep) blocks fit an SM
 __global__ void __launch_bounds__(TUCKER_THREADS, TUCKER_SM_WARPS / TUCKER_WARPS)
 fused_log_prob_kernel(const float* __restrict__ consts, int n_consts, int stride,
                       const float* __restrict__ theta, float* __restrict__ out, long long W,
@@ -1419,38 +1578,53 @@ fused_log_prob_split_kernel(const float* __restrict__ consts, int n_consts,
   fused_log_prob<true>(consts, n_consts, tt, stride, theta, out, W, D);
 }
 
+__global__ void __launch_bounds__(THREADS, SPLIT_F64_BLOCKS)
+fused_log_prob_split_f64_kernel(const float* __restrict__ consts, int n_consts,
+                                const float* __restrict__ tt, int stride,
+                                const float* __restrict__ theta, float* __restrict__ out,
+                                long long W, int D) {
+  fused_log_prob<true, true>(consts, n_consts, tt, stride, theta, out, W, D);
+}
+
+// the instance of a launch: 0 the native grid, 1 the split grid in 3xTF32,
+// 2 the split grid with its sweep in f64
+constexpr int INSTANCES = 3;
+
 // dynamic shared memory of a launch: the constants, then per warp its
-// projections and C (native grid) or the sweep's rows and the ring of G
-// (split grid)
-template <bool SPLIT>
-size_t smem_bytes(int n_consts, int stride) {
-  const size_t scratch = SPLIT ? static_cast<size_t>(stride) * VLD + STAGES * KSLICE * SLD
-                               : TUCKER_WARPS * (static_cast<size_t>(stride) * WLD + NCOLT * CLD);
+// projections and C (native grid) or the sweep's rows (floats, or doubles in
+// the f64 sweep) and the ring of G (split grid)
+size_t smem_bytes(int instance, int n_consts, int stride) {
+  const size_t ld = instance == 2 ? 2 * VLD_F64 : VLD;  // a row's floats
+  const size_t scratch = instance ? static_cast<size_t>(stride) * ld + STAGES * KSLICE * SLD
+                                  : TUCKER_WARPS * (static_cast<size_t>(stride) * WLD + NCOLT * CLD);
   return (static_cast<size_t>((n_consts + 3) & ~3) + scratch) * sizeof(float);
 }
 
 // the instance's kernel and its dynamic shared memory, the kernel's limit
 // raised where that exceeds 48 KB
-template <bool SPLIT>
-cudaError_t prepare(int n_consts, int stride, size_t& smem, const void*& kernel) {
-  smem = smem_bytes<SPLIT>(n_consts, stride);
-  kernel = SPLIT ? reinterpret_cast<const void*>(fused_log_prob_split_kernel)
-                 : reinterpret_cast<const void*>(fused_log_prob_kernel);
+cudaError_t prepare(int instance, int n_consts, int stride, size_t& smem, const void*& kernel) {
+  smem = smem_bytes(instance, n_consts, stride);
+  const void* kernels[INSTANCES] = {reinterpret_cast<const void*>(fused_log_prob_kernel),
+                                    reinterpret_cast<const void*>(fused_log_prob_split_kernel),
+                                    reinterpret_cast<const void*>(fused_log_prob_split_f64_kernel)};
+  kernel = kernels[instance];
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool SPLIT>
-int launch(const float* consts, int n_consts, const float* tt, int stride, const float* theta,
-           float* out, long long W, int D, cudaStream_t stream) {
+int launch(int instance, const float* consts, int n_consts, const float* tt, int stride,
+           const float* theta, float* out, long long W, int D, cudaStream_t stream) {
   size_t smem;
   const void* kernel;
-  const cudaError_t err = prepare<SPLIT>(n_consts, stride, smem, kernel);
+  const cudaError_t err = prepare(instance, n_consts, stride, smem, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int block = SPLIT ? THREADS : TUCKER_THREADS;
+  const int block = instance ? THREADS : TUCKER_THREADS;
   const unsigned int blocks = static_cast<unsigned int>((W + block - 1) / block);
-  if constexpr (SPLIT) {
+  if (instance == 2) {  // the f64 sweep (H_SWEEP_F64)
+    fused_log_prob_split_f64_kernel<<<blocks, THREADS, smem, stream>>>(
+        consts, n_consts, tt, stride, theta, out, W, D);
+  } else if (instance == 1) {
     fused_log_prob_split_kernel<<<blocks, THREADS, smem, stream>>>(consts, n_consts, tt, stride,
                                                                    theta, out, W, D);
   } else {
@@ -1460,31 +1634,31 @@ int launch(const float* consts, int n_consts, const float* tt, int stride, const
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_args(int n_consts, int D, int split, int stride) {
-  return n_consts > MAX_FLOATS || D > MAX_DIM || D < 1 || (split != 0 && split != 1) ||
-         stride < (split ? 1 : 0) ||
-         stride > (split ? MAX_NODES + WPAD + 2 * MAX_BOND : MAX_RANK_OUTER + MAX_RANK);
+bool bad_args(int n_consts, int D, int instance, int stride) {
+  return n_consts > MAX_FLOATS || D > MAX_DIM || D < 1 || instance < 0 || instance >= INSTANCES ||
+         stride < (instance ? 1 : 0) ||
+         stride > (instance ? MAX_NODES + WPAD + 2 * MAX_BOND : MAX_RANK_OUTER + MAX_RANK);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers; `stream` is
 // a cudaStream_t. `tt` is the split grid's TT buffer (null on a native
-// grid), `split` 1 for the split grid, `stride` the rows of WLD floats of a
-// warp's projections on the native grid (H_KO + H_KI), or on the split grid
-// the rows of the sweep's weights and vectors (H_N1 + WPAD + H_VROWS).
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for sizes above the compiled maxima. The caller
-// guarantees W >= 1 and contiguous f32 inputs.
+// grid), `split` the instance: 0 the native grid, 1 the split grid, 2 the
+// split grid with its sweep in f64 (the packer's H_SWEEP_F64); `stride` the
+// rows of WLD floats of a warp's projections on the native grid (H_KO +
+// H_KI), or on the split grid the rows of the sweep's weights and vectors
+// (H_N1 + WPAD + H_VROWS). Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for sizes above the compiled maxima.
+// The caller guarantees W >= 1 and contiguous f32 inputs.
 extern "C" int cosmax_fused_log_prob_f32(const float* consts, int n_consts, const float* tt,
                                          int split, int stride, const float* theta, float* out,
                                          long long W, int D, void* stream) {
   if (bad_args(n_consts, D, split, stride) || (split && tt == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return split ? launch<true>(consts, n_consts, tt, stride, theta, out, W, D, st)
-               : launch<false>(consts, n_consts, tt, stride, theta, out, W, D, st);
+  return launch(split, consts, n_consts, tt, stride, theta, out, W, D,
+                static_cast<cudaStream_t>(stream));
 }
 
 // For reports: the dynamic shared memory of one block (bytes) and the
@@ -1495,8 +1669,7 @@ extern "C" int cosmax_fused_log_prob_occupancy(int n_consts, int split, int stri
   if (bad_args(n_consts, 1, split, stride)) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem;
   const void* kernel;
-  cudaError_t err = split ? prepare<true>(n_consts, stride, smem, kernel)
-                          : prepare<false>(n_consts, stride, smem, kernel);
+  cudaError_t err = prepare(split, n_consts, stride, smem, kernel);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
                                                         split ? THREADS : TUCKER_THREADS, smem);

@@ -7,9 +7,10 @@ library (no PyTorch headers, so a build takes seconds) and loaded with
 test environment imports every module but has no ``nvcc``.
 
 The library lands in ``<repo>/build/cosmax_torch_kernels/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded. Concurrent builds write to private temporary files and rename
+``.gitignore``) under a name that carries a hash of the source, of every
+header in ``csrc/`` (``*.cuh``, which a source includes as ``"name.cuh"``)
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Concurrent builds write to private temporary files and rename
 them into place; ``load_kernels`` starts one ``nvcc`` per source at once.
 """
 
@@ -58,6 +59,22 @@ def _nvcc() -> str:
     )
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: its name carries a
+    hash of the source, the headers of ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def nvcc_command(src, out) -> list:
+    """The nvcc command that builds the source ``src`` (a path) into the
+    library ``out``, with ``csrc/`` on the include path."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def load_kernel(name: str) -> BuiltKernel:
     """Compile ``csrc/<name>.cu`` if needed and return its loaded library."""
     return load_kernels([name])[0]
@@ -74,8 +91,7 @@ def load_kernels(names) -> list:
             if name in _LOADED or name in jobs:
                 continue
             src = CSRC / f"{name}.cu"
-            digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-            out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+            out = library_path(name)
             if out.exists():
                 _LOADED[name] = BuiltKernel(ctypes.CDLL(str(out)), out, 0.0, "")
                 continue
@@ -83,7 +99,7 @@ def load_kernels(names) -> list:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                nvcc_command(src, tmp),
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
             jobs[name] = (src, out, tmp, proc, time.perf_counter())

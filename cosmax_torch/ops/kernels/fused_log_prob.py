@@ -64,7 +64,10 @@ with zeros to whole slices of KSLICE and its columns to a multiple of 8,
 the tail [r_last, 4 nq] with its columns ordered form by form as the
 Tucker core's. A half that the compressor left as Tucker (``sn.union3_cmb``'s
 half 1) is packed as the same function in tensor-train form
-(``_tucker_as_tt``).
+(``_tucker_as_tt``). The kernel sweeps in 3xTF32, or in f64 on the f64
+tensor cores where the packer finds that a float32 sweep would cancel
+(``H_SWEEP_F64``, ``sweep_cancellation``; the wrapper launches that
+instance, ``instance``).
 
 The buffer is in the fit's dtype: float32 on the card (the f64 build
 constants cast once, as the per-term path casts them), float64 for the
@@ -112,6 +115,7 @@ MAX_DEV_FLOATS = 1 << 24  # device-buffer floats (offsets are exact in f32)
 # per-warp half counts.
 THREADS = 128
 VLD = 136
+VLD_F64 = 132  # the sweep's rows in the f64 sweep (H_SWEEP_F64), doubles
 KSLICE = 32
 NCOL = 56
 SLD = 72
@@ -140,9 +144,9 @@ HEADER = dict(
     H_OFF_U2=24, H_OFF_CORE=25, H_OFF_FORMS=26, H_OFF_CMB=27, H_I_WA=28, H_SPLIT=29,
     H_OFF_HALVES=30, H_VROWS=31, H_KO=32, H_KI=33, H_LDB=34, H_INNER=35,
     H_PRIOR=36, H_PRIOR_MEAN=37, H_PRIOR_SIGMA=38, H_H0_CONST=39, H_W0_LOG=40, H_RD_KIND=41,
-    H_RD=42, H_I_RD=43, H_RD_N=44, H_OFF_RD=45, H_I_PRIOR=46,
+    H_RD=42, H_I_RD=43, H_RD_N=44, H_OFF_RD=45, H_I_PRIOR=46, H_SWEEP_F64=47,
 )
-HEADER_SIZE = 47
+HEADER_SIZE = 48
 MAGIC = 20260.0
 # one row of a linear form = the constants of its (base, delta) pair i
 PAIR = dict(P_BA=0, P_V=1, P_P0=2, P_P1=3)
@@ -185,6 +189,12 @@ Z_STAR = ("aizpuru", "hu")
 # the integer fields of a form, kept in ``Packed.forms`` for the plain version
 _FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_J", "F_MAG_IDX", "F_F_IDX",
               "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
+
+# H_SWEEP_F64: the split grid's sweep runs in f64 where a float32 one would
+# cancel, i.e. where some group's table scale (F_SCALE, its max |value| over
+# the padded grid) exceeds its largest |value| at a half's reference centre
+# more than SWEEP_F64_RATIO times (``sweep_cancellation``)
+SWEEP_F64_RATIO = 1e3
 
 _ITEM_PRESETS = "ROADMAP.md queue 1, item 10c"
 _ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
@@ -434,17 +444,42 @@ def tucker_smem_bytes(hdr) -> int:
 def split_smem_bytes(hdr) -> int:
     """Shared memory of one block of the split grid's kernel instance: the
     constants, the weights of one step and the sweep vectors ([n + WPAD +
-    H_VROWS][VLD]), the ring of core slices, and the half counts."""
+    H_VROWS][VLD] floats, or [..][VLD_F64] doubles in the f64 sweep), the
+    ring of core slices, and the half counts."""
     rows = int(hdr["H_N1"]) + WPAD + int(hdr["H_VROWS"])
-    floats = -(-int(hdr["H_SIZE"]) // 4) * 4 + rows * VLD + STAGES * KSLICE * SLD
+    ld = 2 * VLD_F64 if hdr.get("H_SWEEP_F64") else VLD  # a row's floats
+    floats = -(-int(hdr["H_SIZE"]) // 4) * 4 + rows * ld + STAGES * KSLICE * SLD
     return 4 * floats + GROUP_BYTES
+
+
+def sweep_cancellation(emulated, h) -> float:
+    """How far half ``h``'s groups would cancel in a float32 sweep: the
+    largest ratio, over the emulated terms' groups, of a group's table scale
+    to its largest |value| at the half's reference centre (the build's
+    ``theta_ref``), i.e. 1 / max|a_ref B_t| in the group's scaled units.
+    ``emulated`` holds (term, kind, emulator object) of ``pack``."""
+    worst = 0.0
+    for _, _, obj in emulated:
+        slots, b_t, _ = obj.handle.per_half[h]
+        mag = max(float(np.max(np.abs(a_ref @ b_t))) for _, _, a_ref in slots)
+        worst = max(worst, math.inf if mag == 0.0 else 1.0 / mag)
+    return worst
 
 
 def pack(fit) -> Packed:
     """The constant buffers of a fast ``FitSpec`` (``get_preset(...,
     fast=True)``). Raises ``NotImplementedError``, naming the ROADMAP
     item, for a term, model, parameter treatment or size that the kernel
-    does not take."""
+    does not take.
+
+    On the split grid the packer also chooses the sweep's arithmetic: f64
+    (``H_SWEEP_F64`` = 1, the kernel's f64 instance, one block an SM) where
+    ``sweep_cancellation`` of either half exceeds ``SWEEP_F64_RATIO``, i.e.
+    where some group's table scale (its max |value| over the padded grid)
+    is more than 1e3 times its largest |value| at the half's reference
+    centre: the float32 sweep would carry that group's columns as
+    cancellations of corner-sized terms (``qsr.desi`` and
+    ``qsr.des5y_desi``, whose boxes reach Om = 0); 3xTF32 otherwise."""
     from cosmax_torch.configs.presets import Derive
 
     if not fit.fast:
@@ -675,6 +710,8 @@ def pack(fit) -> Packed:
         hdr.update(
             H_NAXES=3, H_N1=len(axes0[0]), H_N2=len(axes0[1]), H_SPLIT=1,
             H_VROWS=max(_vrows(t) for t in half_layouts),
+            H_SWEEP_F64=int(max(sweep_cancellation(emulated, h) for h in range(len(halves)))
+                            > SWEEP_F64_RATIO),
         )
 
     cmb = {}
@@ -1058,13 +1095,20 @@ def fused_log_prob(packed: Packed, theta: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(packed.buf.data_ptr(), packed.buf.numel(),
-                 packed.dev.data_ptr() if split else None, int(split), _stride(packed),
+                 packed.dev.data_ptr() if split else None, instance(packed), _stride(packed),
                  theta.data_ptr(), out.data_ptr(), w, packed.dim, stream)
     if err != 0:
         raise RuntimeError(f"fused_log_prob kernel launch failed: cudaError {err}")
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def instance(packed: Packed) -> int:
+    """The kernel's instance argument: 0 the native grid, 1 the split grid
+    in 3xTF32, 2 the split grid with its sweep in f64 (``H_SWEEP_F64``)."""
+    h = packed.hdr
+    return int(h["H_SPLIT"]) + int(h["H_SPLIT"] and h["H_SWEEP_F64"])
 
 
 def _stride(packed: Packed) -> int:
@@ -1085,7 +1129,7 @@ def occupancy(packed: Packed) -> tuple:
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    err = fn(packed.buf.numel(), int(packed.hdr["H_SPLIT"]), _stride(packed), ctypes.byref(smem),
+    err = fn(packed.buf.numel(), instance(packed), _stride(packed), ctypes.byref(smem),
              ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"fused_log_prob occupancy query failed: cudaError {err}")

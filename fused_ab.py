@@ -110,7 +110,8 @@ def _build_variant(tree, name, value):
     with open(cu, "w") as f:
         f.write(pat.sub(f"constexpr int {name} = {value};", src))
     so = cu[:-3] + ".so"
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                           os.path.join(tree, "cosmax_torch", "csrc"), "-o", so, cu],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stderr}")

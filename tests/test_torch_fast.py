@@ -417,7 +417,7 @@ def test_kernel_source_agrees_with_the_packer(flagship):
             assert consts[k] == v, k
     for k in ("MAX_DIM", "MAX_NODES", "MAX_RANK", "MAX_RANK_OUTER", "MAX_BOND", "MAX_RALL",
               "MAX_FORMS", "MAX_K", "MAX_LIFT", "MAX_GL", "MAX_FLOATS", "PAIR_STRIDE", "FORM_STRIDE", "HALF_STRIDE",
-              "THREADS", "VLD", "KSLICE", "NCOL", "SLD", "STAGES", "MIN_RIN", "WPAD",
+              "THREADS", "VLD", "VLD_F64", "KSLICE", "NCOL", "SLD", "STAGES", "MIN_RIN", "WPAD",
               "WLD", "CLD", "NCOLT", "TUCKER_WARPS"):
         assert consts[k] == getattr(fl, k), k
     # the native grid's core matrix [KO KI][LDB]: its rows the outer index
@@ -440,6 +440,14 @@ def test_kernel_source_agrees_with_the_packer(flagship):
     # every bond MAX_BOND, and a constant buffer of the flagship's size
     worst = dict(H_N1=fl.MAX_NODES, H_VROWS=2 * fl.MAX_BOND, H_SIZE=1000)
     assert fl.split_smem_bytes(worst) <= fl.MAX_SMEM
+    # the f64 sweep (H_SWEEP_F64, the launch's instance 2): its rows are
+    # VLD_F64 doubles, a row's floats as the kernel counts them
+    assert "instance == 2 ? 2 * VLD_F64 : VLD" in src
+    f64 = dict(worst, H_SWEEP_F64=1)
+    assert fl.split_smem_bytes(f64) - fl.split_smem_bytes(worst) == \
+        4 * (fl.MAX_NODES + fl.WPAD + 2 * fl.MAX_BOND) * (2 * fl.VLD_F64 - fl.VLD)
+    packed = fl.pack(flagship["tfit"])
+    assert packed.hdr["H_SWEEP_F64"] == 0 and fl.instance(packed) == 0
     assert max(fl.HEADER.values()) < fl.HEADER_SIZE
     for k, v in fl.HALF.items():
         assert consts[k] == v, k

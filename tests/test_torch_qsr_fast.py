@@ -28,7 +28,11 @@ Held here:
 * the packer refuses none of the six presets in any model, and the plain
   version equals the sum of the port's fast terms there (1e-10), the
   50-value lift alone and the zero-form fit among them;
-* the packed header of each branch, its work count and its limits.
+* the packed header of each branch, its work count and its limits;
+* the packer's choice of the split kernel's f64 sweep (``H_SWEEP_F64``):
+  ``qsr.desi`` and ``qsr.des5y_desi`` in w0wacdm and no other preset of
+  the family, and on ``qsr.desi`` near its published point the 3xTF32
+  sweep, emulated, past 1e-4 of max|logp| where the f64 sweep is within.
 
 The CUDA kernel runs only on a card (``chip_smoke.py`` phase 16 holds it
 against the plain version at full width there, with a planted fault per
@@ -46,6 +50,7 @@ import pytest
 import torch
 from threadpoolctl import threadpool_limits
 
+from chip_smoke import LOGP_RTOL, _term_alone, published_walkers
 from cosmax.configs import get_preset as jax_preset
 from cosmax_torch.configs import get_preset
 from cosmax_torch.configs.presets import Derive, FitSpec, _spec
@@ -56,7 +61,7 @@ from cosmax_torch.ops.kernels import fused_log_prob as fl
 from tests.test_torch_bao_fast import _alone, _exact
 from tests.test_torch_qsr_family import COMPRESSIONS, FAMILY, MODELS, points
 from tests.test_torch_sn_fast import _chi2_alone
-from tests.test_torch_w0wa import _thetas
+from tests.test_torch_w0wa import _sweep, _tf32_product, _thetas
 from tests.test_torch_w0wa_joint import _bundle, _jax_bundle, small_split_grid
 
 F64 = torch.float64
@@ -153,6 +158,66 @@ def test_every_preset_packs(model):
         lp = fl.fused_log_prob_reference(packed, bad)
         assert bool(torch.all(lp[-2:] == -torch.inf)), name
         np.testing.assert_allclose(lp[:-2].numpy(), fused.numpy(), rtol=1e-12, atol=0)
+
+
+def test_the_f64_sweep_where_a_float32_sweep_would_cancel():
+    """The packer's rule (H_SWEEP_F64): in w0wacdm, qsr.desi and
+    qsr.des5y_desi take the split kernel's f64 sweep, because their BAO
+    group's table scale, set by the Om -> 0 corner of their box, exceeds
+    its values at half 0's reference centre more than 1e4 times (the
+    12-node grid holds that corner: the scales 8.949e4 / 7.431e4 are the
+    full grid's); no other preset of the family in w0wacdm takes it, nor
+    any on a Tucker grid."""
+    sweep = {"qsr.desi": 8.949e4, "qsr.des5y_desi": 7.431e4}
+    for name in FAMILY:
+        for model in MODELS:
+            tfit = _fast(name, model)  # cmb.cmb is lcdm in every model
+            packed = fl.pack(tfit)
+            split = tfit.model == "w0wacdm"
+            want = split and name in sweep
+            assert packed.hdr["H_SWEEP_F64"] == int(want), (name, model)
+            assert fl.instance(packed) == (2 if want else int(split)), (name, model)
+            if not split:
+                continue
+            emulated = [(t, *fl._emulated(t)) for t in tfit.terms if fl._emulated(t) is not None]
+            worst = [fl.sweep_cancellation(emulated, h) for h in range(2)]
+            if want:
+                bao = [(t, k, o) for t, k, o in emulated if t.name == "bao"]
+                assert fl.sweep_cancellation(bao, 0) == worst[0] > 1e4, (name, worst)
+                scale = bao[0][2].handle.per_half[0][2]
+                np.testing.assert_allclose(scale, sweep[name], rtol=1e-4)
+                assert worst[1] < fl.SWEEP_F64_RATIO
+            else:
+                assert max(worst) < fl.SWEEP_F64_RATIO / 10, (name, worst)
+            # the f64 sweep's shared memory fits a block
+            assert fl.split_smem_bytes(packed.hdr) <= fl.MAX_SMEM
+
+
+def test_qsr_desi_needs_the_f64_sweep_near_its_published_point(monkeypatch):
+    """What the f64 sweep repairs, on the CPU: qsr.desi in w0wacdm near its
+    published point (``chip_smoke.published_walkers``), float32 buffers
+    against the f64 fast path, as chip_smoke.py phase 16 holds the kernel
+    (LOGP_RTOL of max|logp|, whole and the BAO alone). The plain version,
+    whose sweep runs in f64 as the kernel's f64 instance does, stays
+    within; the kernel's 3xTF32 sweep, emulated, does not. (On the 12-node
+    grid qsr.des5y_desi's BAO alone errs past 1e-4 from the float32 storage
+    of its cores already; at full width 2.7e-5, phase 16.)"""
+    tfit = _fast("qsr.desi", "w0wacdm")
+    packed = fl.pack(tfit)
+    theta = torch.as_tensor(published_walkers(tfit).astype(np.float64))
+    names = [t.name for t in tfit.terms if fl._emulated(t) is not None]
+    for key in ("whole", names.index("bao")):
+        p64 = packed if key == "whole" else _term_alone(fl, packed, key)
+        want = fl.fused_log_prob_reference(p64, theta).numpy()
+        p32 = replace(p64, buf=p64.buf.float(), dev=p64.dev.float())
+        scale = np.max(np.abs(want))
+        plain = fl.fused_log_prob_reference(p32, theta.float()).double().numpy()
+        with monkeypatch.context() as mp:
+            mp.setattr(fl, "_tt_coeff", lambda p, h, c: _sweep(
+                p, h, c, lambda a, g: _tf32_product(a, g, 3)))
+            tf32 = fl.fused_log_prob_reference(p32, theta.float()).double().numpy()
+        errs = [np.max(np.abs(x - want)) / scale for x in (plain, tf32)]
+        assert errs[0] <= LOGP_RTOL < errs[1], (key, errs)
 
 
 @pytest.mark.parametrize("model", MODELS)

@@ -364,6 +364,16 @@ def test_split_sweep_flushes_the_tensor_cores_truncating_sums(monkeypatch):
     assert errs[True] <= 1e-4 < errs[False], errs
 
 
+def test_flagship_keeps_the_3xtf32_sweep(flagship):
+    """The w0wacdm flagship's groups stay far below the f64 sweep's ratio
+    (H_SWEEP_F64): its box does not reach Om = 0."""
+    tfit = flagship["tfit"]
+    packed = fl.pack(tfit)
+    emulated = [(t, *fl._emulated(t)) for t in tfit.terms if fl._emulated(t) is not None]
+    worst = max(fl.sweep_cancellation(emulated, h) for h in range(2))
+    assert packed.hdr["H_SWEEP_F64"] == 0 and fl.instance(packed) == 1 and worst < 20, worst
+
+
 def test_packer_pads_small_bonds_with_zeros(flagship, monkeypatch):
     """The kernel's block products take r_in >= MIN_RIN; the packer pads a
     smaller bond with zeros, the same tensor train: raised here to 24, the

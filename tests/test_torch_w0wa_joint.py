@@ -132,6 +132,18 @@ def built():
 
 
 @pytest.mark.parametrize("name", PRESETS)
+def test_the_multiprobe_family_keeps_the_3xtf32_sweep(built, name):
+    """No group of these bundles comes near the f64 sweep's ratio
+    (H_SWEEP_F64; the CC group's ~1e2 is the largest)."""
+    tfit = built[name]["tfit"]
+    packed = fl.pack(tfit)
+    emulated = [(t, *fl._emulated(t)) for t in tfit.terms if fl._emulated(t) is not None]
+    worst = max(fl.sweep_cancellation(emulated, h) for h in range(2))
+    assert packed.hdr["H_SWEEP_F64"] == 0 and fl.instance(packed) == 1
+    assert worst < fl.SWEEP_F64_RATIO / 5, worst
+
+
+@pytest.mark.parametrize("name", PRESETS)
 def test_w0wacdm_tt_bonds_within_one_of_jax(built, name):
     tkind, thalves = _bundle(built[name]["tfit"]).finalized()
     jkind, jhalves, _ = _jax_bundle_of(built[name]["jfit"])
