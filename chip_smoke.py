@@ -196,6 +196,37 @@ raising on failure (non-zero exit):
    4,096 walkers (bench and uniform draws) against the plain version and
    the f64 CPU fast path, with its build seconds.
 
+17. gradients and the gradient samplers: (a) the chi^2 kernel's autograd
+   Function on realistic residuals (delta = z L^T, DES-SN5YR's and
+   Union2.1's L, 4,096 walkers) against the f64 plain version's autograd,
+   |dg| / |g| per walker within 1e-4, where the planted fault (the
+   backward's second product taken with Linv^T) must fail, and a finite
+   Hessian-vector product through the Function; (b) ``value_and_grad`` of
+   the parity flagship, the fast flagship in wzcdm and w0wacdm,
+   ``joint.multiprobe``/wzcdm fast and ``qsr.desi``/w0wacdm fast in
+   float32 on the card against f64 autograd on the CPU at 4,096 bench
+   walkers, whole and each term alone, max |dg| within 1e-3 of max |g| per
+   parameter, where the CMB term detached must fail; (c) ``--sampler hmc``
+   through the CLI, 512 chains, on ``bao.desi`` lcdm (parity) and the
+   fast flagship in lcdm: medians within 0.1 sigma (``bao.desi``: the
+   published rows; the flagship: the f64 Laplace fit of the same
+   likelihood, since its published rows were run with DES-SN5YR's
+   systematic covariance, which the data store lacks; the published
+   distance printed), split R-hat < 1.01, divergences and warmup retries
+   printed, and a kernel launch in every gradient evaluation (the fused
+   kernel once, the chi^2 kernel once per whitened term); a 64-chain
+   20 + 20-step parity flagship run through the chi^2 Function; (d)
+   ``--fast`` ensemble and HMC runs in two checkpointed CLI calls equal to
+   the straight run bit for bit; (e) ``python -m cosmax_torch.compare
+   --preset bao.desi`` (chi^2_min 10.27 / 9.04 / 8.43 / 5.62 within 0.01)
+   and with ``--sampled-evidence --replicates 2 --models lcdm,wzcdm`` (the
+   ln Z difference within 3x its +- plus 0.05 of Laplace's); (f) times:
+   ``value_and_grad`` split into the fused kernel and the per-term
+   autograd (4,096 and 65,536 fast flagship walkers), the parity
+   flagship's at 4,096 with the chi^2 forward kernel and the backward's
+   matmuls, gradient evaluations per second of each HMC run, each part's
+   seconds and the phase's.
+
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
 
@@ -2442,6 +2473,399 @@ def phase_qsr_family(card, variants):
                 w0wacdm=on_card, seconds=seconds)
 
 
+# phase 17: gradients on the card and the gradient samplers. The chi^2
+# kernel's autograd Function against the f64 plain version's autograd on
+# realistic residuals (per walker, |dg| / |g|), whole-fit gradients against
+# f64 autograd on the CPU (per parameter, max|dg| over max|g|), HMC, the
+# checkpoints and ``compare`` through their entry points
+GRAD_WALKERS = 4096
+CHI2_GRAD_RTOL = 1e-4
+GRAD_RTOL = 1e-3
+GRAD_PRESETS = (("bao.desi_cmb_des5y", "wzcdm", False), ("bao.desi_cmb_des5y", "wzcdm", True),
+                ("bao.desi_cmb_des5y", "w0wacdm", True), ("joint.multiprobe", "wzcdm", True),
+                ("qsr.desi", "w0wacdm", True))
+HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 512, 150, 100, 16
+# BASELINE.md's published rows: (median, sigma)
+BAO_DESI_PUBLISHED = {"h": (0.690, 0.005), "Om": (0.298, 0.0085)}
+FLAGSHIP_PUBLISHED = {"rd": (148.08, 0.50), "H0": (68.01, 0.40), "Om": (0.3079, 0.0054)}
+MEDIAN_SIGMAS, RHAT_MAX = 0.1, 1.01
+COMPARE_ANCHORS = {"lcdm": 10.27, "wcdm": 9.04, "wzcdm": 8.43, "w0wacdm": 5.62}
+COMPARE_ATOL = 0.01
+
+
+def _grad_gap(g32, g64):
+    """Per parameter, max over walkers of |g32 - g64| over max |g64| (0
+    where both columns are 0), on the rows where the f64 gradient is
+    finite; the rows must agree on which are finite."""
+    import numpy as np
+
+    g32, g64 = g32.double().cpu().numpy(), g64.double().cpu().numpy()
+    ok = np.all(np.isfinite(g64), axis=1)
+    if not np.array_equal(ok, np.all(np.isfinite(g32), axis=1)):
+        raise AssertionError("the card's gradient is finite on other rows than the f64 one's")
+    diff = np.max(np.abs(g32[ok] - g64[ok]), axis=0)
+    scale = np.max(np.abs(g64[ok]), axis=0)
+    return np.where(scale > 0, diff / np.where(scale > 0, scale, 1.0), np.where(diff > 0, np.inf,
+                                                                               0.0))
+
+
+def _chi2_grad(card, label, cov, linv_np, gen):
+    """(a): the chi^2 kernel's autograd Function on realistic residuals
+    delta = z L^T at (GRAD_WALKERS, N): its gradient against the f64 plain
+    version's autograd, |dg| / |g| per walker within CHI2_GRAD_RTOL, where
+    the planted fault (the second product taken with Linv^T) must fail; a
+    Hessian-vector product through the Function, finite and against the
+    exact 2 (v Linv^T) Linv."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
+
+    w, n = GRAD_WALKERS, cov.shape[0]
+    chol = torch.as_tensor(np.linalg.cholesky(cov), device="cuda")
+    delta = (torch.randn((w, n), generator=gen, device="cuda", dtype=torch.float64)
+             @ chol.T).float()
+    linv = torch.as_tensor(linv_np, device="cuda").float()
+    linv64 = linv.double()
+    d64 = delta.double().requires_grad_(True)
+    (want,) = torch.autograd.grad(kmod.whitened_chi2_reference(linv64, d64).sum(), d64)
+
+    def rel(got):
+        return float(((got.double() - want).norm(dim=1) / want.norm(dim=1)).max())
+
+    kmod.LAUNCHES = 0
+    d = delta.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(kmod.whitened_chi2(linv, d).sum(), d, create_graph=True)
+    launches = kmod.LAUNCHES
+    err = rel(g.detach())
+    if launches != 1 or not bool(torch.isfinite(g).all()) or err > CHI2_GRAD_RTOL:
+        raise AssertionError(f"{label}: the chi^2 Function's gradient at ({w}, {n}): max "
+                             f"|dg|/|g| {err:.3e} against f64, {launches} forward launches")
+    planted = rel((2.0 * torch.ones(w, device="cuda"))[:, None] * ((delta @ linv.T) @ linv.T))
+    if planted <= CHI2_GRAD_RTOL:
+        raise AssertionError(f"{label}: the gradient check missed the planted fault (second "
+                             f"product with Linv^T): {planted:.3e}")
+    v = torch.randn((w, n), generator=gen, device="cuda")
+    (hv,) = torch.autograd.grad((g * v).sum(), d)
+    hv_want = 2.0 * ((v.double() @ linv64.T) @ linv64)
+    hv_err = float(((hv.double() - hv_want).norm(dim=1) / hv_want.norm(dim=1)).max())
+    if not bool(torch.isfinite(hv).all()) or hv_err > CHI2_GRAD_RTOL:
+        raise AssertionError(f"{label}: Hessian-vector product through the chi^2 Function: "
+                             f"max rel err {hv_err:.3e}")
+    fwd_ms = _median_ms(lambda: kmod.whitened_chi2(linv, delta))
+    bwd_ms = _median_ms(lambda: kmod.whitened_chi2_grad(linv, delta,
+                                                        torch.ones(w, device="cuda")))
+    print(f"{label}: chi^2 Function on realistic residuals at (W={w}, N={n}): max |dg|/|g| "
+          f"{err:.3e} against f64 autograd (limit {CHI2_GRAD_RTOL:g}), planted fault (second "
+          f"product with Linv^T) {planted:.3e}; Hessian-vector product finite, max rel err "
+          f"{hv_err:.3e}; on {card}: forward kernel {fwd_ms:.4f} ms, backward (two f32 "
+          f"matmuls) {bwd_ms:.4f} ms (median of 20, CUDA events)")
+    return dict(max_rel_err=err, planted=planted, hvp_rel_err=hv_err, forward_ms=fwd_ms,
+                backward_ms=bwd_ms)
+
+
+def _alone(fit, term):
+    from cosmax_torch.likelihoods.base import autograd_value_and_grad, make_log_prob
+
+    return autograd_value_and_grad(make_log_prob(fit.spec, [term], fit.derive))
+
+
+def _fit_grad(label, name, model, fast):
+    """(b): the card's float32 gradient of one fit against f64 autograd
+    on the CPU, on GRAD_WALKERS bench walkers, whole and each term alone
+    (GRAD_RTOL per parameter); on the split grid the per-term path's
+    contraction takes f64 exactly where the packer gives the kernel its f64
+    sweep."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    kw = dict(fast=fast, synthetic_sys=True)
+    fit = get_preset(name, model, device="cuda", **kw)
+    ref = get_preset(name, model, device="cpu", dtype=torch.float64, **kw)
+    walkers = _flagship_walkers(fit, GRAD_WALKERS)
+    th32 = torch.as_tensor(walkers, device="cuda")
+    th64 = torch.as_tensor(walkers.astype(np.float64))
+    if fast and model == "w0wacdm":
+        bundle = next(fl._emulated(t)[1].bundle for t in fit.terms if fl._emulated(t))
+        if bundle.sweep_f64 != bool(_pack(fl, fit).hdr["H_SWEEP_F64"]):
+            raise AssertionError(f"{label}: {name}/{model}: the per-term path's f64 sweep "
+                                 "disagrees with the packer's H_SWEEP_F64")
+    gaps = {"whole": _grad_gap(fit.value_and_grad()(th32)[1], ref.value_and_grad()(th64)[1])}
+    for t32, t64 in zip(fit.terms, ref.terms):
+        gaps[t32.name] = _grad_gap(_alone(fit, t32)(th32)[1], _alone(ref, t64)(th64)[1])
+    worst = {k: float(np.max(v)) for k, v in gaps.items()}
+    tag = f"{name}/{model}{' fast' if fast else ''}"
+    print(f"{label}: {tag}: float32 gradient on the card vs f64 autograd on the CPU at "
+          f"{GRAD_WALKERS} bench walkers, max over parameters of max|dg| / max|g|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {GRAD_RTOL:g})")
+    if max(worst.values()) > GRAD_RTOL:
+        raise AssertionError(f"{label}: {tag}: gradient gap {worst}")
+    return fit, ref, th32, th64, worst
+
+
+def _detached(term):
+    """``term`` with its chi^2 cut off from the graph (a planted fault)."""
+    from dataclasses import replace
+
+    return replace(term, chi2=lambda p, t=term: t.chi2(p).detach())
+
+
+def _hmc_cli(card, label, preset, model, chains, warmup, samples, fast=False,
+             synthetic_sys=False, extra=(), out=None):
+    """``cosmax_torch.fit --sampler hmc`` with the launch counts set to 0
+    just before and read just after: (chain [T, C, D], summary, launches
+    {kernel: n}, seconds)."""
+    import numpy as np
+
+    from cosmax_torch import fit as fit_cli
+    from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--preset", preset, "--model", model, "--sampler", "hmc",
+                "--walkers", str(chains), "--burn-in", str(warmup),
+                "--steps", str(warmup + samples), "--seed", "0",
+                "--max-leapfrog", str(HMC_LEAPFROG), "--no-plots",
+                *(["--fast"] if fast else []), *(["--synthetic-sys"] if synthetic_sys else []),
+                *extra, "--out", out or tmp]
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc = fit_cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(fused_log_prob=fused_log_prob.LAUNCHES,
+                        whitened_chi2=whitened_chi2.LAUNCHES)
+        chain = np.load(os.path.join(out or tmp, "chain.npy"))
+        with open(os.path.join(out or tmp, "summary.json")) as f:
+            summary = json.load(f)
+    if rc != 0 or not np.all(np.isfinite(chain)):
+        raise AssertionError(f"{label}: HMC CLI run failed on {preset}: rc {rc}")
+    s = summary["sampler"]
+    print(f"{label}: cosmax_torch.fit {' '.join(argv[:-2])}: wall {wall:.2f}s on {card} "
+          f"(sampling {summary['walltime_sec']:.2f}s), chain {chain.shape}, acceptance "
+          f"{summary['acceptance_fraction']:.3f}, divergent trajectories "
+          f"{s['divergent_trajectories']}, warmup retries {s['warmup_retries']}, rejuvenated "
+          f"chains {s['rejuvenated_chains']}, {s['gradient_evals']} gradient evaluations "
+          f"({s['gradient_evals'] / summary['walltime_sec']:.1f}/s), split R-hat "
+          f"{np.round(s['split_gelman_rubin'], 5).tolist()}, launches {launches}")
+    return chain, summary, launches, wall
+
+
+def _hold_medians(label, summary, want, what):
+    worst = {}
+    for nm, (med, sig) in want.items():
+        got = summary["params"][nm]["median"]
+        worst[nm] = abs(got - med) / sig
+        print(f"{label}: median {nm} = {got:.5f} against {what} {med:.5f} +- {sig:.5f}: "
+              f"{worst[nm]:.3f} sigma")
+    return worst
+
+
+def _per_call_launches(fit, chains):
+    """The chi^2 kernel's launches in one ``value_and_grad`` call at
+    ``chains`` walkers."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.ops.kernels import whitened_chi2
+
+    theta = torch.as_tensor(_flagship_walkers(fit, chains).astype(np.float32), device="cuda")
+    whitened_chi2.LAUNCHES = 0
+    fit.value_and_grad()(theta)
+    torch.cuda.synchronize()
+    return whitened_chi2.LAUNCHES
+
+
+def phase_grad(card):
+    """Phase 17: gradients on the card and the gradient samplers."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch import compare
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.data.loaders import load_sn, use_synthetic_sys
+    from cosmax_torch.likelihoods.base import autograd_value_and_grad, make_log_prob
+    from cosmax_torch.samplers.optimize import fit_laplace, map_fit
+
+    t_phase = time.perf_counter()
+    out = {"part_seconds": {}}
+
+    def lap(part):
+        out["part_seconds"][part] = time.perf_counter() - t_phase - sum(
+            out["part_seconds"].values())
+        print(f"phase 17{part} took {out['part_seconds'][part]:.1f}s")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    # (a) the chi^2 Function on DES-SN5YR's and Union2.1's factors
+    chi2 = {}
+    for ds in ("des5y", "union21"):
+        with use_synthetic_sys(True):
+            sn = load_sn(ds)
+        chi2[ds] = _chi2_grad(card, "phase 17a", sn.cov, np.ascontiguousarray(sn.linv), gen)
+    out["chi2_function"] = chi2
+    lap("a")
+
+    # (b) whole-fit gradients, each term alone, and a planted fault
+    grads = {}
+    for name, model, fast in GRAD_PRESETS:
+        fit, ref, th32, th64, worst = _fit_grad("phase 17b", name, model, fast)
+        grads[f"{name}/{model}{' fast' if fast else ''}"] = worst
+        if fast and name == "bao.desi_cmb_des5y" and model == "wzcdm":
+            flag, flag_ref, flag_th = fit, ref, (th32, th64)
+        if not fast:
+            par, par_th = fit, th32
+    terms = tuple(_detached(t) if t.name.startswith("cmb") else t for t in flag.terms)
+    bad = autograd_value_and_grad(make_log_prob(flag.spec, terms, flag.derive))(flag_th[0])[1]
+    caught = float(np.max(_grad_gap(bad, flag_ref.value_and_grad()(flag_th[1])[1])))
+    if caught <= GRAD_RTOL:
+        raise AssertionError(f"phase 17b: the gradient check missed the CMB term detached: "
+                             f"{caught:.3e}")
+    print(f"phase 17b: planted fault (the CMB term detached) on the fast flagship: gap "
+          f"{caught:.3e} (limit {GRAD_RTOL:g}): caught")
+    out["gradients"] = dict(grads, planted_cmb_detached=caught)
+    lap("b")
+
+    # (f) value_and_grad's time: the kernel against the per-term autograd
+    times = {}
+    for w in (GRAD_WALKERS, BENCH_WALKERS):
+        theta = torch.as_tensor(_flagship_walkers(flag, w), device="cuda")
+        lp, vg = flag.log_prob(), flag.value_and_grad()
+        grad = autograd_value_and_grad(flag.differentiable_log_prob())
+        times[f"fast flagship {w}"] = dict(
+            value_and_grad_ms=_median_ms(lambda: vg(theta), reps=10),
+            kernel_ms=_median_ms(lambda: lp(theta), reps=10),
+            autograd_ms=_median_ms(lambda: grad(theta), reps=10))
+    vg_par = par.value_and_grad()
+    times[f"parity flagship {GRAD_WALKERS}"] = dict(
+        value_and_grad_ms=_median_ms(lambda: vg_par(par_th), reps=5),
+        chi2_forward_ms=chi2["des5y"]["forward_ms"], chi2_backward_ms=chi2["des5y"]["backward_ms"])
+    for k, v in times.items():
+        share = (f", per-term autograd {v['autograd_ms'] / v['value_and_grad_ms']:.1%} of it"
+                 if "autograd_ms" in v else "")
+        print(f"phase 17f: value_and_grad on the {k} walkers on {card}: "
+              + ", ".join(f"{a} {b:.4f}" for a, b in v.items()) + share)
+    out["times"] = times
+    lap("f")
+
+    # (c) HMC through the CLI
+    desi = get_preset("bao.desi", "lcdm", device="cuda")
+    k_desi = _per_call_launches(desi, HMC_CHAINS)
+    hmc = {}
+    chain, summary, launches, wall = _hmc_cli(card, "phase 17c", "bao.desi", "lcdm", HMC_CHAINS,
+                                              HMC_WARMUP, HMC_SAMPLES)
+    runs = [("bao.desi lcdm parity", summary, launches, "whitened_chi2", k_desi,
+             _hold_medians("phase 17c", summary, BAO_DESI_PUBLISHED, "published"))]
+    flag_lcdm = get_preset("bao.desi_cmb_des5y", "lcdm", fast=True, device="cpu",
+                           dtype=torch.float64)
+    best, _, _ = map_fit(flag_lcdm)
+    x = np.array([best[nm] for nm in flag_lcdm.spec.names])
+    _, sig, _ = fit_laplace(flag_lcdm, x)
+    laplace = {nm: (best[nm], float(s)) for nm, s in zip(flag_lcdm.spec.names, sig)}
+    chain, summary, launches, wall = _hmc_cli(card, "phase 17c", "bao.desi_cmb_des5y", "lcdm",
+                                              HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, fast=True)
+    # the published rows were run with DES-SN5YR's systematic covariance,
+    # which the data store lacks (VALIDATION.md): the medians are held to
+    # the f64 Laplace fit of the same likelihood, the published distance
+    # printed beside them
+    _hold_medians("phase 17c", summary, FLAGSHIP_PUBLISHED, "published (not held)")
+    runs.append(("bao.desi_cmb_des5y lcdm fast", summary, launches, "fused_log_prob", 1,
+                 _hold_medians("phase 17c", summary,
+                               {k: laplace[k] for k in FLAGSHIP_PUBLISHED}, "f64 Laplace")))
+    for tag, summary, launches, kernel, per_call, worst in runs:
+        s = summary["sampler"]
+        rhat = max(s["split_gelman_rubin"])
+        need = per_call * s["gradient_evals"]
+        if max(worst.values()) > MEDIAN_SIGMAS or rhat >= RHAT_MAX:
+            raise AssertionError(f"phase 17c: {tag}: medians {worst} sigma, split R-hat {rhat}")
+        if launches[kernel] < need:
+            raise AssertionError(f"phase 17c: {tag}: {kernel} launched {launches[kernel]} "
+                                 f"times for {s['gradient_evals']} gradient evaluations")
+        hmc[tag] = dict(medians_sigma=worst, split_rhat=rhat, launches=launches[kernel],
+                        gradient_evals=s["gradient_evals"],
+                        gradient_evals_per_s=s["gradient_evals"] / summary["walltime_sec"],
+                        divergent=s["divergent_trajectories"], retries=s["warmup_retries"])
+        print(f"phase 17c: {tag}: {launches[kernel]} {kernel} launches for "
+              f"{s['gradient_evals']} gradient evaluations ({per_call} a call, every leapfrog)")
+    par_k = _per_call_launches(par, 64)
+    chain, summary, launches, wall = _hmc_cli(card, "phase 17c", "bao.desi_cmb_des5y", "wzcdm",
+                                              64, 20, 20, synthetic_sys=True)
+    if chain.shape != (20, 64, 6) or launches["whitened_chi2"] < (
+            par_k * summary["sampler"]["gradient_evals"]):
+        raise AssertionError(f"phase 17c: parity flagship HMC: chain {chain.shape}, "
+                             f"launches {launches}")
+    hmc["bao.desi_cmb_des5y wzcdm parity (64 x 20 + 20)"] = dict(
+        launches=launches["whitened_chi2"], per_call=par_k,
+        gradient_evals=summary["sampler"]["gradient_evals"],
+        gradient_evals_per_s=summary["sampler"]["gradient_evals"] / summary["walltime_sec"])
+    out["hmc"] = hmc
+    lap("c")
+
+    # (d) checkpoints: two segments equal the straight run bit for bit
+    ck = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sampler, base, n0, n1 in (("ensemble", ["--burn-in", "0"], 10, 20),
+                                      ("hmc", ["--sampler", "hmc", "--burn-in", "20",
+                                               "--max-leapfrog", str(HMC_LEAPFROG)], 30, 40)):
+            path = os.path.join(tmp, f"{sampler}.npz")
+            # --synthetic-sys: phase 7's build of the fast flagship
+            argv = ["--preset", "bao.desi_cmb_des5y", "--fast", "--synthetic-sys",
+                    "--walkers", "64", "--seed", "3", "--no-plots", *base]
+
+            def cli(steps, *extra, o=os.path.join(tmp, "o")):
+                from cosmax_torch import fit as fit_cli
+
+                if fit_cli.main([*argv, "--steps", str(steps), *extra, "--out", o]) != 0:
+                    raise AssertionError(f"phase 17d: {sampler} CLI run failed")
+                return np.load(os.path.join(o, "chain.npy"))
+
+            straight = cli(n1)
+            segs = [cli(n, "--checkpoint", path, "--checkpoint-every", "10") for n in (n0, n1)]
+            same = np.array_equal(np.concatenate(segs), straight)
+            if not same:
+                raise AssertionError(f"phase 17d: {sampler}: the checkpointed run differs from "
+                                     "the straight run")
+            ck[sampler] = dict(shape=list(straight.shape), bitwise=same)
+            print(f"phase 17d: --fast {sampler}, two checkpointed runs (--steps {n0}, then "
+                  f"{n1}) equal the straight run (--steps {n1}) bit for bit, chain "
+                  f"{straight.shape}")
+    out["checkpoints"] = ck
+    lap("d")
+
+    # (e) compare on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        js = os.path.join(tmp, "c.json")
+        compare.main(["--preset", "bao.desi", "--json", js])
+        with open(js) as f:
+            rows = {r["model"]: r for r in json.load(f)}
+        for model, want in COMPARE_ANCHORS.items():
+            if abs(rows[model]["chi2_min"] - want) > COMPARE_ATOL:
+                raise AssertionError(f"phase 17e: compare bao.desi {model}: chi2_min "
+                                     f"{rows[model]['chi2_min']} != {want}")
+        t0 = time.perf_counter()
+        compare.main(["--preset", "bao.desi", "--models", "lcdm,wzcdm", "--sampled-evidence",
+                      "--replicates", "2", "--json", js])
+        ss_s = time.perf_counter() - t0
+        with open(js) as f:
+            ss = {r["model"]: r for r in json.load(f)}
+    d_ss, d_lap = ss["wzcdm"]["dlog_evidence_ss"], ss["wzcdm"]["dlog_evidence"]
+    err = ss["wzcdm"]["log_evidence_ss_err"]
+    print(f"phase 17e: compare bao.desi on {card}: chi2_min "
+          + " / ".join(f"{rows[m]['chi2_min']:.4f}" for m in COMPARE_ANCHORS)
+          + f" (anchors {' / '.join(str(v) for v in COMPARE_ANCHORS.values())}); stepping stone "
+          f"wzcdm - lcdm {d_ss:+.3f} +- {err:.3f} against Laplace {d_lap:+.3f} ({ss_s:.1f}s)")
+    if abs(d_ss - d_lap) > 3.0 * err + 0.05:
+        raise AssertionError(f"phase 17e: stepping-stone ln Z difference {d_ss} +- {err} "
+                             f"against Laplace {d_lap}")
+    out["compare"] = dict(chi2_min={m: rows[m]["chi2_min"] for m in COMPARE_ANCHORS},
+                          dlnz_ss=d_ss, dlnz_ss_err=err, dlnz_laplace=d_lap, ss_seconds=ss_s)
+    lap("e")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {out['seconds']:.1f}s on {card}")
+    return out
+
+
 def main():
     import torch
 
@@ -2501,14 +2925,17 @@ def main():
                                        synthetic_sys=True)
     qsr_family = phase_qsr_family(card, variants)
     qsr_family["cli_launches"] = phase_cli(card, "phase 16", "qsr.des5y", 150, 5, fast=True)
-    print(f"phases 2-16 took {time.perf_counter() - t_start:.1f}s on {card}")
+    grad = phase_grad(card)
+    print(f"phases 2-17 took {time.perf_counter() - t_start:.1f}s on {card}")
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": launches, **timing, "ptxas": ptxas_chi2,
          "multiprobe_parity_launches": mp_parity_launches,
          "sn_family": dict(sn_family["chi2"], parity_launches=sn_family["parity_launches"],
-                           cli_launches=sn_parity_cli_launches)},
+                           cli_launches=sn_parity_cli_launches),
+         "autograd_function": grad["chi2_function"],
+         "hmc_parity": {k: v for k, v in grad["hmc"].items() if "parity" in k}},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
@@ -2518,7 +2945,8 @@ def main():
          "branches_1e": [label for label, _, _ in BRANCHES], "bao_family": family,
          "sn_family": {k: v for k, v in sn_family.items()
                        if k not in ("chi2", "parity_launches")},
-         "qsr_family": qsr_family, "sweep_f64": sorted(SWEEP_F64), "ptxas_f64": ptxas_f64},
+         "qsr_family": qsr_family, "sweep_f64": sorted(SWEEP_F64), "ptxas_f64": ptxas_f64,
+         "gradients": {k: v for k, v in grad.items() if k != "chi2_function"}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,7 +68,13 @@ from cosmax_torch.likelihoods import fs8 as fs8_mod
 from cosmax_torch.likelihoods import priors as priors_mod
 from cosmax_torch.likelihoods import quasars as qsr_mod
 from cosmax_torch.likelihoods import sn as sn_mod
-from cosmax_torch.likelihoods.base import ParamSpec, make_chi2_breakdown, make_log_prob
+from cosmax_torch.likelihoods.base import (
+    ParamSpec,
+    autograd_value_and_grad,
+    make_chi2_breakdown,
+    make_log_prob,
+    walker_chunk,
+)
 from cosmax_torch.likelihoods.fastmode import use_fast_mode
 from cosmax_torch.models.linear_chi2 import set_scope_domains
 from cosmax_torch.samplers.ensemble import MoveSpec, default_moves, stretch_only
@@ -108,6 +114,47 @@ class FitSpec:
             packed = pack(self)
             return lambda theta: fused_log_prob(packed, theta)
         return make_log_prob(self.spec, self.terms, self.derive)
+
+    def differentiable_log_prob(self):
+        """``theta [W, D] -> logp [W]`` through the per-term torch
+        functions, differentiable in theta (twice: the Hessians of
+        ``samplers.optimize``) on either path. On the parity path this is
+        ``log_prob()`` itself, its dense chi^2 terms through the chi^2
+        kernel's autograd Function on the card; on the fast path it sums
+        the emulated terms over the same bundle that the fused kernel's
+        buffers are packed from (each split-grid contraction in f64 where
+        the packer gives the kernel its f64 sweep)."""
+        return make_log_prob(self.spec, self.terms, self.derive)
+
+    def value_and_grad(self):
+        """``theta [W, D] -> (logp [W], d logp / d theta [W, D])``, the
+        batched potential of the gradient samplers.
+
+        Parity path: autograd through ``differentiable_log_prob``; logp is
+        its value. Fast path: logp comes from the fused kernel
+        (``log_prob()``), the gradient from autograd through the per-term
+        fast path over the same emulated terms. This keeps a sampler exact
+        for the kernel's density: a leapfrog step with any deterministic
+        gradient field g(y) is a composition of shears, (y, p) -> (y, p +
+        eps g(y) / 2) and (y, p) -> (y + eps M^-1 p, p), so it preserves
+        volume and is reversible whatever g is, and the Metropolis test on
+        the kernel's values then targets the kernel's density exactly. The
+        gradient's float32 error only moves the acceptance rate.
+
+        Walkers are chunked here, forward and backward per chunk: autograd
+        keeps every chunk's temporaries of ``chunked_log_like`` alive until
+        the backward, so the chunk is the smallest ``walker_chunk`` of the
+        terms (``TEMP_BYTES`` for a term's largest temporary)."""
+        chunk = min(walker_chunk(t, self.dtype) for t in self.terms)
+        grad = autograd_value_and_grad(self.differentiable_log_prob(), chunk)
+        if not self.fast:
+            return grad
+        value = self.log_prob()
+
+        def value_and_grad(theta):
+            return value(theta), grad(theta)[1]
+
+        return value_and_grad
 
     def chi2_breakdown(self):
         return make_chi2_breakdown(self.spec, self.terms, self.derive)

@@ -14,6 +14,10 @@ Examples::
     python -m cosmax_torch.fit --preset sn.pantheon_shoes --model wzcdm --fast
     python -m cosmax_torch.fit --preset qsr.des5y --model wzcdm --fast
     python -m cosmax_torch.fit --preset cmb.cmb --model lcdm --fast
+    python -m cosmax_torch.fit --preset bao.desi --model lcdm --sampler hmc \
+        --walkers 512 --steps 400 --warmup 200
+    python -m cosmax_torch.fit --preset bao.desi_cmb_des5y --fast \
+        --checkpoint run.npz --checkpoint-every 100
     python -m cosmax_torch.fit --list
 
 ``--fast`` takes every preset in every model (``cmb.cmb`` and
@@ -21,9 +25,13 @@ Examples::
 preset with its note from the static index ``_preset_index.py``.
 
 Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).
-Flags whose code is not ported yet raise and name the ROADMAP item.
-Prints the reference-style summary block; with ``--out`` and
-``--no-plots`` writes summary.json and chain.npy.
+``--sampler hmc`` runs the gradient sampler (MAP-jitter init, warmup
+``--warmup``, default the burn-in; its gradients by autograd, the values
+on the fast path from the fused kernel); ``--checkpoint`` checkpoints
+and resumes either sampler. Plots are not ported yet: ``--out`` without
+``--no-plots`` raises and names the ROADMAP item. Prints the
+reference-style summary block; with ``--out`` and ``--no-plots`` writes
+summary.json and chain.npy.
 """
 
 import argparse
@@ -78,10 +86,6 @@ def main(argv=None):
         return 0
     if not args.preset:
         p.error("--preset is required (or --list)")
-    if args.sampler == "hmc":
-        raise NotImplementedError("--sampler hmc " + _NOT_PORTED.format(11))
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint " + _NOT_PORTED.format(11))
     if args.out and not args.no_plots:
         raise NotImplementedError(
             "plots under --out " + _NOT_PORTED.format(13) + "; pass --no-plots"
@@ -100,14 +104,15 @@ def main(argv=None):
     n_walkers = args.walkers if args.walkers is not None else fit.n_walkers
     n_steps = args.steps if args.steps is not None else fit.n_steps
     burn_in = args.burn_in if args.burn_in is not None else fit.burn_in
-    if burn_in >= n_steps and args.burn_in is None:
+    if burn_in >= n_steps and args.burn_in is None and args.sampler == "ensemble":
         # a --steps override below the preset's burn-in would keep no
         # samples: scale the preset's burn-in down (an explicit
-        # --burn-in is kept as given and fails below)
+        # --burn-in is kept as given and fails below). HMC's warmup is
+        # separate from its recorded draws and keeps the burn-in as given.
         burn_in = n_steps // 2
         print(f"# --steps {n_steps} <= preset burn-in {fit.burn_in}: "
               f"clamping burn-in to {burn_in}")
-    if burn_in >= n_steps:
+    if burn_in >= n_steps and args.sampler == "ensemble":
         p.error(f"--burn-in {burn_in} must be < steps ({n_steps}): "
                 "no samples would remain")
     if n_walkers < 4:
@@ -116,6 +121,8 @@ def main(argv=None):
         p.error(f"--steps must be >= 1 (got {n_steps})")
     if args.thin < 1:
         p.error(f"--thin must be >= 1 (got {args.thin})")
+    if args.checkpoint_every < 1:
+        p.error(f"--checkpoint-every must be >= 1 (got {args.checkpoint_every})")
     seed = args.seed if args.seed is not None else (fit.seed or 0)
     moves = (
         stretch_only() if args.moves == "stretch"
@@ -130,26 +137,49 @@ def main(argv=None):
     device_name = (
         torch.cuda.get_device_name(fit.device) if fit.device.type == "cuda" else "cpu"
     )
-    print(f"# {n_walkers} walkers x {n_steps} steps (burn-in {burn_in}), "
-          f"seed {seed}, device: {fit.device} ({device_name}), dtype {fit.dtype}"
+    on = (f"device: {fit.device} ({device_name}), dtype {fit.dtype}"
           f"{', fast path' if fit.fast else ''}")
+    if args.sampler == "hmc":
+        chain, summary = _run_hmc(args, fit, n_walkers, n_steps, burn_in, seed, on)
+        if chain is None:
+            return 0
+        discard = 0
+    else:
+        print(f"# {n_walkers} walkers x {n_steps} steps (burn-in {burn_in}), "
+              f"seed {seed}, {on}")
+        sampler = EnsembleSampler(fit.log_prob(), n_walkers, fit.spec.dim, moves=moves)
+        gen = torch.Generator(device=fit.device)
+        gen.manual_seed(seed)
+        initial = uniform_init(gen, fit.spec.bounds, n_walkers, fit.dtype, fit.device)
 
-    sampler = EnsembleSampler(fit.log_prob(), n_walkers, fit.spec.dim, moves=moves)
-    gen = torch.Generator(device=fit.device)
-    gen.manual_seed(seed)
-    initial = uniform_init(gen, fit.spec.bounds, n_walkers, fit.dtype, fit.device)
+        t0 = time.perf_counter()
+        start_step = 0
+        if args.checkpoint:
+            from cosmax_torch.samplers.checkpoints import run_with_checkpoints
 
-    t0 = time.perf_counter()
-    state, chain = sampler.run(initial, n_steps, seed=seed + 1, thin=args.thin)
-    samples_host = chain.samples.cpu()  # waits for the device
-    dt = time.perf_counter() - t0
-    evals = n_steps * n_walkers
-    print(f"# sampled {evals} log-prob evals in {dt:.1f}s ({evals / dt:.0f} evals/s)")
+            state, chain, start_step = run_with_checkpoints(
+                sampler, seed + 1, initial, n_steps, args.checkpoint,
+                every=args.checkpoint_every, thin=args.thin,
+            )
+            if chain is None:
+                print("# checkpoint already covers the requested steps; nothing to do")
+                return 0
+            if start_step:
+                print(f"# resumed from step {start_step}; chain holds the "
+                      f"post-resume segments only")
+        else:
+            state, chain = sampler.run(initial, n_steps, seed=seed + 1, thin=args.thin)
+        chain.samples.cpu()  # waits for the device
+        dt = time.perf_counter() - t0
+        evals = (n_steps - start_step) * n_walkers
+        print(f"# sampled {evals} log-prob evals in {dt:.1f}s ({evals / dt:.0f} evals/s)")
 
-    discard = burn_in // args.thin
-    summary = summarize(fit, chain, discard=discard)
-    summary["walltime_sec"] = dt
-    summary["evals_per_sec"] = evals / dt
+        # burn-in is an absolute step count; offset by what a resumed
+        # chain already skipped (the merged chain starts at start_step)
+        discard = max(0, burn_in - start_step) // args.thin
+        summary = summarize(fit, chain, discard=discard)
+        summary["walltime_sec"] = dt
+        summary["evals_per_sec"] = evals / dt
     summary["device"] = device_name
     print(format_summary(summary))
 
@@ -159,9 +189,82 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2, default=float)
-        np.save(os.path.join(args.out, "chain.npy"), samples_host.numpy()[discard:])
+        np.save(os.path.join(args.out, "chain.npy"), chain.samples.cpu().numpy()[discard:])
         print(f"# wrote {args.out}/summary.json, chain.npy")
     return 0
+
+
+def _run_hmc(args, fit, n_chains, n_steps, burn_in, seed, on):
+    """The ``--sampler hmc`` branch: (chain, summary), or (None, None)
+    when a checkpoint already covers the run."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.report import summarize
+    from cosmax_torch.samplers.diagnostics import split_gelman_rubin
+    from cosmax_torch.samplers.ensemble import uniform_init
+    from cosmax_torch.samplers.hmc import HMCSampler
+    from cosmax_torch.samplers.optimize import map_jitter_init
+
+    warmup = args.warmup if args.warmup is not None else burn_in
+    n_record = max(1, n_steps - burn_in)
+    print(f"# hmc: {n_chains} chains x {n_record} samples (warmup {warmup}), seed {seed}, {on}")
+    sampler = HMCSampler(fit.value_and_grad(), fit.spec.bounds, n_chains,
+                         max_leapfrog=args.max_leapfrog, dtype=fit.dtype, device=fit.device)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    try:
+        # MAP + Laplace-covariance jitter: robust for the posteriors that
+        # occupy ~1e-4 of the box (see map_jitter_init)
+        initial = map_jitter_init(fit, gen, n_chains)
+    except (ValueError, RuntimeError, np.linalg.LinAlgError) as e:
+        print(f"# map init failed ({e}); falling back to uniform")
+        initial = uniform_init(gen, fit.spec.bounds, n_chains, fit.dtype).to(fit.device)
+    t0 = time.perf_counter()
+    start = 0
+    if args.checkpoint:
+        from cosmax_torch.samplers.checkpoints import run_hmc_with_checkpoints
+
+        state, chain, start = run_hmc_with_checkpoints(
+            sampler, seed + 1, n_record, args.checkpoint, every=args.checkpoint_every,
+            n_warmup=warmup, initial=initial,
+        )
+        if chain is None:
+            print("# checkpoint already covers the requested steps; nothing to do")
+            return None, None
+        if start:
+            print(f"# resumed from recorded draw {start}; chain holds the post-resume "
+                  "segments only")
+    else:
+        state, chain = sampler.run(seed + 1, n_record, n_warmup=warmup, initial=initial)
+    chain.samples.cpu()  # waits for the device
+    dt = time.perf_counter() - t0
+    div_per_chain = chain.divergences_per_chain.cpu().numpy()
+    n_div = int(div_per_chain.sum())
+    print(f"# sampled {n_record - start} post-warmup steps in {dt:.1f}s, "
+          f"{sampler.n_grad_evals} gradient evaluations of {n_chains} chains "
+          f"({sampler.n_grad_evals / dt:.1f}/s; step size {np.max(sampler.step_size):.4g}, "
+          f"divergent trajectories {n_div} "
+          f"across {int((div_per_chain > 0).sum())} chains, warmup retries "
+          f"{sampler.warmup_retries}, rejuvenated chains {sampler.n_rejuvenated})")
+    if sampler.warmup_retries:
+        print(f"# WARNING: warmup needed {sampler.warmup_retries} "
+              f"retr{'y' if sampler.warmup_retries == 1 else 'ies'} (ensemble escaped "
+              "during adaptation); inspect split R-hat before trusting the run")
+    summary = summarize(fit, chain, discard=0)
+    summary["walltime_sec"] = dt
+    summary["sampler"] = {
+        "kind": "hmc",
+        "step_size": np.asarray(sampler.step_size).tolist(),
+        "inv_mass": np.asarray(sampler.inv_mass).tolist(),
+        "divergent_trajectories": n_div,
+        "divergences_per_chain": div_per_chain.tolist(),
+        "split_gelman_rubin": split_gelman_rubin(chain.samples.cpu().numpy()).tolist(),
+        "rejuvenated_chains": int(sampler.n_rejuvenated),
+        "warmup_retries": sampler.warmup_retries,
+        "gradient_evals": sampler.n_grad_evals,
+    }
+    return chain, summary
 
 
 if __name__ == "__main__":

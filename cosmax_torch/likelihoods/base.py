@@ -132,6 +132,36 @@ def make_log_prob(
     return log_prob
 
 
+def autograd_value_and_grad(log_prob: Callable, chunk: int = None):
+    """``value_and_grad(theta [W, D]) -> (logp [W], d logp / d theta [W, D])``
+    of a batched ``log_prob`` by torch.autograd, forward and backward
+    over walker chunks of ``chunk`` rows (default: all at once). Autograd
+    keeps a chunk's temporaries alive until its backward, so the chunk
+    bounds the memory. Rows whose log-prob is masked to -inf get what
+    autograd gives them (0, or NaN where 0 meets an infinite partial);
+    the samplers zero gradient entries that are not finite."""
+
+    def value_and_grad(theta: torch.Tensor):
+        n = theta.shape[0]
+        step = n if chunk is None else max(1, chunk)
+        vals, grads = [], []
+        for s in range(0, max(n, 1), step):
+            th = theta[s : s + step].detach().requires_grad_(True)
+            with torch.enable_grad():
+                lp = log_prob(th)
+                if lp.requires_grad:
+                    (g,) = torch.autograd.grad(lp.sum(), th)
+                else:  # a log-prob constant in theta
+                    g = torch.zeros_like(th)
+            vals.append(lp.detach())
+            grads.append(g)
+        if len(vals) == 1:
+            return vals[0], grads[0]
+        return torch.cat(vals), torch.cat(grads)
+
+    return value_and_grad
+
+
 def make_chi2_breakdown(
     spec: ParamSpec,
     terms: Sequence[Term],

@@ -79,6 +79,26 @@ TOL_SCALE = 1e-6
 # by model, grid, domains and registrations.
 _FINALIZE_MEMO = {}
 
+# The split grid's sweep runs in f64 where a float32 one would cancel,
+# i.e. where some group's table scale (its max |value| over the padded
+# grid) exceeds its largest |value| at a half's reference centre more
+# than SWEEP_F64_RATIO times (``window_cancellation``): the fused
+# kernel's f64 instance (``H_SWEEP_F64``) and the per-term path's
+# contraction (``_Bundle.sweep_f64``) take the same rule.
+SWEEP_F64_RATIO = 1e3
+
+
+def window_cancellation(windows) -> float:
+    """How far a half's groups would cancel in a float32 sweep: the
+    largest ratio, over the groups' windows ``(slots, B_t, scale)``, of a
+    group's table scale to its largest |value| at the half's reference
+    centre, i.e. 1 / max|a_ref B_t| in the group's scaled units."""
+    worst = 0.0
+    for slots, b_t, _ in windows:
+        mag = max(float(np.max(np.abs(a_ref @ b_t))) for _, _, a_ref in slots)
+        worst = max(worst, float("inf") if mag == 0.0 else 1.0 / mag)
+    return worst
+
 
 def _hash_arrays(*arrays):
     h = hashlib.sha256()
@@ -216,6 +236,19 @@ class _Bundle:
             handle.per_half = per_reg[key]
             handle.gen = self._gen
 
+    @property
+    def sweep_f64(self) -> bool:
+        """Whether the split grid's contraction runs in f64 on a float32
+        runtime (``SWEEP_F64_RATIO``): qsr.desi and qsr.des5y_desi in
+        w0wacdm, whose BAO tables reach Om = 0."""
+        kind, halves = self.finalized()
+        if "sweep_f64" not in self._tensors:  # cleared by each install
+            self._tensors["sweep_f64"] = kind == "split" and max(
+                window_cancellation([h.per_half[i] for _, h in self.regs.values()])
+                for i in range(len(halves))
+            ) > SWEEP_F64_RATIO
+        return self._tensors["sweep_f64"]
+
     def _build(self):
         kind, halves_spec = _grid_spec(self.model, self.n_nodes, self.domains)
         reg_keys = sorted(self.regs)
@@ -302,14 +335,16 @@ class _Bundle:
                 per_reg[key].append(windows[key])
         return (kind, halves), per_reg
 
-    def runtime(self, half_index):
-        """The half's program as tensors on the bundle's device and dtype."""
+    def runtime(self, half_index, dtype=None):
+        """The half's program as tensors on the bundle's device, in
+        ``dtype`` (default the bundle's)."""
         kind, halves = self.finalized()
-        if half_index not in self._tensors:
+        dtype = self.dtype if dtype is None else dtype
+        if (half_index, dtype) not in self._tensors:
             half = halves[half_index]
 
             def t(a):
-                return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(self.dtype)
+                return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(dtype)
 
             rep = half["rep"]
             if rep[0] == "exact":
@@ -318,20 +353,29 @@ class _Bundle:
                 rep_t = ("tucker", [t(u) for u in rep[1]], t(rep[2]))
             else:
                 rep_t = ("tt", rep[1], [t(g) for g in rep[2]], t(rep[3]))
-            self._tensors[half_index] = dict(
+            self._tensors[half_index, dtype] = dict(
                 axes=[t(ax) for ax in half["axes"]], bw=t(half["bw"]), rep=rep_t,
             )
-        return self._tensors[half_index]
+        return self._tensors[half_index, dtype]
 
     def coeff(self, p, half_index):
-        """The shared [W, R_all] coefficient vectors at walker params ``p``."""
-        rt = self.runtime(half_index)
+        """The shared [W, R_all] coefficient vectors at walker params
+        ``p``; on the split grid in f64 where ``sweep_f64`` says so, cast
+        back to the bundle's dtype."""
         if self.model == "w0wacdm":
             coords = (p["Om"], p["wa"], p["w0"] + p["wa"])
         else:
             coords = [p[nm] for nm in MODEL_PARAMS[self.model]]
-        weights = [bary_vector(x, ax, rt["bw"]) for x, ax in zip(coords, rt["axes"])]
-        return coeff_contract(weights, rt["rep"])
+        dtype = torch.float64 if self.sweep_f64 else self.dtype
+        rt = self.runtime(half_index, dtype)
+        # the barycentric weights in f64 whatever the runtime dtype: their
+        # autograd derivative, d/dx of num / sum(num), sums terms of order
+        # 1 / (x - x_k)^2 that cancel, and in float32 a walker near a
+        # node x_k loses the gradient along that axis
+        nodes = self.runtime(half_index, torch.float64)
+        weights = [bary_vector(x.double(), ax, nodes["bw"]).to(dtype)
+                   for x, ax in zip(coords, nodes["axes"])]
+        return coeff_contract(weights, rt["rep"]).to(self.dtype)
 
 
 # --- fast-mode scoping -------------------------------------------------------
@@ -533,9 +577,15 @@ def _dispatch_halves(bundle, p, half_fn):
     differentiable, as the reference does); a native grid is half 0."""
     kind, _ = bundle.finalized()
     if kind == "split":
-        lo, hi = half_fn(p, 0), half_fn(p, 1)
         s = torch.as_tensor(p["w0"] + p["wa"])
-        return torch.where((s <= 0.0).reshape(s.shape + (1,) * (lo.dim() - s.dim())), lo, hi)
+        lower = s <= 0.0
+        # each half sees the other half's walkers at the seam (w0 = -wa,
+        # s = 0), not off its grid: there its partials may be infinite,
+        # and 0 * inf through the select would make the gradient NaN
+        seam = -p["wa"]
+        lo = half_fn(dict(p, w0=torch.where(lower, p["w0"], seam)), 0)
+        hi = half_fn(dict(p, w0=torch.where(lower, seam, p["w0"])), 1)
+        return torch.where(lower.reshape(s.shape + (1,) * (lo.dim() - s.dim())), lo, hi)
     return half_fn(p, 0)
 
 

@@ -84,6 +84,8 @@ import torch
 from cosmax_torch.constants import C_KM_S, O_GAMMA_H2
 from cosmax_torch.models import recombination
 from cosmax_torch.models.emu_core import OR_REF, bary_vector, coeff_contract
+# H_SWEEP_F64: the split grid's sweep in f64 where a float32 one would cancel
+from cosmax_torch.models.linear_chi2 import SWEEP_F64_RATIO, window_cancellation
 from cosmax_torch.ops.quadrature import gl_nodes_01
 
 # Kernel launches made by ``fused_log_prob`` since the last reset; a run
@@ -190,11 +192,6 @@ Z_STAR = ("aizpuru", "hu")
 _FORM_INTS = ("F_KIND", "F_Q0", "F_NQ", "F_ROWS", "F_BETA", "F_J", "F_MAG_IDX", "F_F_IDX",
               "F_K", "F_I_AMP", "F_I_OFF", "F_I_S")
 
-# H_SWEEP_F64: the split grid's sweep runs in f64 where a float32 one would
-# cancel, i.e. where some group's table scale (F_SCALE, its max |value| over
-# the padded grid) exceeds its largest |value| at a half's reference centre
-# more than SWEEP_F64_RATIO times (``sweep_cancellation``)
-SWEEP_F64_RATIO = 1e3
 
 _ITEM_PRESETS = "ROADMAP.md queue 1, item 10c"
 _ITEM_KERNEL = "ROADMAP.md queue 2, #1a and #1c"
@@ -453,17 +450,11 @@ def split_smem_bytes(hdr) -> int:
 
 
 def sweep_cancellation(emulated, h) -> float:
-    """How far half ``h``'s groups would cancel in a float32 sweep: the
-    largest ratio, over the emulated terms' groups, of a group's table scale
-    to its largest |value| at the half's reference centre (the build's
-    ``theta_ref``), i.e. 1 / max|a_ref B_t| in the group's scaled units.
-    ``emulated`` holds (term, kind, emulator object) of ``pack``."""
-    worst = 0.0
-    for _, _, obj in emulated:
-        slots, b_t, _ = obj.handle.per_half[h]
-        mag = max(float(np.max(np.abs(a_ref @ b_t))) for _, _, a_ref in slots)
-        worst = max(worst, math.inf if mag == 0.0 else 1.0 / mag)
-    return worst
+    """``linear_chi2.window_cancellation`` of half ``h`` over the emulated
+    terms' groups: 1 / max|a_ref B_t| in a group's scaled units at the
+    half's reference centre (the build's ``theta_ref``). ``emulated``
+    holds (term, kind, emulator object) of ``pack``."""
+    return window_cancellation([obj.handle.per_half[h] for _, _, obj in emulated])
 
 
 def pack(fit) -> Packed:

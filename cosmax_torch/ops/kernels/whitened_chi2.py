@@ -8,6 +8,15 @@ there says what bounds it on an H100 and how the design answers that).
 Dispatch is by the device of the inputs and nothing else: CPU tensors
 take the plain PyTorch version below, CUDA tensors launch the kernel or
 raise. There is no fallback from the kernel to the plain version.
+
+Gradients: on CUDA the kernel is the forward of ``_WhitenedChi2``, a
+``torch.autograd.Function`` whose backward is the plain product
+d chi2 / d delta = 2 (delta Linv^T) Linv, two IEEE-f32 matmuls (the JAX
+package leaves the same product to XLA, outside its Pallas kernel, when
+``jax.grad`` passes the SN term). The backward is built from
+differentiable ops, so a Hessian goes through it too. Linv is a constant
+of the likelihood and gets no gradient. On the CPU the plain version is
+differentiable as it is.
 """
 
 import ctypes
@@ -45,13 +54,41 @@ def whitened_chi2(linv: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     the CUDA kernel skips its upper triangle.
 
     CPU tensors: the plain version, any float dtype. CUDA tensors: the
-    kernel, which takes contiguous float32 only and raises otherwise.
+    kernel, which takes contiguous float32 only and raises otherwise;
+    differentiable in ``delta`` (twice) through ``_WhitenedChi2``.
     """
     _check(linv, delta)
     if delta.device.type == "cpu":
         return whitened_chi2_reference(linv, delta)
     if delta.device.type != "cuda":
         raise ValueError(f"whitened_chi2 has no kernel for device {delta.device}")
+    if linv.requires_grad:
+        raise ValueError("whitened_chi2 gives no gradient in linv, a constant of the likelihood")
+    return _WhitenedChi2.apply(linv, delta)
+
+
+def whitened_chi2_grad(linv: torch.Tensor, delta: torch.Tensor, g: torch.Tensor):
+    """The backward of chi2 = ||Linv delta||^2: g[:, None] * 2 (delta Linv^T)
+    Linv, from differentiable ops (the Hessian's double backward goes
+    through it)."""
+    return (2.0 * g)[:, None] * ((delta @ linv.T) @ linv)
+
+
+class _WhitenedChi2(torch.autograd.Function):
+    """The kernel as the forward; ``whitened_chi2_grad`` as the backward."""
+
+    @staticmethod
+    def forward(ctx, linv, delta):
+        ctx.save_for_backward(linv, delta)
+        return _launch(linv, delta)
+
+    @staticmethod
+    def backward(ctx, g):
+        linv, delta = ctx.saved_tensors
+        return None, whitened_chi2_grad(linv, delta, g)
+
+
+def _launch(linv: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     for name, t in (("linv", linv), ("delta", delta)):
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32 {name}; got {t.dtype}")

@@ -141,13 +141,36 @@ def test_cli_short_fit(tmp_path, capsys):
     assert set(summary["chi2"]) == {"bao", "cmb_desi", "sn"}
 
 
-# --fast is ported for every preset and model: its case, fs8.fs8 in
-# w0wacdm, runs (on the reduced split grid of test_torch_w0wa_joint.py)
+# --fast, --sampler hmc and --checkpoint are ported: their cases run (the
+# fast one, fs8.fs8 in w0wacdm, on the reduced split grid of
+# test_torch_w0wa_joint.py); plots under --out still raise
 @pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"],
                                   ["--fast", "--model", "w0wacdm", "--preset", "fs8.fs8"],
                                   ["--out", "x"]])
 def test_cli_unported_flags_raise(flag, tmp_path, capsys):
     argv = ["--preset", "bao.desi", "--device", "cpu", *flag]
+    if "--sampler" in flag or "--checkpoint" in flag:
+        if "--checkpoint" in flag:
+            argv[-1] = str(tmp_path / "c.npz")
+            run = ["--steps", "6", "--checkpoint-every", "4"]
+        else:
+            run = ["--steps", "16", "--burn-in", "8", "--max-leapfrog", "8"]
+        out = tmp_path / "run"
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)  # small tensors: no thread pool spinning per op
+        try:
+            assert tfit_cli.main([*argv, *run, "--walkers", "8", "--no-plots",
+                                  "--out", str(out)]) == 0
+        finally:
+            torch.set_num_threads(n)
+        chain = np.load(out / "chain.npy")
+        assert chain.shape[1:] == (8, 3) and len(chain) > 0 and np.all(np.isfinite(chain))
+        summary = json.loads((out / "summary.json").read_text())
+        if "--sampler" in flag:
+            assert summary["sampler"]["kind"] == "hmc" and chain.shape[0] == 8
+        else:
+            assert (tmp_path / "c.npz").exists()
+        return
     if "--fast" in flag:
         from threadpoolctl import threadpool_limits
 
