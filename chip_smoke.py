@@ -111,7 +111,6 @@ raising on failure (non-zero exit):
    walkers (32 a half) against the port's f64 CPU fast path; kernel and
    plain times with the bound at 131,072 bench and uniform and 65,536
    bench; ``fit.log_prob()`` end to end with its launch count;
-   ``fs8.fs8``, ``cc.cc_union3`` and ``cc.cc_des5y`` in w0wacdm and
    ``cc.cc`` (the Om h^2 prior) in the four models at 4,096 walkers,
    bench and uniform draws, whole and each term alone; and the CLI with
    ``--fast --model w0wacdm --synthetic-sys`` on the multiprobe (the
@@ -171,7 +170,8 @@ raising on failure (non-zero exit):
    w0 axis in wcdm): the parity path of each in wzcdm (``cmb.cmb`` lcdm)
    at 1,024 walkers, all finite, 64 against the f64 CPU parity path; the
    fast path of each in lcdm, wcdm, wzcdm and w0wacdm (``cmb.cmb`` in
-   lcdm) at 4,096 walkers (w0wacdm also uniform over the box), the fused
+   lcdm; ``qsr.pantheon`` and ``qsr.union3`` not in w0wacdm) at 4,096
+   walkers (w0wacdm also uniform over the box), the fused
    kernel against its plain version whole and each term alone (the
    50-value lift alone among them) within 1e-4 of max|logp|, 64 walkers
    against the f64 CPU fast path; near the published point of
@@ -214,8 +214,8 @@ raising on failure (non-zero exit):
    systematic covariance, which the data store lacks; the published
    distance printed), split R-hat < 1.01, divergences and warmup retries
    printed, and a kernel launch in every gradient evaluation (the fused
-   kernel once, the chi^2 kernel once per whitened term); a 64-chain
-   20 + 20-step parity flagship run through the chi^2 Function; (d)
+   kernel once, the chi^2 kernel once per whitened term) (the parity
+   flagship's HMC runs in phase 18's dry run); (d)
    ``--fast`` ensemble and HMC runs in two checkpointed CLI calls equal to
    the straight run bit for bit; (e) ``python -m cosmax_torch.compare
    --preset bao.desi`` (chi^2_min 10.27 / 9.04 / 8.43 / 5.62 within 0.01)
@@ -226,6 +226,40 @@ raising on failure (non-zero exit):
    flagship's at 4,096 with the chi^2 forward kernel and the backward's
    matmuls, gradient evaluations per second of each HMC run, each part's
    seconds and the phase's.
+18. the multi-GPU path: (a) the chi^2 kernel's row-block entry (the rows
+   [r0, r1) of L^-1 from the slab L^-1[r0:r1, :r1]) at (65,536, 1829) on
+   realistic residuals of DES-SN5YR's covariance, for d = 2 and d = 4
+   blocks by equal work (boundaries N sqrt(k/d) on the row tile): each
+   block against its plain version (rtol 5e-5), its f64 plain version
+   (RTOL_CHI2_F64) and on a ragged batch, the blocks' sum against the
+   square kernel (1e-6 a walker), the square entry against the row-block
+   entry at (0, N) bit for bit, a planted fault (a block's diagonal skip
+   from its local row 0) that must fail, each block's time beside the
+   square kernel's and its 3xTF32 bound, the slowest block's share of the
+   square time; (b) the port of ``dryrun_multichip``
+   (``cosmax_torch.dryrun``) under NCCL at world size 1 in this process:
+   the parity flagship's sharded log-prob (the SN rows through the
+   row-block entry) at 65,536 walkers against ``fit.log_prob()`` within
+   1e-6 of max|logp|, the fast flagship (wzcdm, w0wacdm) at 262,144 and
+   the fast multiprobe (lcdm) at 131,072 bit for bit (and a block of
+   walkers from walker 37, against the whole call's, bit for bit), a
+   sharded ensemble step, an 8-step chain resumed from a checkpoint, 4 HMC
+   steps (the sharded potential) and their checkpoint resume, a step of
+   each fast fit, the stepping-stone ladder, every kernel launched; (c)
+   the same on a gloo pair, both ranks on cuda:0, mesh w = 1 x d = 2 (each
+   rank launches the row-block entry on its own rows and the fused kernel
+   on its walkers), spawned with a ``file://`` rendezvous: its results
+   against world size 1 (the parity log-prob and the chains' log-probs
+   within 1e-6 of max|logp|, the chain's walkers and the fast calls bit
+   for bit).
+
+Phases 13, 16 and 17 were cut for phase 18's time: ``fs8.fs8``,
+``cc.cc_union3`` and ``cc.cc_des5y`` in w0wacdm left phase 13 (fs8.fs8's
+~190 s growth-ODE build; their kernel branches are the w0wacdm
+multiprobe's), ``qsr.pantheon`` and ``qsr.union3`` in w0wacdm left phase
+16 (their one-chunk lift in the split instance is held by ``qsr.des5y``),
+the 64-chain parity flagship HMC left phase 17 (phase 18's dry run runs
+that potential). Each phase's seconds are printed at the end.
 
 Phase 3 also holds the chi^2 kernel against its plain version at
 (4,096, 33) and (4,096, 66), the CC and fs8 parity shapes.
@@ -264,7 +298,6 @@ MP_WALKERS = 131072  # the multiprobe size of bench.py
 MP_PARITY_WALKERS = 4096
 NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
-W0WA_MP_OTHERS = ("fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s, dense
 # TF32 tensor-core FLOP/s and HBM3 bytes/s; and the f64 tensor cores'
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
@@ -299,6 +332,20 @@ CHI2_PLANTED = {
         ("fold(acc, part);", "if (last) fold(acc, part);"),),
 }
 CHI2_PLANTED_AT = (580, 1829)
+# phase 18: the chi^2 kernel's row-block entry, its blocks by equal work
+# over d ranks, and a planted fault (built in phase 2) that the check of a
+# block not at row 0 must catch: the diagonal skip counted from the block's
+# local row 0
+ROWS_PARTS = (2, 4)
+CHI2_ROWS_PLANTED = {
+    "a block's diagonal skip from its local row 0": (
+        ("  const long long row0 = BLOCK ? sh.ld - sh.rows : 0;", "  const long long row0 = 0;"),),
+}
+# the dry run (cosmax_torch/dryrun.py; its chains take max(4 x world size,
+# 8) walkers, 8 at world sizes 1 and 2, so both runs take the same chains):
+# its held evaluations at BENCH_WALKERS (parity), 2x (multiprobe) and 4x
+# (the fast flagships), and the pair's time limit
+DRYRUN_PAIR_TIMEOUT = 400
 RAGGED = BENCH_WALKERS + 37  # a last block of 37 walkers
 # phase 14: the BAO family, and the fused kernel's #1e branches, each on one
 # preset that needs it, in the four models: (label, preset, its options)
@@ -314,6 +361,11 @@ BRANCHES = (("K1 BBN prior, K2 r_s(z_drag)", "bao.desi_bbn", {}),
             ("K4 H0-free", "bao.desi_des5y", {}),
             ("K5 exp(w0)", "bao.desi_pantheon", {}))
 MODELS = ("lcdm", "wcdm", "wzcdm", "w0wacdm")
+# phase 16's presets whose w0wacdm fast path left the phase for phase 18's
+# time (a build of ~20 s each): their split-instance path, a
+# one-chunk quasar lift beside an SN form, is held by qsr.des5y in w0wacdm
+# (a two-chunk lift, timed) and by qsr.desi / qsr.des5y_desi (the f64 sweep)
+QSR_NO_W0WA = ("qsr.pantheon", "qsr.union3")
 FAMILY_WALKERS, FAMILY_PARITY_WALKERS = 4096, 1024
 # phase 15: the SN family and the rest of cc.*, the presets among them of a
 # structure no earlier preset had (held in the four models), and the timing
@@ -1202,7 +1254,8 @@ def _ptxas_of(log, marker):
 def _start_variants():
     """Write each variant of the fused kernel's source (PLANTED,
     TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED, QSR_PLANTED, the f64
-    sweep forced off) and of the chi^2 kernel's (CHI2_PLANTED) under
+    sweep forced off) and of the chi^2 kernel's (CHI2_PLANTED,
+    CHI2_ROWS_PLANTED) under
     ``build/chip_smoke_variants/`` and start one nvcc for each. Returns
     {name: (process, library path)}."""
     from cosmax_torch.ops.kernels import build
@@ -1215,7 +1268,8 @@ def _start_variants():
         **{name: edits for name, (edits, _, _, _) in QSR_PLANTED.items()},
         **{F64_SWEEP_OFF: F64_SWEEP_OFF_EDITS})
     variants = [(name, FUSED_SOURCE, edits) for name, edits in fused.items()]
-    variants += [(name, SOURCE, edits) for name, edits in CHI2_PLANTED.items()]
+    variants += [(name, SOURCE, edits) for name, edits in
+                 dict(CHI2_PLANTED, **CHI2_ROWS_PLANTED).items()]
     out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -1798,10 +1852,14 @@ def phase_w0wa_multiprobe(card, ptxas_split, variants):
           f"kernel launch per call; end to end {MP_WALKERS / dt:.1f} evals/s "
           f"({1e3 * dt:.4f} ms per call, host clock, mean of {reps}) on {card}")
 
-    # the other presets of the multiprobe family in w0wacdm, and cc.cc
-    # (the Om h^2 prior) in every model: whole and each term alone
-    for name, models in [*((n, ("w0wacdm",)) for n in W0WA_MP_OTHERS),
-                         ("cc.cc", ("lcdm", "wcdm", "wzcdm", "w0wacdm"))]:
+    # cc.cc (the Om h^2 prior) in every model: whole and each term alone.
+    # fs8.fs8, cc.cc_union3 and cc.cc_des5y in w0wacdm left here for phase
+    # 18's time: fs8.fs8's growth-ODE tables took ~190 s of the
+    # host a run, the two others' builds ~15-20 s each, and every kernel
+    # branch they take (the amp-pair form, linear CC and SN forms, the split
+    # sweep) is the w0wacdm multiprobe's, held above, whole and each term
+    # alone; the three stay in phase 9 (lcdm, wcdm, wzcdm)
+    for name, models in [("cc.cc", MODELS)]:
         for model in models:
             t0 = time.perf_counter()
             other = get_preset(name, model, fast=True, device="cuda")
@@ -2349,7 +2407,9 @@ def phase_qsr_family(card, variants):
         return fits[name, model]
 
     def models(name):
-        return ("lcdm",) if name == "cmb.cmb" else MODELS
+        if name == "cmb.cmb":
+            return ("lcdm",)
+        return MODELS[:3] if name in QSR_NO_W0WA else MODELS
 
     def lift_index(packed):
         """The index of the quasar lift among the forms, or None."""
@@ -2788,17 +2848,9 @@ def phase_grad(card):
                         divergent=s["divergent_trajectories"], retries=s["warmup_retries"])
         print(f"phase 17c: {tag}: {launches[kernel]} {kernel} launches for "
               f"{s['gradient_evals']} gradient evaluations ({per_call} a call, every leapfrog)")
-    par_k = _per_call_launches(par, 64)
-    chain, summary, launches, wall = _hmc_cli(card, "phase 17c", "bao.desi_cmb_des5y", "wzcdm",
-                                              64, 20, 20, synthetic_sys=True)
-    if chain.shape != (20, 64, 6) or launches["whitened_chi2"] < (
-            par_k * summary["sampler"]["gradient_evals"]):
-        raise AssertionError(f"phase 17c: parity flagship HMC: chain {chain.shape}, "
-                             f"launches {launches}")
-    hmc["bao.desi_cmb_des5y wzcdm parity (64 x 20 + 20)"] = dict(
-        launches=launches["whitened_chi2"], per_call=par_k,
-        gradient_evals=summary["sampler"]["gradient_evals"],
-        gradient_evals_per_s=summary["sampler"]["gradient_evals"] / summary["walltime_sec"])
+    # the parity flagship's HMC (its chi^2 Function on the card) runs in
+    # phase 18's dry run, through the row-block entry: the 64-chain CLI run
+    # that held it here left for phase 18's time
     out["hmc"] = hmc
     lap("c")
 
@@ -2866,6 +2918,239 @@ def phase_grad(card):
     return out
 
 
+def _rows_launch(lib, slab, delta):
+    """A row block's share from a library's row-block C entry, launched
+    straight (the wrapper's launch count stays as it is)."""
+    import torch
+
+    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
+
+    rows, ld = slab.shape
+    out = torch.empty(delta.shape[0], dtype=torch.float32, device=delta.device)
+    err = kmod._rows_entry(lib)(slab.data_ptr(), delta.data_ptr(), out.data_ptr(),
+                                delta.shape[0], delta.shape[1], ld - rows, rows,
+                                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chi^2 row-block entry failed: cudaError {err}")
+    return out
+
+
+def phase_rows(card, variants):
+    """Phase 18 (a): the chi^2 kernel's row-block entry at (65,536, 1829) on
+    realistic residuals of DES-SN5YR's covariance, for d = 2 and d = 4
+    blocks by equal work: each block against its plain version (f32, rtol
+    5e-5) and its f64 plain version (RTOL_CHI2_F64), the blocks' sum against
+    the square kernel (1e-6 a walker), a ragged batch, the planted fault (a
+    block's diagonal skip from its local row 0) that must fail, the square
+    entry against the row-block entry at (0, N) bit for bit; each block's
+    time beside the square kernel's, the block's 3xTF32 bound and its plain
+    version's (the one cuBLAS product, f32, the library call of the square
+    entry too)."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.data.loaders import load_sn, use_synthetic_sys
+    from cosmax_torch.ops.kernels.build import load_kernel
+    from cosmax_torch.ops.kernels.whitened_chi2 import (
+        row_blocks,
+        whitened_chi2,
+        whitened_chi2_rows,
+        whitened_chi2_rows_reference,
+    )
+
+    t_phase = time.perf_counter()
+    with use_synthetic_sys(True):
+        sn = load_sn("des5y")
+    w, n = BENCH_WALKERS, sn.n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    chol = torch.as_tensor(np.linalg.cholesky(sn.cov), device="cuda")
+    z = torch.randn((w, n), generator=gen, device="cuda", dtype=torch.float64)
+    delta = (z @ chol.T).float()
+    del z, chol
+    linv = torch.as_tensor(np.ascontiguousarray(sn.linv), device="cuda").float()
+    lib = load_kernel("whitened_chi2").lib
+    square = whitened_chi2(linv, delta)
+    whole = _rows_launch(lib, linv, delta)
+    torch.cuda.synchronize()
+    if not torch.equal(square, whole):
+        raise AssertionError("phase 18: the square entry and the row-block entry at (0, N) differ")
+    square_ms = _median_ms(lambda: whitened_chi2(linv, delta))
+    print(f"phase 18: the square entry equals the row-block entry at (row0 0, rows {n}) bit "
+          f"for bit at (W={w}, N={n}); square kernel {square_ms:.4f} ms on {card}")
+    out = dict(square_ms=square_ms, square_equals_rows_entry=True, parts={})
+    ragged = delta[: w // 2 + 37]
+    for parts in ROWS_PARTS:
+        cuts = row_blocks(n, parts)
+        total = torch.zeros(w, dtype=torch.float64, device="cuda")
+        blocks = []
+        for r0, r1 in zip(cuts, cuts[1:]):
+            slab = linv[r0:r1, :r1].contiguous()
+            got = whitened_chi2_rows(slab, delta)
+            plain = whitened_chi2_rows_reference(slab, delta)
+            want64 = whitened_chi2_rows_reference(slab.double(), delta.double())
+            part_rag = whitened_chi2_rows(slab, ragged)
+            torch.cuda.synchronize()
+            rel = float(((got - plain).abs() / plain.abs()).max())
+            rel64 = float(((got.double() - want64).abs() / want64.abs()).max())
+            rel_rag = float((part_rag - got[: ragged.shape[0]]).abs().max() / got.abs().max())
+            if not (rel <= RTOL_KERNEL and rel64 <= RTOL_CHI2_F64 and rel_rag <= RTOL_KERNEL
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"phase 18: rows [{r0}, {r1}) of {n}: kernel vs plain "
+                                     f"{rel:.3e}, vs f64 plain {rel64:.3e}, ragged {rel_rag:.3e}")
+            total += got.double()
+            ms = _median_ms(lambda: whitened_chi2_rows(slab, delta))
+            plain_ms = _median_ms(lambda: whitened_chi2_rows_reference(slab, delta))
+            flop = w * (r1 * (r1 + 1) - r0 * (r0 + 1))  # the block's triangle
+            tc_ms = 1e3 * 3 * flop / PEAK_TF32_FLOPS
+            bytes_ms = 1e3 * 4.0 * (w * r1 + (r1 - r0) * r1 + w) / PEAK_BYTES
+            blocks.append(dict(rows=[r0, r1], max_rel_err=rel, max_rel_err_f64=rel64, ms=ms,
+                               plain_ms=plain_ms, library_ms=plain_ms,
+                               bound_ms=max(tc_ms, bytes_ms),
+                               bound_by="operations" if tc_ms >= bytes_ms else "bytes"))
+            print(f"phase 18: d={parts} rows [{r0}, {r1}): kernel vs plain {rel:.3e} (limit "
+                  f"{RTOL_KERNEL:g}), vs f64 plain {rel64:.3e} (limit {RTOL_CHI2_F64:g}), ragged "
+                  f"batch {rel_rag:.3e}; {ms:.4f} ms, plain (cuBLAS, f32) {plain_ms:.4f} ms "
+                  f"({plain_ms / ms:.2f}x the kernel's), bound {max(tc_ms, bytes_ms):.4f} ms "
+                  f"(3xTF32 {tc_ms:.4f}, bytes {bytes_ms:.4f}), {ms / max(tc_ms, bytes_ms):.2f}x")
+        gap = float(((total - square.double()).abs() / square.double().abs()).max())
+        if gap > 1e-6:
+            raise AssertionError(f"phase 18: d={parts}: the blocks' sum vs the square kernel: "
+                                 f"{gap:.3e}")
+        slowest = max(b["ms"] for b in blocks)
+        out["parts"][str(parts)] = dict(cuts=cuts, blocks=blocks, sum_vs_square=gap,
+                                        slowest_over_square=slowest / square_ms)
+        print(f"phase 18: d={parts}: blocks {cuts} by equal work; their sum vs the square "
+              f"kernel {gap:.3e} a walker (limit 1e-6); slowest block {slowest:.4f} ms = "
+              f"{slowest / square_ms:.3f} of the square kernel's {square_ms:.4f} (1/d = "
+              f"{1 / parts:.3f})")
+    # the planted fault: d = 2's second block, rows [1280, 1829)
+    r0, r1 = row_blocks(n, 2)[1:]
+    slab = linv[r0:r1, :r1].contiguous()
+    want64 = whitened_chi2_rows_reference(slab.double(), delta.double())
+    name, = CHI2_ROWS_PLANTED
+    bad = _rows_launch(variants[name][0], slab, delta)
+    torch.cuda.synchronize()
+    caught = float(((bad.double() - want64).abs() / want64.abs()).max())
+    if not caught > RTOL_CHI2_F64:
+        raise AssertionError(f"phase 18: the row-block check missed the planted fault {name!r}: "
+                             f"{caught:.3e}")
+    print(f"phase 18: planted fault ({name}) on rows [{r0}, {r1}): {caught:.3e} against the f64 "
+          f"plain version: caught")
+    out.update(planted={name: caught}, walkers=w, n=n, seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def _dryrun_gap(a, b):
+    """max |a - b| over the finite values, of max|b|; -inf rows must agree."""
+    import numpy as np
+
+    if not np.array_equal(np.isinf(a), np.isinf(b)):
+        return float("inf")
+    fin = np.isfinite(b)
+    if not fin.any():
+        return 0.0
+    return float(np.max(np.abs(a[fin].astype(np.float64) - b[fin])) / np.max(np.abs(b[fin])))
+
+
+def phase_dryrun(card):
+    """Phase 18 (b, c): the port of dryrun_multichip (cosmax_torch/dryrun.py)
+    under NCCL at world size 1 in this process, then on a gloo pair, both
+    ranks on cuda:0 with d = 2 (each launches the row-block entry on its
+    own rows of DES-SN5YR's whitener and the fused kernel on its walkers),
+    through the spawn helper; the pair's results against world size 1
+    (the parity log-prob and chains within 1e-6 of max|logp|, the fast
+    calls bit for bit: on the pair's mesh a fast preset's walkers split over
+    'd', so each rank's fused launch takes half of them) and the kernels'
+    launches in each run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cosmax_torch import dryrun
+    from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
+    from cosmax_torch.parallel import spawn
+    from cosmax_torch.parallel.launch import resolve_rank_device
+
+    opts = dict(eval_walkers=BENCH_WALKERS, synthetic_sys=True)
+    t0 = time.perf_counter()
+    resolve_rank_device("cuda", 0, "nccl")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            _reset_counts()
+            one = dryrun.run(opts)
+            launches = dict(whitened_chi2=whitened_chi2.LAUNCHES,
+                            fused_log_prob=fused_log_prob.LAUNCHES)
+        finally:
+            dist.destroy_process_group()
+    one_s = time.perf_counter() - t0
+    if min(launches.values()) == 0 or one["launches"] != launches:
+        raise AssertionError(f"phase 18: the NCCL dry run's launches {launches} "
+                             f"(its own count {one['launches']})")
+    print(f"phase 18: dry run under NCCL at world size 1 on {card}: mesh {one['mesh']}, "
+          f"{one_s:.1f}s, launches {launches}")
+    t0 = time.perf_counter()
+    pair = spawn("cosmax_torch.dryrun:run", 2, backend="gloo", device="cuda:0",
+                 args=(dict(opts, data=2),), timeout=DRYRUN_PAIR_TIMEOUT)
+    pair_s = time.perf_counter() - t0
+    checks = {}
+    for rank, got in enumerate(pair):
+        if got["mesh"] != {"w": 1, "d": 2} or min(got["launches"].values()) == 0:
+            raise AssertionError(f"phase 18: gloo rank {rank}: mesh {got['mesh']}, launches "
+                                 f"{got['launches']}")
+        if got["parity flagship"]["launches"]["whitened_chi2"] == 0:
+            raise AssertionError(f"phase 18: gloo rank {rank} launched no row block")
+        if got["device"] != "cuda:0":
+            raise AssertionError(f"phase 18: gloo rank {rank} ran on {got['device']}")
+        for label in ("fast flagship wzcdm", "fast flagship w0wacdm", "fast multiprobe lcdm"):
+            if got[label]["launches"]["fused_log_prob"] == 0:
+                raise AssertionError(f"phase 18: gloo rank {rank} made no fused launch on its "
+                                     f"half of the {label} walkers")
+        for label, key, tol in (("parity flagship", "logp", 1e-6),
+                                ("fast flagship wzcdm", "logp", 0.0),
+                                ("fast flagship w0wacdm", "logp", 0.0),
+                                ("fast multiprobe lcdm", "logp", 0.0),
+                                ("chain", "log_probs", 1e-6), ("hmc", "log_probs", 1e-6),
+                                ("wzcdm_step", "log_probs", 0.0),
+                                ("w0wacdm_step", "log_probs", 0.0),
+                                ("multiprobe_step", "log_probs", 0.0)):
+            a, b = np.asarray(got[label][key]), np.asarray(one[label][key])
+            gap = _dryrun_gap(a, b) if tol else (0.0 if np.array_equal(a, b) else float("inf"))
+            if not gap <= tol:
+                raise AssertionError(f"phase 18: gloo rank {rank}, {label}: {key} against world "
+                                     f"size 1: {gap:.3e} (limit {tol:g}"
+                                     f"{', bit for bit' if not tol else ''})")
+            checks[label] = max(checks.get(label, 0.0), gap)
+        for key in ("samples", "accepted"):
+            if not np.array_equal(got["chain"][key], one["chain"][key]):
+                raise AssertionError(f"phase 18: gloo rank {rank}: the chain's {key} differ "
+                                     "from world size 1")
+    print(f"phase 18: dry run on a gloo pair (both ranks on cuda:0, mesh w=1 x d=2) on {card}: "
+          f"{pair_s:.1f}s; against world size 1 (of max|logp|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in checks.items())
+          + f"; launches rank 0 {pair[0]['launches']}, rank 1 {pair[1]['launches']}")
+    offsets = {k: one[k].get("offset_bitwise") for k in one
+               if isinstance(one[k], dict) and "offset_bitwise" in one[k]}
+    print(f"phase 18: a walker's fused log-prob from its own row alone (a block from walker "
+          f"{dryrun.ROW_OFFSET}, bit for bit): {offsets}")
+    if not all(offsets.values()):
+        raise AssertionError(f"phase 18: a fused log-prob depends on the walker's place in its "
+                             f"block: {offsets}")
+    strip = ("logp",)
+
+    def summary(run):
+        return {k: ({kk: vv for kk, vv in v.items() if kk not in strip and not hasattr(vv, "shape")}
+                    if isinstance(v, dict) else v)
+                for k, v in run.items() if k not in ("chain", "hmc", "step", "ladder")}
+
+    return dict(nccl_world_1=dict(summary(one), seconds=one_s, launches=launches),
+                gloo_world_2=dict(summary(pair[0]), seconds=pair_s,
+                                  launches=[r["launches"] for r in pair]),
+                against_world_1=checks, offset_bitwise=offsets)
+
+
 def main():
     import torch
 
@@ -2901,32 +3186,58 @@ def main():
           f"{ptxas_tucker}; fused_log_prob_split_kernel {ptxas_split}; "
           f"fused_log_prob_split_f64_kernel {ptxas_f64}")
 
+    stamps = {}
+
+    def stamp(phase):
+        """Seconds since the last stamp (from phase 2's start), by phase."""
+        stamps[phase] = time.perf_counter() - t_start - sum(stamps.values())
+
+    stamp("2")
     timing = phase_kernel(card, variants)
+    stamp("3")
     phase_anchor()
+    stamp("4")
     parity_ref = phase_flagship(card)
+    stamp("5")
     launches = phase_cli(card, "phase 6")
+    stamp("6")
     fused = phase_fast(card, parity_ref, ptxas_tucker, variants)
+    stamp("7")
     fused_launches = phase_cli(card, "phase 8", fast=True)
+    stamp("8")
     mp_ref, mp_fused = phase_multiprobe_fast(card, variants)
+    stamp("9")
     mp_parity_launches = phase_multiprobe_parity(card, mp_ref)
+    stamp("10")
     mp_cli_launches = phase_cli(card, "phase 11", "joint.multiprobe", 256, 11, fast=True)
+    stamp("11")
     w0wa = phase_w0wa_fast(card, ptxas_split, variants)
     w0wa_cli_launches = phase_cli(card, "phase 12", walkers=150, dim=7, fast=True,
                                   model="w0wacdm")
+    stamp("12")
     w0wa_mp, cc_cc = phase_w0wa_multiprobe(card, ptxas_split, variants)
     w0wa_mp_cli_launches = phase_cli(card, "phase 13", "joint.multiprobe", 256, 12, fast=True,
                                      model="w0wacdm", synthetic_sys=True)
+    stamp("13")
     family = phase_bao_family(card, variants)
     family["cli_launches"] = phase_cli(card, "phase 14", "bao.desi_bbn", 150, 4, fast=True)
+    stamp("14")
     sn_family = phase_sn_family(card, variants)
     sn_family["cli_launches"] = phase_cli(card, "phase 15", "sn.pantheon_shoes", 500, 4,
                                           fast=True, synthetic_sys=True)
     sn_parity_cli_launches = phase_cli(card, "phase 15", "cc.cc_pantheon", 150, 5,
                                        synthetic_sys=True)
+    stamp("15")
     qsr_family = phase_qsr_family(card, variants)
     qsr_family["cli_launches"] = phase_cli(card, "phase 16", "qsr.des5y", 150, 5, fast=True)
+    stamp("16")
     grad = phase_grad(card)
-    print(f"phases 2-17 took {time.perf_counter() - t_start:.1f}s on {card}")
+    stamp("17")
+    rows = phase_rows(card, variants)
+    dry = phase_dryrun(card)
+    stamp("18")
+    print(f"phases 2-18 took {time.perf_counter() - t_start:.1f}s on {card}; by phase: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in stamps.items()))
 
     print(json.dumps({"kernels": [
         {"name": "whitened_chi2", "route": "cuda", "source": SOURCE,
@@ -2935,7 +3246,12 @@ def main():
          "sn_family": dict(sn_family["chi2"], parity_launches=sn_family["parity_launches"],
                            cli_launches=sn_parity_cli_launches),
          "autograd_function": grad["chi2_function"],
-         "hmc_parity": {k: v for k, v in grad["hmc"].items() if "parity" in k}},
+         "hmc_parity": {k: v for k, v in grad["hmc"].items() if "parity" in k},
+         "rows_entry": rows,
+         "dryrun": {"nccl_world_1_launches": dry["nccl_world_1"]["launches"]["whitened_chi2"],
+                    "gloo_world_2_launches": [r["whitened_chi2"]
+                                              for r in dry["gloo_world_2"]["launches"]],
+                    "parity_vs_world_1": dry["against_world_1"]["parity flagship"]}},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
@@ -2946,8 +3262,11 @@ def main():
          "sn_family": {k: v for k, v in sn_family.items()
                        if k not in ("chi2", "parity_launches")},
          "qsr_family": qsr_family, "sweep_f64": sorted(SWEEP_F64), "ptxas_f64": ptxas_f64,
-         "gradients": {k: v for k, v in grad.items() if k != "chi2_function"}},
-    ]}))
+         "gradients": {k: v for k, v in grad.items() if k != "chi2_function"},
+         "dryrun": dict(dry, nccl_world_1_launches=dry["nccl_world_1"]["launches"][
+             "fused_log_prob"], gloo_world_2_launches=[
+             r["fused_log_prob"] for r in dry["gloo_world_2"]["launches"]])},
+    ]}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

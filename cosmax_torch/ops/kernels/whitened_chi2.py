@@ -17,20 +17,53 @@ package leaves the same product to XLA, outside its Pallas kernel, when
 differentiable ops, so a Hessian goes through it too. Linv is a constant
 of the likelihood and gets no gradient. On the CPU the plain version is
 differentiable as it is.
+
+Row blocks: ``whitened_chi2_rows(linv_rows, delta)`` is the share of the
+rows [row0, row0 + rows) of Linv, from the slab ``Linv[row0 : row0 + rows,
+: row0 + rows]`` alone (row0 = its width less its rows: a lower-triangular
+row has no value past its diagonal). The kernel's row-block entry computes
+it with the same autograd Function (backward 2 g (delta L_b^T) L_b); the
+blocks' shares add up to chi^2. ``row_blocks`` splits the rows by equal
+work: a block's cost is its rows' lengths, ~r1^2 - r0^2 on the triangle,
+so equal rows would give the last of two blocks 3/4 of it.
 """
 
 import ctypes
 
 import torch
 
-# Kernel launches made by ``whitened_chi2`` since the last reset; a run
-# reads it to show that its main path went through the kernel.
+# Kernel launches made by ``whitened_chi2`` and ``whitened_chi2_rows`` since
+# the last reset; a run reads it to show that its main path went through the
+# kernel.
 LAUNCHES = 0
+
+# The kernel's row tile: equal-work row blocks start on multiples of it.
+ROW_TILE = 128
 
 
 def whitened_chi2_reference(linv: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: delta [W, N], linv [N, N] -> [W]."""
     return ((delta @ linv.T) ** 2).sum(-1)
+
+
+def whitened_chi2_rows_reference(linv_rows: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of a row block: linv_rows [rows, ld] (the slab
+    of rows [ld - rows, ld), columns [0, ld)), delta [W, N >= ld] -> [W]."""
+    ld = linv_rows.shape[1]
+    return ((delta[:, :ld] @ linv_rows.T) ** 2).sum(-1)
+
+
+def row_blocks(n: int, parts: int) -> list:
+    """Boundaries [b_0 = 0, ..., b_parts = n] of ``parts`` row blocks of an
+    n x n lower triangle by equal work: b_k = n sqrt(k / parts), rounded to
+    a multiple of the kernel's row tile (so that no tile straddles two
+    blocks) and kept in [0, n]. A block may be empty when n is small
+    against the tile."""
+    if parts < 1:
+        raise ValueError(f"parts must be >= 1; got {parts}")
+    cuts = [min(n, ROW_TILE * round(n * (k / parts) ** 0.5 / ROW_TILE))
+            for k in range(1, parts)]
+    return [0] + cuts + [n]
 
 
 def _check(linv: torch.Tensor, delta: torch.Tensor) -> None:
@@ -67,15 +100,54 @@ def whitened_chi2(linv: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return _WhitenedChi2.apply(linv, delta)
 
 
+def _check_rows(linv_rows: torch.Tensor, delta: torch.Tensor) -> None:
+    if delta.dim() != 2 or linv_rows.dim() != 2:
+        raise ValueError(
+            f"whitened_chi2_rows takes delta [W, N] and linv_rows [rows, ld]; got "
+            f"{tuple(delta.shape)} and {tuple(linv_rows.shape)}"
+        )
+    rows, ld = linv_rows.shape
+    if not rows <= ld <= delta.shape[1]:
+        raise ValueError(
+            f"linv_rows [{rows}, {ld}] is no row block of an N = {delta.shape[1]} "
+            "triangle (rows <= ld <= N)"
+        )
+    if linv_rows.device != delta.device:
+        raise ValueError(f"linv_rows on {linv_rows.device} but delta on {delta.device}")
+
+
+def whitened_chi2_rows(linv_rows: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The rows [ld - rows, ld) of Linv's share of chi^2 over a walker
+    batch, from the slab ``linv_rows`` [rows, ld] (lower-triangular rows).
+
+    CPU tensors: the plain version. CUDA tensors: the kernel's row-block
+    entry (contiguous float32 only, else it raises), differentiable in
+    ``delta`` through ``_WhitenedChi2``."""
+    _check_rows(linv_rows, delta)
+    if delta.device.type == "cpu":
+        return whitened_chi2_rows_reference(linv_rows, delta)
+    if delta.device.type != "cuda":
+        raise ValueError(f"whitened_chi2_rows has no kernel for device {delta.device}")
+    if linv_rows.requires_grad:
+        raise ValueError("whitened_chi2_rows gives no gradient in linv, a constant of the likelihood")
+    return _WhitenedChi2.apply(linv_rows, delta)
+
+
 def whitened_chi2_grad(linv: torch.Tensor, delta: torch.Tensor, g: torch.Tensor):
     """The backward of chi2 = ||Linv delta||^2: g[:, None] * 2 (delta Linv^T)
     Linv, from differentiable ops (the Hessian's double backward goes
-    through it)."""
-    return (2.0 * g)[:, None] * ((delta @ linv.T) @ linv)
+    through it). ``linv`` may be a row block's slab [rows, ld]: the
+    gradient is then 2 g (delta L_b^T) L_b, zero past column ld."""
+    ld = linv.shape[1]
+    if ld == delta.shape[1]:
+        return (2.0 * g)[:, None] * ((delta @ linv.T) @ linv)
+    part = (2.0 * g)[:, None] * ((delta[:, :ld] @ linv.T) @ linv)
+    return torch.nn.functional.pad(part, (0, delta.shape[1] - ld))
 
 
 class _WhitenedChi2(torch.autograd.Function):
-    """The kernel as the forward; ``whitened_chi2_grad`` as the backward."""
+    """The kernel (the square entry, or the row-block entry for a slab) as
+    the forward; ``whitened_chi2_grad`` as the backward."""
 
     @staticmethod
     def forward(ctx, linv, delta):
@@ -95,15 +167,20 @@ def _launch(linv: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"the CUDA kernel takes a contiguous {name}")
     w, n = delta.shape
+    rows, ld = linv.shape
     out = torch.empty(w, dtype=torch.float32, device=delta.device)
-    if w == 0 or n == 0:
+    if w == 0 or rows == 0:
         return out.zero_()
     from cosmax_torch.ops.kernels.build import load_kernel
 
-    fn = _entry(load_kernel("whitened_chi2").lib)
+    lib = load_kernel("whitened_chi2").lib
     with torch.cuda.device(delta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(linv.data_ptr(), delta.data_ptr(), out.data_ptr(), w, n, stream)
+        if rows == n:  # the square entry
+            err = _entry(lib)(linv.data_ptr(), delta.data_ptr(), out.data_ptr(), w, n, stream)
+        else:
+            err = _rows_entry(lib)(linv.data_ptr(), delta.data_ptr(), out.data_ptr(), w, n,
+                                   ld - rows, rows, stream)
     if err != 0:
         raise RuntimeError(f"whitened_chi2 kernel launch failed: cudaError {err}")
     global LAUNCHES
@@ -117,6 +194,17 @@ def _entry(lib: ctypes.CDLL):
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _rows_entry(lib: ctypes.CDLL):
+    fn = lib.cosmax_whitened_chi2_rows_f32
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn

@@ -18,6 +18,11 @@ format serves both samplers: a ``kind`` tag plus the state arrays.
 A checkpoint of the JAX package holds a threefry key (``key_data``)
 instead of a seed; the port's Philox generators cannot continue that
 stream, so such a file is refused.
+
+A sampler on a device mesh (``mesh=``) checkpoints the global state: rank
+0 gathers it and writes the file, the one writer, and every rank waits
+for the write; on resume every rank loads the file and takes its own
+block. A resumed sharded run equals the straight sharded run bit for bit.
 """
 
 import os
@@ -75,6 +80,22 @@ def _check_kind(z, path, expected):
 
 def _tensor(a, device):
     return torch.as_tensor(np.array(a), device=device)
+
+
+def _write(sampler, write):
+    """``write()`` on the one writer (rank 0 of a sampler's mesh; the
+    process itself without one); every rank waits for it."""
+    mesh = getattr(sampler, "mesh", None)
+    if mesh is None:
+        write()
+        return
+    import torch.distributed as dist
+
+    from cosmax_torch.parallel.mesh import barrier
+
+    if dist.get_rank() == 0:
+        write()
+    barrier(mesh)
 
 
 def save_state(path: str, state: ChainState, metadata: dict = None):
@@ -176,6 +197,7 @@ def run_with_checkpoints(sampler, seed: int, initial, n_steps: int, path: str,
         device = initial.device if isinstance(initial, torch.Tensor) else "cpu"
         state = load_state(path, device)
         _check_shape(path, state.walkers.shape, (sampler.n_walkers, sampler.ndim), "walker")
+        state = sampler.shard_state(state)
         start = state.step
         if start >= n_steps:
             return state, None, start
@@ -196,7 +218,8 @@ def run_with_checkpoints(sampler, seed: int, initial, n_steps: int, path: str,
         # checkpoint steps that appear in no returned chain
         seg = min(every, n_steps - done)
         state, chain = sampler.run_from_state(state, seg, thin=thin)
-        save_state(path, state)
+        full = sampler.gather_state(state)
+        _write(sampler, lambda: save_state(path, full))
         chains.append(chain)
         done += seg
     if not chains:
@@ -237,6 +260,7 @@ def run_hmc_with_checkpoints(sampler, seed: int, n_samples: int, path: str, ever
     if kind == "hmc":
         state, eps, im, done, meta = load_hmc_state(path, sampler.device)
         _check_shape(path, state.y.shape, (sampler.n_chains, sampler.ndim), "chain hmc")
+        state = sampler.shard_state(state)
         sampler.warmup_retries = int(meta.get("warmup_retries", 0))
         sampler.n_rejuvenated = int(meta.get("n_rejuvenated", 0))
         sampler.step_size, sampler.inv_mass = eps, im
@@ -261,14 +285,14 @@ def run_hmc_with_checkpoints(sampler, seed: int, n_samples: int, path: str, ever
                 raise ValueError("step_size/inv_mass are only honoured with n_warmup=0")
             state, eps, im = _warmup_checkpointed(sampler, seed, n_warmup, initial, path,
                                                   every)
-        save_hmc_state(path, state, eps, im, 0, _hmc_meta(sampler))
+        _save_hmc(sampler, path, state, eps, im, 0)
         start = done = 0
     chains = []
     while done < n_samples:
         seg = min(every, n_samples - done)
         state, chain = sampler.run_from_state(state, seg, eps, im)
         done += seg
-        save_hmc_state(path, state, eps, im, done, _hmc_meta(sampler))
+        _save_hmc(sampler, path, state, eps, im, done)
         chains.append(chain)
     if not chains:
         return state, None, start
@@ -286,6 +310,7 @@ def _warmup_checkpointed(sampler, seed, n_warmup, initial, path, every):
     if os.path.exists(path) and peek_kind(path) == "hmc_warmup":
         state, adapt, done, n_wu, meta = load_hmc_warmup_state(path, sampler.device)
         _check_shape(path, state.y.shape, (sampler.n_chains, sampler.ndim), "chain warmup")
+        state, adapt = sampler.shard_state(state), sampler.shard_adapt(adapt)
         if n_wu != n_warmup:
             raise ValueError(
                 f"checkpoint {path} is {done}/{n_wu} steps into a {n_wu}-step warmup "
@@ -302,8 +327,9 @@ def _warmup_checkpointed(sampler, seed, n_warmup, initial, path, every):
             stop = min(done + every, n_warmup)
             state, adapt = sampler._warmup_segment(state, adapt, done, stop, n_warmup)
             done = stop
-            save_hmc_warmup_state(path, state, adapt, done, n_warmup,
-                                  dict(warmup_retries=retries))
+            full, full_adapt = sampler.gather_state(state), sampler.gather_adapt(adapt)
+            _write(sampler, lambda: save_hmc_warmup_state(
+                path, full, full_adapt, done, n_warmup, dict(warmup_retries=retries)))
         fstate, eps, im, n_rejuv = sampler._finish_warmup(state, adapt)
         if n_rejuv <= 0.2 * sampler.n_chains or retries >= 2:
             break
@@ -317,6 +343,11 @@ def _warmup_checkpointed(sampler, seed, n_warmup, initial, path, every):
     sampler.step_size = eps.cpu().numpy()
     sampler.inv_mass = im.cpu().numpy()
     return fstate, eps, im
+
+
+def _save_hmc(sampler, path, state, eps, im, done):
+    full = sampler.gather_state(state)
+    _write(sampler, lambda: save_hmc_state(path, full, eps, im, done, _hmc_meta(sampler)))
 
 
 def _hmc_meta(sampler):

@@ -21,6 +21,20 @@ walkers and the draws), so the moves can be fed any draws, including
 the JAX package's. The random stream of step ``s`` of a run seeded with
 ``seed`` is keyed by (seed, s): a chain resumed from a state continues
 exactly as the uninterrupted run would. The loop over steps is Python.
+
+On a device mesh (``mesh=``, the counterpart of JAX's
+``vmapped_log_prob=``; ``cosmax_torch.parallel``) each rank holds its
+block of both halves (``ChainState`` is the rank's [W_local, D]). Before
+a half update the complementary half is gathered over the walker axes, so
+every move (the KDE's mean, bandwidth and density too) sees the whole
+half; each rank draws the whole batch's random numbers for the step and
+keeps its own rows. Each walker's arithmetic is then that of the
+unsharded chain, which a sharded run equals bit for bit wherever the
+log-prob and PyTorch's kernels compute a walker's values from its own row
+alone (on the CPU an elementwise kernel runs the last elements of a tensor,
+fewer than two vector widths, through a scalar path whose transcendentals
+may differ in the last bit: 32 walkers a rank a half avoid it). Recorded
+chains are gathered, so ``Chain`` is global either way.
 """
 
 import warnings
@@ -208,7 +222,13 @@ def _step_seeds(seed: int, step: int):
 
 class EnsembleSampler:
     """``EnsembleSampler(log_prob, n_walkers, ndim)`` where
-    ``log_prob(theta [W, D]) -> [W]``."""
+    ``log_prob(theta [W, D]) -> [W]``.
+
+    With ``mesh`` (a ``DeviceMesh`` of ``cosmax_torch.parallel``),
+    ``log_prob`` takes this rank's walkers [W_local, D] (e.g.
+    ``build_sharded_log_prob`` or ``sharded_batched_log_prob``), the state
+    is the rank's block of both halves and ``init_state`` takes the global
+    initial positions, which every rank holds."""
 
     def __init__(
         self,
@@ -216,9 +236,17 @@ class EnsembleSampler:
         n_walkers: int,
         ndim: int,
         moves: Sequence[MoveSpec] = None,
+        mesh=None,
     ):
         if n_walkers % 2 != 0:
             raise ValueError("n_walkers must be even (red-black halves)")
+        self.mesh = mesh
+        if mesh is not None:
+            from cosmax_torch.parallel.mesh import local_rows
+
+            # this rank's rows of each half, in the half's own numbering
+            (lo, hi), _ = local_rows(mesh, n_walkers, parts=2)
+            self._rows = (lo, hi)
         self.n_walkers = n_walkers
         self.ndim = ndim
         self.moves = tuple(moves) if moves is not None else default_moves()
@@ -253,13 +281,20 @@ class EnsembleSampler:
         return self._host_gen, dev
 
     def _half_update(self, gen, active, active_lp, comp, spec: MoveSpec):
-        nh, ndim = active.shape
+        """Update ``active`` (this rank's rows of a half) against the whole
+        complementary half ``comp``: the draws are the whole half's, each
+        rank keeping its own rows."""
+        nh, ndim = comp.shape[0], active.shape[1]
         draw, move = MOVES[spec.kind]
         draws = draw(gen, nh, comp.shape[0], ndim, active.dtype, active.device)
+        u = torch.rand(nh, generator=gen, dtype=active.dtype, device=active.device)
+        if self.mesh is not None:
+            lo, hi = self._rows
+            draws = {k: v[lo:hi] for k, v in draws.items()}
+            u = u[lo:hi]
         prop, logfac = move(active, comp, spec, **draws)
         prop_lp = self.log_prob(prop)
         log_ratio = logfac + prop_lp - active_lp
-        u = torch.rand(nh, generator=gen, dtype=active.dtype, device=active.device)
         accept = torch.log(u) < log_ratio
         new_active = torch.where(accept[:, None], prop, active)
         new_lp = torch.where(accept, prop_lp, active_lp)
@@ -270,26 +305,64 @@ class EnsembleSampler:
         host, gen = self._generators(state.seed, state.step, state.walkers.device)
         move_idx = int(torch.multinomial(self._move_probs, 1, generator=host))
         spec = self.moves[move_idx]
-        half = self.n_walkers // 2
+        half = state.walkers.shape[0] // 2
         w0, w1 = state.walkers[:half], state.walkers[half:]
         lp0, lp1 = state.log_probs[:half], state.log_probs[half:]
-        w0, lp0, acc0 = self._half_update(gen, w0, lp0, w1, spec)
-        w1, lp1, acc1 = self._half_update(gen, w1, lp1, w0, spec)
+        w0, lp0, acc0 = self._half_update(gen, w0, lp0, self._whole_half(w1), spec)
+        w1, lp1, acc1 = self._half_update(gen, w1, lp1, self._whole_half(w0), spec)
         new_state = ChainState(
             torch.cat([w0, w1]), torch.cat([lp0, lp1]), state.step + 1, state.seed
         )
         return new_state, torch.cat([acc0, acc1]), move_idx
+
+    def _whole_half(self, local_half):
+        """The whole half from every rank's rows of it (the half itself
+        without a mesh)."""
+        if self.mesh is None:
+            return local_half
+        from cosmax_torch.parallel.mesh import gather_walkers
+
+        return gather_walkers(self.mesh, local_half)
+
+    def shard_state(self, state: ChainState) -> ChainState:
+        """This rank's state from the global one (itself without a mesh)."""
+        if self.mesh is None:
+            return state
+        from cosmax_torch.parallel.mesh import shard_walkers
+
+        return state._replace(walkers=shard_walkers(self.mesh, state.walkers, parts=2),
+                              log_probs=shard_walkers(self.mesh, state.log_probs, parts=2))
+
+    def gather_state(self, state: ChainState) -> ChainState:
+        """The global state on every rank (itself without a mesh)."""
+        if self.mesh is None:
+            return state
+        return state._replace(walkers=self._gather(state.walkers),
+                              log_probs=self._gather(state.log_probs))
+
+    def _gather(self, local, dim=0):
+        """[..., W_local, ...] -> [..., W, ...] along ``dim``, in the
+        walkers' global order."""
+        from cosmax_torch.parallel.mesh import gather_walkers
+
+        x = local.movedim(dim, 0)
+        return gather_walkers(self.mesh, x, parts=2).movedim(0, dim)
 
     def init_state(self, initial: torch.Tensor, seed: int) -> ChainState:
         if initial.shape != (self.n_walkers, self.ndim):
             raise ValueError(
                 f"initial must be [{self.n_walkers}, {self.ndim}]; got {tuple(initial.shape)}"
             )
+        if self.mesh is not None:
+            from cosmax_torch.parallel.mesh import shard_walkers
+
+            initial = shard_walkers(self.mesh, initial, parts=2)
         return ChainState(initial, self.log_prob(initial), 0, int(seed))
 
     def run_from_state(self, state: ChainState, n_steps: int, thin: int = 1):
         """Advance ``n_steps`` steps, recording every ``thin``-th state
-        (the first of each block) -> (final state, Chain)."""
+        (the first of each block) -> (final state, Chain); on a mesh the
+        state is the rank's and the chain the gathered one."""
         recs = ([], [], [], [])
         for i in range(n_steps):
             state, acc, mv = self.step(state)
@@ -298,22 +371,26 @@ class EnsembleSampler:
                     r.append(v)
         device = state.walkers.device
         if not recs[0]:
-            empty = state.walkers.new_empty((0,) + tuple(state.walkers.shape))
+            empty = state.walkers.new_empty((0, self.n_walkers, self.ndim))
             return state, Chain(
                 empty,
                 state.log_probs.new_empty((0, self.n_walkers)),
                 torch.empty((0, self.n_walkers), dtype=torch.bool, device=device),
                 torch.empty((0,), dtype=torch.long, device=device),
             )
+        samples, log_probs, accepted = (torch.stack(r) for r in recs[:3])
+        if self.mesh is not None:
+            samples, log_probs, accepted = (self._gather(x, dim=1)
+                                            for x in (samples, log_probs, accepted))
         return state, Chain(
-            torch.stack(recs[0]),
-            torch.stack(recs[1]),
-            torch.stack(recs[2]),
+            samples,
+            log_probs,
+            accepted,
             torch.tensor(recs[3], dtype=torch.long, device=device),
         )
 
     def run(self, initial: torch.Tensor, n_steps: int, seed: int, thin: int = 1):
-        """Run ``n_steps`` steps from ``initial`` [W, D]."""
+        """Run ``n_steps`` steps from ``initial`` [W, D] (global)."""
         return self.run_from_state(self.init_state(initial, seed), n_steps, thin)
 
 

@@ -21,6 +21,14 @@ measured worse in the reference and is not offered.
 
 Random numbers: each step's draws come from ``torch.Generator``s seeded
 by ``ensemble._step_seeds(seed, step)``, as in ``samplers.hmc``.
+
+On a device mesh (``mesh=``, ``cosmax_torch.parallel``) the [K, C, D]
+ladder is split with its rungs over the walker axes and its chains over
+'d'. Rungs adapt independently; the per-rung acceptance mean and moments
+are taken over the chains gathered over 'd', and each rank draws the
+whole ladder's random numbers for a step and keeps its own block, so a
+sharded ladder equals the unsharded one bit for bit. The estimate is
+formed from the gathered ln L draws.
 """
 
 from typing import Callable, NamedTuple
@@ -89,8 +97,14 @@ class SteppingStone:
         schedule_gamma: float = 3.0,
         dtype=torch.float32,
         device="cpu",
+        mesh=None,
     ):
         self.dtype = dtype
+        self.mesh = mesh
+        if mesh is not None:
+            from cosmax_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = torch.device(device)
         self.n_rungs = int(n_rungs)
         self.n_chains = int(n_chains)
@@ -103,6 +117,41 @@ class SteppingStone:
         self._vg_x = value_and_grad
         self._host_gen = torch.Generator()
         self._dev_gen = torch.Generator(device=self.device)
+        self._block = None  # this rank's (rungs, chains) slices of the ladder
+
+    def _set_block(self, n_rungs: int):
+        """This rank's rungs (of ``n_rungs``) and chains on a mesh."""
+        if self.mesh is None:
+            self._block = None
+            return
+        from cosmax_torch.parallel.mesh import _bounds, data_rank, walker_rank
+
+        ((k0, k1),) = _bounds(n_rungs, *walker_rank(self.mesh))
+        ((c0, c1),) = _bounds(self.n_chains, *data_rank(self.mesh))
+        self._block = (slice(k0, k1), slice(c0, c1))
+
+    def _local(self, x):
+        """This rank's block of a [K, C, ...] (or [K]) tensor of the ladder."""
+        if self._block is None:
+            return x
+        return x[self._block[0]] if x.dim() == 1 else x[self._block]
+
+    def _chains(self, x):
+        """[K_local, C, ...] from this rank's [K_local, C_local, ...]: the
+        chains gathered over 'd'."""
+        if self.mesh is None:
+            return x
+        from cosmax_torch.parallel.mesh import gather_data
+
+        return gather_data(self.mesh, x, dim=1)
+
+    def _ladder(self, x):
+        """[K, C, ...] of the whole ladder on every rank."""
+        if self.mesh is None:
+            return x
+        from cosmax_torch.parallel.mesh import gather_all
+
+        return gather_all(self.mesh, x)
 
     def _eval(self, y):
         """(ln L, d ln L/dy, log_jac, d log_jac/dy) at y [K, C, D], one
@@ -125,12 +174,14 @@ class SteppingStone:
         self._dev_gen.manual_seed(dev_seed)
         n_leap = self._draw_length(self._host_gen)
         k, c, d = st.y.shape
+        if self._block is not None:  # the whole ladder's draws
+            k, c = self._n_ladder_rungs, self.n_chains
         kw = dict(dtype=self.dtype, device=self.device)
         b = betas[:, None]  # [K, 1]
         e = eps[:, None, None]  # [K, 1, 1]
         im = inv_mass[:, None, :]  # [K, 1, D]
-        z = torch.randn((k, c, d), generator=self._dev_gen, **kw)
-        u = torch.rand((k, c), generator=self._dev_gen, **kw)
+        z = self._local(torch.randn((k, c, d), generator=self._dev_gen, **kw))
+        u = self._local(torch.rand((k, c), generator=self._dev_gen, **kw))
         p0 = z / torch.sqrt(im)
 
         def grad_post(gl, gj):
@@ -167,6 +218,11 @@ class SteppingStone:
         return new, accept, torch.clamp(torch.exp(log_ratio), max=1.0)
 
     def _run(self, st: _LadderState, betas, n_warmup: int, n_samples: int):
+        """Adapt and record from ``st`` (this rank's block) at ``betas``
+        [K], every rung's; returns (state, ln L draws [S, K, C], accepted
+        [S, K, C]), the draws of the whole ladder (``ladder`` sets this
+        rank's block)."""
+        betas = self._local(betas)
         kk, d = betas.shape[0], self.ndim
         kw = dict(dtype=self.dtype, device=self.device)
         # vectorized per-rung dual averaging + Welford
@@ -185,7 +241,7 @@ class SteppingStone:
         w2 = max(w1 + 1, int(0.75 * n_warmup))
         for i in range(n_warmup):
             st, _, accept_prob = self._step(st, betas, torch.exp(a["log_eps"]), a["inv_mass"])
-            am = torch.mean(accept_prob, dim=1)  # [K]
+            am = torch.mean(self._chains(accept_prob), dim=1)  # [K]
             t = i + 1.0
             eta_h = 1.0 / (t + _DA_T0)
             h_bar = (1.0 - eta_h) * a["h_bar"] + eta_h * (self.target_accept - am)
@@ -194,14 +250,15 @@ class SteppingStone:
             log_eps_bar = eta * log_eps + (1.0 - eta) * a["log_eps_bar"]
             a = dict(a, log_eps=log_eps, log_eps_bar=log_eps_bar, h_bar=h_bar)
             if w1 <= i < w2:
-                c = st.y.shape[1]
+                y = self._chains(st.y)
+                c = y.shape[1]
                 n = a["w_n"] + c
-                bm = torch.mean(st.y, dim=1)  # [K, D]
+                bm = torch.mean(y, dim=1)  # [K, D]
                 delta = bm - a["w_mean"]
                 a = dict(
                     a,
                     w_mean=a["w_mean"] + delta * (c / n),
-                    w_m2=(a["w_m2"] + torch.sum((st.y - bm[:, None, :]) ** 2, dim=1)
+                    w_m2=(a["w_m2"] + torch.sum((y - bm[:, None, :]) ** 2, dim=1)
                           + delta**2 * (a["w_n"] * c / n)),
                     w_n=n,
                 )
@@ -223,7 +280,12 @@ class SteppingStone:
             st, accept, _ = self._step(st, betas, eps, a["inv_mass"])
             lls.append(st.log_like)
             accs.append(accept)
-        return st, torch.stack(lls), torch.stack(accs)
+        if not lls:
+            return st, st.log_like.new_empty((0,) + tuple(self._ladder(st.log_like).shape)), \
+                torch.empty((0,), dtype=torch.bool)
+        lls, accs = (self._ladder(torch.stack(x).movedim(0, 2)).movedim(2, 0)
+                     for x in (lls, accs))
+        return st, lls, accs
 
     def run(self, seed: int, n_warmup: int = 300, n_samples: int = 300,
             n_replicates: int = 1, until_stable: float = None, max_doublings: int = 4):
@@ -259,7 +321,10 @@ class SteppingStone:
         return res._replace(converged=converged, history=tuple(history),
                             n_warmup=n_warmup, n_samples=n_samples)
 
-    def _run_budget(self, seed: int, n_warmup: int, n_samples: int, n_replicates: int):
+    def ladder(self, seed: int, n_warmup: int, n_samples: int, n_replicates: int = 1):
+        """The tempered ladder's ln L draws: returns (lls [S, R K, C],
+        accepted [S, R K, C]) of the whole ladder on every rank, the rungs
+        beta_0..beta_{K-1} of each replicate stacked."""
         r = int(n_replicates)
         if r < 1:
             raise ValueError("n_replicates must be >= 1")
@@ -267,6 +332,8 @@ class SteppingStone:
         # the beta_K = 1 rung is not run
         kk = self.n_rungs
         betas_j = self.betas[:-1].repeat(r)  # [R K] stacked ladders
+        self._n_ladder_rungs = r * kk
+        self._set_block(r * kk)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_salted(seed, _SALT_PRIOR))
         # uniform prior draws for every (replicate, rung): warmup anneals
@@ -274,12 +341,17 @@ class SteppingStone:
         u = torch.rand((r * kk, self.n_chains, self.ndim), generator=gen, dtype=self.dtype,
                        device=self.device)
         tr = self.transform
-        y0 = tr.to_y(tr.lo + (0.02 + 0.96 * u) * tr.width)
+        y0 = tr.to_y(tr.lo + (0.02 + 0.96 * self._local(u)) * tr.width)
         ll0, gl0, lj0, gj0 = self._eval(y0)
-        if not bool(torch.all(torch.isfinite(ll0))):
+        if not bool(torch.all(torch.isfinite(self._ladder(ll0)))):
             raise ValueError("initial prior draws hit non-finite likelihood")
         st = _LadderState(y0, ll0, lj0, gl0, gj0, int(seed), 0)
-        st, lls, accs = self._run(st, betas_j, n_warmup, n_samples)
+        _, lls, accs = self._run(st, betas_j, n_warmup, n_samples)
+        return lls, accs
+
+    def _run_budget(self, seed: int, n_warmup: int, n_samples: int, n_replicates: int):
+        r, kk = int(n_replicates), self.n_rungs
+        lls, accs = self.ladder(seed, n_warmup, n_samples, r)
 
         # [S, R*K, C] -> [S, R, K, C]
         lls = lls.cpu().numpy().astype(np.float64)

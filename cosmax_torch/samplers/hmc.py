@@ -30,6 +30,19 @@ so the sampler is a pure function of its state and a resumed run
 continues the straight run's stream bit for bit. The rejuvenation's
 donor draws come from the same function of a salted seed. Torch's Philox
 is not JAX's threefry: the parity with the reference is statistical.
+
+On a device mesh (``mesh=``, ``cosmax_torch.parallel``) the chains are
+split over the walker axes: each rank holds its block of the state and
+draws the whole batch's random numbers for a step, keeping its own rows.
+The recording phase makes no cross-chain reduction. Warmup pools its
+statistics over all chains (the pooled mass estimate with its quartile
+cut, the rejuvenation's quartiles, best chain and donors) from the
+gathered population, the same on every rank, and a stuck chain takes its
+donor's state from whichever rank holds it. So a sharded run equals the
+unsharded one bit for bit, warmup included, wherever the potential and
+PyTorch's kernels compute a chain's values from its own row alone (see
+``samplers.ensemble``: 32 chains a rank on the CPU); recorded chains are
+gathered.
 """
 
 from typing import Callable, NamedTuple
@@ -143,6 +156,8 @@ class AdaptState(NamedTuple):
 
 
 _DA_GAMMA, _DA_T0, _DA_KAPPA = 0.05, 10.0, 0.75
+# the AdaptState fields held per chain (the rest are pooled)
+_PER_CHAIN = ("log_eps", "log_eps_bar", "h_bar", "mu")
 
 
 def _da_update(a: AdaptState, accept_stat, target):
@@ -211,11 +226,18 @@ class HMCSampler:
         dense_mass: bool = True,
         dtype=torch.float32,
         device="cpu",
+        mesh=None,
     ):
         self.dtype = dtype
+        self.mesh = mesh
+        self.n_chains = int(n_chains)
+        if mesh is not None:
+            from cosmax_torch.parallel.mesh import local_rows, mesh_device
+
+            device = mesh_device(mesh)
+            (self._rows,) = local_rows(mesh, self.n_chains)
         self.device = torch.device(device)
         self.dense_mass = bool(dense_mass)
-        self.n_chains = int(n_chains)
         self.ndim = int(np.asarray(bounds).shape[0])
         self.max_leapfrog = int(max_leapfrog)
         self.target_accept = float(target_accept)
@@ -234,6 +256,42 @@ class HMCSampler:
         tr = self.transform
         logp, gx = self._vg_x(tr.to_x(y))
         return logp + tr.log_jac(y), _finite(gx * tr.dx_dy(y) + tr.grad_log_jac(y))
+
+    # -- the chains of this rank (all of them without a mesh) -------------
+    def _local(self, x):
+        """This rank's rows of a per-chain [C, ...] tensor; a scalar as it is."""
+        if self.mesh is None or x.dim() == 0:
+            return x
+        return x[self._rows[0]:self._rows[1]]
+
+    def _all(self, *xs):
+        """Every chain's rows of per-chain tensors (one dtype), gathered
+        along dim 0 in one collective; one tensor for one argument."""
+        if self.mesh is not None:
+            from cosmax_torch.parallel.mesh import gather_walkers
+
+            c = xs[0].shape[0]
+            flat = gather_walkers(self.mesh, torch.cat([x.reshape(c, -1) for x in xs], dim=1))
+            sizes = [x[0].numel() if x.dim() > 1 else 1 for x in xs]
+            xs = tuple(part.reshape((-1,) + tuple(x.shape[1:]))
+                       for part, x in zip(torch.split(flat, sizes, dim=1), xs))
+        return xs[0] if len(xs) == 1 else xs
+
+    def shard_state(self, state: HMCState) -> HMCState:
+        """This rank's state from the global one (itself without a mesh)."""
+        return state._replace(y=self._local(state.y), logp=self._local(state.logp),
+                              grad=self._local(state.grad))
+
+    def gather_state(self, state: HMCState) -> HMCState:
+        """The global state on every rank (itself without a mesh)."""
+        y, logp, grad = self._all(state.y, state.logp, state.grad)
+        return state._replace(y=y, logp=logp, grad=grad)
+
+    def shard_adapt(self, adapt: AdaptState) -> AdaptState:
+        return adapt._replace(**{k: self._local(getattr(adapt, k)) for k in _PER_CHAIN})
+
+    def gather_adapt(self, adapt: AdaptState) -> AdaptState:
+        return adapt._replace(**{k: self._all(getattr(adapt, k)) for k in _PER_CHAIN})
 
     def _gens(self, seed: int, step: int):
         host_seed, dev_seed = _step_seeds(seed, step)
@@ -277,15 +335,15 @@ class HMCSampler:
         divergent [C]). ``z`` (momentum normals), ``u`` (accept
         uniforms) and ``n_leap`` override the step's own draws."""
         host, dev = self._gens(state.seed, state.step)
-        c, d = state.y.shape
+        c, d = self.n_chains, self.ndim
         kw = dict(dtype=self.dtype, device=self.device)
         # eps is a scalar (fixed-parameter runs) or per-chain [C]
         eps = torch.as_tensor(eps, **kw)
         if eps.dim() == 1:
             eps = eps[:, None]
         n_leap = self._draw_length(host) if n_leap is None else n_leap
-        z = torch.randn((c, d), generator=dev, **kw) if z is None else z
-        u = torch.rand((c,), generator=dev, **kw) if u is None else u
+        z = self._local(torch.randn((c, d), generator=dev, **kw)) if z is None else z
+        u = self._local(torch.rand((c,), generator=dev, **kw)) if u is None else u
         p0 = self._momentum(z, inv_mass)
 
         # the final leapfrog's value-and-grad call IS the evaluation at y1
@@ -320,8 +378,11 @@ class HMCSampler:
 
     # -- warmup ----------------------------------------------------------
     def init_adapt_state(self) -> AdaptState:
-        """Fresh adaptation state (the start-of-warmup carry)."""
+        """Fresh adaptation state (the start-of-warmup carry), per chain
+        for this rank's chains."""
         c, d = self.n_chains, self.ndim
+        if self.mesh is not None:
+            c = self._rows[1] - self._rows[0]
         kw = dict(dtype=self.dtype, device=self.device)
         log_eps0 = torch.full((c,), float(np.log(0.1)), **kw)
         return AdaptState(
@@ -375,7 +436,8 @@ class HMCSampler:
         st, _, accept_prob, _ = self._step(st, torch.exp(ad.log_eps), ad.inv_mass)
         ad = _da_update(ad, accept_prob, self.target_accept)
         if w1 <= i < mass_bnds[-1]:
-            ad = _welford_update(ad, st.y, self.dense_mass, st.logp)
+            y, logp = self._all(st.y, st.logp)
+            ad = _welford_update(ad, y, self.dense_mass, logp)
         if i in mass_bnds:
             ad = self._set_mass(ad)
             # pull escapees back before the next window's estimate
@@ -393,20 +455,23 @@ class HMCSampler:
     def _finish_warmup(self, state: HMCState, adapt: AdaptState):
         """Final rejuvenation: a resampled chain inherits its donor's
         adapted step size along with its position. Returns (state,
-        eps [C], inv_mass, n_rejuvenated)."""
+        eps [C] of every chain, inv_mass, n_rejuvenated)."""
         eps_bar = torch.exp(adapt.log_eps_bar)
         state, n_rejuvenated, (eps_bar,) = self._rejuvenate(state, extras=(eps_bar,))
-        return state, eps_bar, adapt.inv_mass, n_rejuvenated
+        return state, self._all(eps_bar), adapt.inv_mass, n_rejuvenated
 
     def _rejuvenate(self, state: HMCState, extras=()):
         """Replace chains stuck far below the bulk with copies of healthy
         chains: IQR outliers, and chains more than 10 + 5 D below the best
         (robust when the majority drifted out). ``extras`` are per-chain
         [C] tensors permuted the same way. Returns ``(state, n_bad,
-        new_extras)``; ``n_bad`` an int (a host sync, once a window)."""
+        new_extras)``; ``n_bad`` an int (a host sync, once a window). On a
+        mesh the population is gathered first, the donors drawn over all
+        of it on every rank, and each rank keeps its own rows."""
         gen = self._dev_gen
         gen.manual_seed(_step_seeds(_salted(state.seed, _SALT_REJUV), state.step)[1])
-        lp = state.logp
+        y_all, lp, grad_all, *extras_all = self._all(state.y, state.logp, state.grad, *extras)
+        full = state._replace(y=y_all, logp=lp, grad=grad_all)
         q25 = torch.quantile(lp, 0.25)
         q75 = torch.quantile(lp, 0.75)
         gap = 10.0 + 5.0 * state.y.shape[1]
@@ -416,25 +481,32 @@ class HMCSampler:
             # no chain to replace, or no donor: the state stays
             return state, n_bad, tuple(extras)
         healthy = (~bad).to(torch.float64)
-        donors = torch.multinomial(healthy, lp.shape[0], replacement=True, generator=gen)
+        donors = self._local(
+            torch.multinomial(healthy, lp.shape[0], replacement=True, generator=gen))
+        bad = self._local(bad)
         sel = bad[:, None]
         state = HMCState(
-            y=torch.where(sel, state.y[donors], state.y),
-            logp=torch.where(bad, lp[donors], lp),
-            grad=torch.where(sel, state.grad[donors], state.grad),
+            y=torch.where(sel, full.y[donors], state.y),
+            logp=torch.where(bad, lp[donors], state.logp),
+            grad=torch.where(sel, full.grad[donors], state.grad),
             seed=state.seed,
             step=state.step,
         )
-        return state, n_bad, tuple(torch.where(bad, e[donors], e) for e in extras)
+        return state, n_bad, tuple(torch.where(bad, ea[donors], e)
+                                   for e, ea in zip(extras, extras_all))
 
     # -- full run --------------------------------------------------------
     def init_state(self, seed: int, initial_x) -> HMCState:
-        y = self.transform.to_y(torch.as_tensor(initial_x, device=self.device).to(self.dtype))
+        """The state at ``initial_x`` [C, D] (every chain's; on a mesh this
+        rank keeps its own rows)."""
+        x = self._local(torch.as_tensor(initial_x, device=self.device).to(self.dtype))
+        y = self.transform.to_y(x)
         logp, grad = self._value_and_grad(y)
         return HMCState(y, logp, grad, int(seed), 0)
 
     def _sample(self, state: HMCState, n_samples: int, eps, inv_mass):
-        """Post-warmup recording phase at fixed parameters."""
+        """Post-warmup recording phase at fixed parameters (``eps`` this
+        rank's chains'); the chain is gathered on a mesh."""
         xs, lps, accs, divs = [], [], [], []
         for _ in range(n_samples):
             state, accept, _, divergent = self._step(state, eps, inv_mass)
@@ -451,8 +523,10 @@ class HMCSampler:
                 torch.empty((0, c), dtype=torch.bool, **kw),
                 torch.empty((0, c), dtype=torch.bool, **kw),
             )
-        return state, HMCChain(torch.stack(xs), torch.stack(lps), torch.stack(accs),
-                               torch.stack(divs))
+        parts = (torch.stack(xs), torch.stack(lps), torch.stack(accs), torch.stack(divs))
+        if self.mesh is not None:
+            parts = (self._all(x.movedim(1, 0)).movedim(0, 1) for x in parts)
+        return state, HMCChain(*parts)
 
     def prepare_state(self, seed: int, initial=None) -> HMCState:
         """Initial sampler state from ``initial`` [C, D] in constrained
@@ -465,7 +539,7 @@ class HMCSampler:
                             device=self.device)
             initial = tr.lo + 0.5 * tr.width + 0.1 * tr.width * z
         state = self.init_state(seed, initial)
-        if not bool(torch.all(torch.isfinite(state.logp))):
+        if not bool(torch.all(torch.isfinite(self._all(state.logp)))):
             raise ValueError("initial positions have non-finite log-prob")
         return state
 
@@ -498,12 +572,13 @@ class HMCSampler:
 
     def run_from_state(self, state: HMCState, n_samples: int, step_size, inv_mass):
         """Record ``n_samples`` draws from a prepared/checkpointed state at
-        fixed sampler parameters. Pure in ``state``: two segments back to
-        back equal one combined segment bit for bit."""
+        fixed sampler parameters (``step_size`` a scalar or every chain's
+        [C]). Pure in ``state``: two segments back to back equal one
+        combined segment bit for bit."""
         kw = dict(device=self.device)
         eps = torch.as_tensor(step_size, **kw).to(self.dtype)
         im = torch.as_tensor(inv_mass, **kw).to(self.dtype)
-        return self._sample(state, n_samples, eps, im)
+        return self._sample(state, n_samples, self._local(eps), im)
 
     def run(self, seed: int, n_samples: int, n_warmup: int = 500, initial=None,
             step_size: float = None, inv_mass=None):
@@ -530,4 +605,4 @@ class HMCSampler:
             state, eps, im = self._warmup_with_retries(state, n_warmup)
         self.step_size = eps.cpu().numpy()  # scalar if fixed, [C] after warmup
         self.inv_mass = im.cpu().numpy()
-        return self._sample(state, n_samples, eps, im)
+        return self._sample(state, n_samples, self._local(eps), im)

@@ -19,8 +19,10 @@ in the order given and then in reverse, so that ``parent change change
 parent`` spreads the card's drift over both. Each ``--variant
 NAME=VALUE`` also builds the first tree's source with the line ``constexpr
 int NAME = ...;`` set to VALUE (e.g. ``STAGES=4``) and times it with the
-trees. Prints one line per N with the card's name and power limit, and
-writes the rows as JSON to ``--out``.
+trees. With ``--bitwise`` every tree's chi^2 must equal the first tree's
+bit for bit (a change that must not move the square entry's arithmetic).
+Prints one line per N with the card's name and power limit, and writes the
+rows as JSON to ``--out``.
 """
 
 import argparse
@@ -67,6 +69,8 @@ def main(argv=None):
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--walkers", type=int, default=65536)
+    ap.add_argument("--bitwise", action="store_true",
+                    help="hold every tree's chi^2 equal to the first tree's bit for bit")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chi2_ab.json"))
     args = ap.parse_args(argv)
 
@@ -101,21 +105,26 @@ def main(argv=None):
         linv = torch.as_tensor(np.ascontiguousarray(sn.linv), device="cuda").float()
         want = whitened_chi2_reference(linv.double(), delta.double())
         times = {i: [] for i in order}
-        errs = {}
+        errs, outs = {}, {}
         for pass_order in (order, order[::-1]):
             for i in pass_order:
                 fn = lambda: cs._chi2_variant(libs[i], linv, delta)  # noqa: E731
                 got = fn()
                 torch.cuda.synchronize()
+                outs[i] = got
+                if args.bitwise and 0 in outs and not torch.equal(got, outs[0]):
+                    raise AssertionError(f"{labels[i]} at N = {n} differs from {labels[0]}'s "
+                                         "chi^2 bit for bit")
                 errs[i] = float(((got.double() - want).abs() / want.abs()).max())
                 if not errs[i] <= cs.RTOL_CHI2_F64:
                     raise AssertionError(f"{labels[i]} at N = {n}: max rel err {errs[i]:.3e}")
                 times[i].append(cs._median_ms(fn))
-        row = dict(n=n, dataset=ds, walkers=w, card=card,
+        row = dict(n=n, dataset=ds, walkers=w, card=card, bitwise=bool(args.bitwise),
                    trees={f"{labels[i]}#{i}": dict(ms=times[i], max_rel_err_f64=errs[i])
                           for i in order})
         rows.append(row)
-        print(f"chi2_ab N={n} ({ds}, W={w}) on {card}: " + "; ".join(
+        print(f"chi2_ab N={n} ({ds}, W={w}) on {card}"
+              + (" (every tree bit for bit the first's)" if args.bitwise else "") + ": " + "; ".join(
             f"{labels[i]} {' / '.join(f'{t:.4f}' for t in times[i])} ms (err {errs[i]:.3e})"
             for i in order), flush=True)
         del delta, linv, want
