@@ -252,6 +252,27 @@ raising on failure (non-zero exit):
    against world size 1 (the parity log-prob and the chains' log-probs
    within 1e-6 of max|logp|, the chain's walkers and the fast calls bit
    for bit).
+19. the outer layers (``phase_outer``): (a) the GP reconstruction of
+   H(z) (``cosmax_torch.gp.reconstruct_hz``, 5,000 Adam steps in float32)
+   against the published lengthscale 2.366 +- 0.05, noise_scale 0.489 +-
+   0.03, H0 67.5 +- 2 (2 < sigma < 8), q(0) < 0 < q(z_max), and against the
+   port's f64 CPU run at the same steps (H mean and sigma on the grid
+   within 1e-3 relative), with its seconds and Adam steps a second; (b) the
+   quintessence field ``reconstruct(0.307, -0.833)`` against the f64 CPU
+   within 1e-4 of each array's max|value|; (c) the emcee facade
+   (``cosmax_torch.compat``) over the fast flagship's ``fit.log_prob()``,
+   64 walkers x 200 steps: a finite chain, acceptance in (0, 1), at least
+   two fused launches a step, the same seed twice bit for bit, an
+   ``NpzBackend`` run stopped after 100 steps and resumed equal to the
+   straight run bit for bit; (d) ``fit.main --out`` on the fast flagship
+   (64 x 20, --no-plots: the summary's derived and residual blocks, fused
+   launches) and on ``sn.pantheon`` parity (150 x 20: the HTML Hubble
+   diagram with --no-plots, chi^2 kernel launches; again with the figures
+   where matplotlib is installed, whose presence is printed); (e)
+   ``tools/torch_profile_terms.py`` on the fast flagship at 65,536 walkers
+   and the parity flagship at 4,096 (each term's ms, both kernels'
+   launches); (f) ``timed_evals`` of ``fit.log_prob()`` against CUDA events
+   over the same calls (within 10%) and a ``profile_trace`` file.
 
 Phases 13, 16 and 17 were cut for phase 18's time: ``fs8.fs8``,
 ``cc.cc_union3`` and ``cc.cc_des5y`` in w0wacdm left phase 13 (fs8.fs8's
@@ -347,6 +368,13 @@ CHI2_ROWS_PLANTED = {
 # (the fast flagships), and the pair's time limit
 DRYRUN_PAIR_TIMEOUT = 400
 RAGGED = BENCH_WALKERS + 37  # a last block of 37 walkers
+# phase 19: the GP's Adam steps (the reference's 5,000), its float32 card run
+# against the port's f64 CPU run (H mean and sigma, relative, each grid
+# point), the field against f64 (of each array's max|value|), the facade,
+# and the back-to-back calls of the profiler trace
+GP_STEPS, GP_RTOL, FIELD_RTOL = 5000, 1e-3, 1e-4
+FACADE_WALKERS, FACADE_STEPS = 64, 200
+TRACE_CALLS = 20
 # phase 14: the BAO family, and the fused kernel's #1e branches, each on one
 # preset that needs it, in the four models: (label, preset, its options)
 BAO_FAMILY = ("bao.sdss", "bao.desi_omh2", "bao.desi_bbn", "bao.desi_bbn_theta_star",
@@ -2544,7 +2572,7 @@ GRAD_RTOL = 1e-3
 GRAD_PRESETS = (("bao.desi_cmb_des5y", "wzcdm", False), ("bao.desi_cmb_des5y", "wzcdm", True),
                 ("bao.desi_cmb_des5y", "w0wacdm", True), ("joint.multiprobe", "wzcdm", True),
                 ("qsr.desi", "w0wacdm", True))
-HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 512, 150, 100, 16
+HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 512, 100, 60, 16
 # BASELINE.md's published rows: (median, sigma)
 BAO_DESI_PUBLISHED = {"h": (0.690, 0.005), "Om": (0.298, 0.0085)}
 FLAGSHIP_PUBLISHED = {"rd": (148.08, 0.50), "H0": (68.01, 0.40), "Om": (0.3079, 0.0054)}
@@ -3151,6 +3179,251 @@ def phase_dryrun(card):
                 against_world_1=checks, offset_bitwise=offsets)
 
 
+def _tool(name):
+    """The module of ``tools/<name>.py`` (tools/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_outer(card):
+    """Phase 19: the outer layers (ROADMAP items 13 and 14) on the card.
+    (a) the GP reconstruction of H(z) at its 5,000 Adam steps against the
+    published hyperparameters and H0 (tests/test_gp.py) and against the
+    port's f64 CPU run at the same steps (H(z) mean and sigma on the grid
+    within GP_RTOL); (b) the quintessence field against the f64 CPU within
+    FIELD_RTOL of each array's max|value|; (c) the emcee facade over the
+    fast flagship's ``fit.log_prob()`` (64 walkers x 200 steps: a finite
+    chain, acceptance in (0, 1), at least two fused launches a step; the
+    same seed twice bit for bit; an ``NpzBackend`` run stopped after 100
+    steps and resumed, bit for bit against the straight run); (d)
+    ``fit.main --out``: the fast flagship with --no-plots (summary with the
+    derived and residual blocks, fused launches) and ``sn.pantheon`` parity
+    (the HTML Hubble diagram, chi^2 kernel launches), and with the figures
+    where matplotlib is installed; (e) ``tools/torch_profile_terms.py`` on
+    the fast flagship at 65,536 walkers and the parity flagship at 4,096;
+    (f) ``timed_evals`` against CUDA events over the same calls, and a
+    profiler trace written."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from cosmax_torch import fit as fit_cli
+    from cosmax_torch.compat import EnsembleSampler as Facade
+    from cosmax_torch.compat import NpzBackend
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.data import load_cc
+    from cosmax_torch.gp import reconstruct_hz
+    from cosmax_torch.models.scalar_field import reconstruct
+    from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
+    from cosmax_torch.utils.debugging import profile_trace, timed_evals
+
+    out, t_phase = {}, time.perf_counter()
+
+    # (a) the GP on the card (float32) and on the CPU (float64)
+    ds = load_cc()
+    times = {}
+    runs = {}
+    for label, kw in (("card", dict(device="cuda")),
+                      ("cpu_f64", dict(device="cpu", dtype=torch.float64))):
+        t0 = time.perf_counter()
+        runs[label] = reconstruct_hz(ds.z, ds.values, ds.cov, iters=GP_STEPS, **kw)
+        times[label] = time.perf_counter() - t0
+    gp, ref = runs["card"], runs["cpu_f64"]
+    info = gp["info"]
+    gaps = {k: float(np.max(np.abs(gp[k] - ref[k]) / np.abs(ref[k]))) for k in ("h_mean", "h_std")}
+    h0, sig = float(gp["h_mean"][0]), float(gp["h_std"][0])
+    q, zg = gp["q"], gp["z_grid"]
+    print(f"phase 19: GP H(z) on {card}: {GP_STEPS} Adam steps in {times['card']:.2f}s "
+          f"({GP_STEPS / times['card']:.1f} steps/s; f64 CPU {times['cpu_f64']:.2f}s); "
+          f"lengthscale {info['lengthscale']:.4f}, noise_scale {info['noise_scale']:.4f}, "
+          f"H0 {h0:.2f} +- {sig:.2f}, q(0) {q[0]:.3f}, q(z_max) {q[-1]:.3f}; against f64 CPU: "
+          f"H mean {gaps['h_mean']:.3e}, sigma {gaps['h_std']:.3e} (limit {GP_RTOL:g})")
+    if not (abs(info["lengthscale"] - 2.366) <= 0.05 and abs(info["noise_scale"] - 0.489) <= 0.03
+            and abs(h0 - 67.5) <= 2.0 and 2.0 < sig < 8.0 and q[0] < 0 and q[zg > 1.5][-1] > 0):
+        raise AssertionError("phase 19: the GP misses the published hyperparameters or H0")
+    if max(gaps.values()) > GP_RTOL:
+        raise AssertionError(f"phase 19: the card's GP against the f64 CPU: {gaps}")
+    out["gp"] = dict(seconds=times["card"], steps_per_s=GP_STEPS / times["card"],
+                     cpu_f64_seconds=times["cpu_f64"], lengthscale=info["lengthscale"],
+                     noise_scale=info["noise_scale"], H0=h0, H0_sigma=sig,
+                     against_cpu_f64=gaps)
+
+    # (b) the quintessence field
+    t0 = time.perf_counter()
+    got = reconstruct(0.307, -0.833, device="cuda")
+    field_s = time.perf_counter() - t0
+    want = reconstruct(0.307, -0.833, device="cpu", dtype=torch.float64)
+    fgap = {k: float(np.max(np.abs(got[k] - want[k])) / max(np.max(np.abs(want[k])), 1e-300))
+            for k in want}
+    print(f"phase 19: field reconstruct(0.307, -0.833) on {card} in {field_s:.3f}s; against f64 "
+          f"CPU (of each array's max|value|, limit {FIELD_RTOL:g}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fgap.items()))
+    if max(fgap.values()) > FIELD_RTOL:
+        raise AssertionError(f"phase 19: the field on the card against f64 CPU: {fgap}")
+    out["field"] = dict(seconds=field_s, against_cpu_f64=fgap)
+
+    # (c) the emcee facade over the fast flagship's batched log-prob
+    fit = get_preset("bao.desi_cmb_des5y", "wzcdm", fast=True, device="cuda")
+    lp = fit.log_prob()
+    p0 = _flagship_walkers(fit, FACADE_WALKERS, seed=19)
+
+    def facade(backend=None):
+        return Facade(FACADE_WALKERS, fit.spec.dim, lp, vmapped_log_prob=lp, seed=19,
+                      backend=backend, device=fit.device)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    first = facade()
+    first.run_mcmc(p0, FACADE_STEPS)
+    torch.cuda.synchronize()
+    facade_s = time.perf_counter() - t0
+    compat_launches = fused_log_prob.LAUNCHES
+    compat_chi2_launches = whitened_chi2.LAUNCHES
+    chain, acc = first.get_chain(), float(first.acceptance_fraction.mean())
+    again = facade()
+    again.run_mcmc(p0, FACADE_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chain.npz")
+        facade(NpzBackend(path)).run_mcmc(p0, FACADE_STEPS // 2)
+        resumed = facade(NpzBackend(path))  # a new process would do the same
+        resumed.run_mcmc(None, FACADE_STEPS - FACADE_STEPS // 2)
+        resumed_chain = resumed.get_chain()
+    same = bool(np.array_equal(chain, again.get_chain())
+                and np.array_equal(first.get_log_prob(), again.get_log_prob()))
+    resume_ok = bool(np.array_equal(chain, resumed_chain)
+                     and np.array_equal(first.get_log_prob(), resumed.get_log_prob()))
+    print(f"phase 19: emcee facade over fit.log_prob() (fast flagship wzcdm) on {card}: "
+          f"{FACADE_WALKERS} walkers x {FACADE_STEPS} steps in {facade_s:.2f}s "
+          f"({FACADE_STEPS / facade_s:.1f} steps/s), acceptance {acc:.3f}, {compat_launches} fused "
+          f"launches ({compat_launches / FACADE_STEPS:.2f} a step), {compat_chi2_launches} chi2 "
+          f"launches; same seed twice bit for bit: "
+          f"{same}; NpzBackend stopped at {FACADE_STEPS // 2} and resumed = straight, bit for "
+          f"bit: {resume_ok}")
+    if not (np.all(np.isfinite(chain)) and chain.shape == (FACADE_STEPS, FACADE_WALKERS,
+                                                            fit.spec.dim) and 0.0 < acc < 1.0):
+        raise AssertionError(f"phase 19: facade chain {chain.shape}, acceptance {acc}")
+    if compat_launches < 2 * FACADE_STEPS or not same or not resume_ok:
+        raise AssertionError(f"phase 19: facade launches {compat_launches}, same seed {same}, "
+                             f"resume {resume_ok}")
+    out["compat"] = dict(seconds=facade_s, steps_per_s=FACADE_STEPS / facade_s, acceptance=acc,
+                         launches=compat_launches, chi2_launches=compat_chi2_launches,
+                         bitwise_rerun=same, bitwise_resume=resume_ok)
+
+    # (d) fit --out
+    try:
+        import matplotlib
+
+        mpl = matplotlib.__version__
+    except ImportError:
+        mpl = None
+    print(f"phase 19: matplotlib on this machine: {mpl or 'not installed'}")
+    fit_out = {}
+    runs = [("fast flagship", ["--preset", "bao.desi_cmb_des5y", "--fast", "--walkers", "64"],
+             fused_log_prob, True),
+            ("sn.pantheon parity", ["--preset", "sn.pantheon", "--walkers", "150"],
+             whitened_chi2, True)]
+    if mpl is not None:
+        runs.append(("sn.pantheon parity, figures", ["--preset", "sn.pantheon", "--walkers",
+                                                     "150"], whitened_chi2, False))
+    for label, argv, kmod, no_plots in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            _reset_counts()
+            t0 = time.perf_counter()
+            rc = fit_cli.main([*argv, "--model", "wzcdm", "--steps", "20", "--seed", "0",
+                               "--out", tmp, *(["--no-plots"] if no_plots else [])])
+            wall = time.perf_counter() - t0
+            files = sorted(os.listdir(tmp))
+            with open(os.path.join(tmp, "summary.json")) as f:
+                summ = json.load(f)
+        n = kmod.LAUNCHES
+        print(f"phase 19: fit --out, {label}: rc {rc}, {wall:.2f}s, {n} "
+              f"{kmod.__name__.split('.')[-1]} launches; files {files}; derived "
+              f"{sorted(summ['derived'])}; residual_stats {summ['residual_stats']}")
+        want = {"summary.json", "chain.npy"}
+        if "pantheon" in label:
+            want.add("predictions_sn.html")
+        if not no_plots:
+            want |= {"corner.png", "trace.png", "predictions_sn.png"}
+        # the flagship derives Om h^2, z*, r_d...; sn.pantheon samples no H0
+        if rc != 0 or n == 0 or not want <= set(files) or "sn" not in summ["residual_stats"] \
+                or ("flagship" in label and not summ["derived"]):
+            raise AssertionError(f"phase 19: fit --out, {label}: rc {rc}, launches {n}, "
+                                 f"files {files}")
+        fit_out[label] = dict(launches=n, seconds=wall, files=files)
+    out["fit_out"] = fit_out
+
+    # (e) the per-term ablation tool, fast and parity
+    tool = _tool("torch_profile_terms")
+    prof = {}
+    for label, kw in (("fast", dict(walkers=BENCH_WALKERS, iters=200, fast=True, fit=fit)),
+                      ("parity", dict(walkers=4096, iters=5, fast=False))):
+        r = tool.profile_terms("bao.desi_cmb_des5y", "wzcdm", **kw)
+        print(f"phase 19: torch_profile_terms {label} flagship at {r['walkers']} walkers on "
+              f"{card} (median of {r['rounds']} rounds of {r['iters']} calls): full "
+              f"{r['full_ms']:.4f} ms; "
+              + ", ".join(f"{k} {share:+.4f} ms (rounds {r['spread'][k][0]:+.4f} to "
+                          f"{r['spread'][k][1]:+.4f}; without it {w:.4f})"
+                          for k, (w, share) in r["terms"].items())
+              + f"; launches {r['launches']}")
+        prof[label] = r
+    if prof["fast"]["launches"]["fused_log_prob"] == 0 or \
+            prof["parity"]["launches"]["whitened_chi2"] == 0:
+        raise AssertionError(f"phase 19: torch_profile_terms launched "
+                             f"{[p['launches'] for p in prof.values()]}")
+    out["profile_terms"] = prof
+
+    # (f) timed_evals against CUDA events over the same calls; a trace
+    theta = torch.as_tensor(_flagship_walkers(fit, BENCH_WALKERS), device=fit.device)
+    lp(theta)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rate, dt = timed_evals(lp, (theta,), iters=500, warmup=0)
+    stop.record()
+    stop.synchronize()
+    ev_s = start.elapsed_time(stop) / 1e3
+    gap = abs(dt - ev_s) / ev_s
+    # the trace holds TRACE_CALLS back-to-back calls: the device's busy
+    # share of their span says whether the host or the kernel paces them
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as p:
+            start.record()
+            for _ in range(TRACE_CALLS):
+                lp(theta)
+            stop.record()
+            stop.synchronize()
+        traces = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        ops = sorted(((getattr(e, "self_device_time_total", 0.0) or 0.0, e.count, e.key)
+                      for e in p.key_averages()), reverse=True)
+        dev_us = sum(t for t, _, _ in ops)
+    span_us = 1e3 * start.elapsed_time(stop)
+    top_ops = [dict(name=k[:60], calls=n, us=t) for t, n, k in ops[:3] if t > 0]
+    busy = (f"device time {dev_us:.1f} us of a {span_us:.1f} us span ({dev_us / span_us:.1%} "
+            f"busy, under the profiler); the most device time: {top_ops}" if dev_us > 0 else
+            "the profiler recorded no device time (not measured)")
+    print(f"phase 19: timed_evals of fit.log_prob() at {BENCH_WALKERS} walkers: {rate:.1f} "
+          f"calls/s over {dt:.4f}s, CUDA events {ev_s:.4f}s (gap {gap:.2%}, limit 10%); "
+          f"profile_trace wrote {len(traces)} trace file(s) of {TRACE_CALLS} calls: {busy}")
+    if gap > 0.10 or not traces:
+        raise AssertionError(f"phase 19: timed_evals {dt} s against events {ev_s} s; traces "
+                             f"{traces}")
+    out["debugging"] = dict(timed_evals_s=dt, events_s=ev_s, gap=gap, trace_files=len(traces),
+                            trace_calls=TRACE_CALLS, trace_device_us=dev_us, trace_span_us=span_us,
+                            trace_top_ops=top_ops)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['seconds']:.1f}s")
+    print("phase 19: " + json.dumps(
+        {k: out[k] for k in ("gp", "field", "compat", "profile_terms", "debugging")},
+        default=float))
+    return out
+
+
 def main():
     import torch
 
@@ -3236,7 +3509,9 @@ def main():
     rows = phase_rows(card, variants)
     dry = phase_dryrun(card)
     stamp("18")
-    print(f"phases 2-18 took {time.perf_counter() - t_start:.1f}s on {card}; by phase: "
+    outer = phase_outer(card)
+    stamp("19")
+    print(f"phases 2-19 took {time.perf_counter() - t_start:.1f}s on {card}; by phase: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in stamps.items()))
 
     print(json.dumps({"kernels": [
@@ -3251,7 +3526,11 @@ def main():
          "dryrun": {"nccl_world_1_launches": dry["nccl_world_1"]["launches"]["whitened_chi2"],
                     "gloo_world_2_launches": [r["whitened_chi2"]
                                               for r in dry["gloo_world_2"]["launches"]],
-                    "parity_vs_world_1": dry["against_world_1"]["parity flagship"]}},
+                    "parity_vs_world_1": dry["against_world_1"]["parity flagship"]},
+         "compat_launches": outer["compat"]["chi2_launches"],
+         "fit_out_launches": {k: v["launches"] for k, v in outer["fit_out"].items()
+                              if "pantheon" in k},
+         "profile_terms_launches": outer["profile_terms"]["parity"]["launches"]["whitened_chi2"]},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),
@@ -3265,7 +3544,12 @@ def main():
          "gradients": {k: v for k, v in grad.items() if k != "chi2_function"},
          "dryrun": dict(dry, nccl_world_1_launches=dry["nccl_world_1"]["launches"][
              "fused_log_prob"], gloo_world_2_launches=[
-             r["fused_log_prob"] for r in dry["gloo_world_2"]["launches"]])},
+             r["fused_log_prob"] for r in dry["gloo_world_2"]["launches"]]),
+         "compat_launches": outer["compat"]["launches"],
+         "fit_out_launches": outer["fit_out"]["fast flagship"]["launches"],
+         "profile_terms_launches": outer["profile_terms"]["fast"]["launches"]["fused_log_prob"],
+         "outer_layers": {k: outer[k] for k in ("gp", "field", "compat", "profile_terms",
+                                                "debugging")}},
     ]}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,9 +110,20 @@ class FitSpec:
         the per-term torch functions."""
         if self.fast:
             from cosmax_torch.ops.kernels.fused_log_prob import fused_log_prob, pack
+            from cosmax_torch.utils.debugging import nan_checks_enabled, raise_on_bad_rows
 
             packed = pack(self)
-            return lambda theta: fused_log_prob(packed, theta)
+
+            def log_prob(theta):
+                out = fused_log_prob(packed, theta)
+                if nan_checks_enabled():
+                    # the fused kernel sums every term in one launch: the
+                    # rows are what it can name
+                    raise_on_bad_rows(out, self.spec.in_bounds(theta),
+                                      f"the fused log-prob of {self.name}")
+                return out
+
+            return log_prob
         return make_log_prob(self.spec, self.terms, self.derive)
 
     def differentiable_log_prob(self):

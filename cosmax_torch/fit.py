@@ -28,10 +28,14 @@ Takes the flags of ``cosmax.fit`` plus ``--device`` (default ``cuda``).
 ``--sampler hmc`` runs the gradient sampler (MAP-jitter init, warmup
 ``--warmup``, default the burn-in; its gradients by autograd, the values
 on the fast path from the fused kernel); ``--checkpoint`` checkpoints
-and resumes either sampler. Plots are not ported yet: ``--out`` without
-``--no-plots`` raises and names the ROADMAP item. Prints the
-reference-style summary block; with ``--out`` and ``--no-plots`` writes
-summary.json and chain.npy.
+and resumes either sampler. Prints the reference-style summary block
+(with the derived parameters and the residual statistics). With
+``--out`` it writes summary.json, chain.npy and, for each SN term, the
+interactive Hubble diagram ``predictions_<term>.html`` (numpy only); and
+unless ``--no-plots``, corner.png, trace.png and ``predictions_<term>.png``
+for each SN, BAO and CC term, with matplotlib. Where matplotlib cannot be
+imported, ``--out`` without ``--no-plots`` fails before anything is built
+or sampled.
 """
 
 import argparse
@@ -39,8 +43,6 @@ import json
 import os
 import sys
 import time
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, item {})"
 
 
 def main(argv=None):
@@ -87,9 +89,11 @@ def main(argv=None):
     if not args.preset:
         p.error("--preset is required (or --list)")
     if args.out and not args.no_plots:
-        raise NotImplementedError(
-            "plots under --out " + _NOT_PORTED.format(13) + "; pass --no-plots"
-        )
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            p.error(f"--out without --no-plots draws its figures with matplotlib, which "
+                    f"cannot be imported here ({e}); pass --no-plots")
 
     import torch
 
@@ -182,16 +186,93 @@ def main(argv=None):
         summary["evals_per_sec"] = evals / dt
     summary["device"] = device_name
     print(format_summary(summary))
-
     if args.out:
-        import numpy as np
-
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "summary.json"), "w") as f:
-            json.dump(summary, f, indent=2, default=float)
-        np.save(os.path.join(args.out, "chain.npy"), chain.samples.cpu().numpy()[discard:])
-        print(f"# wrote {args.out}/summary.json, chain.npy")
+        _write_outputs(args, fit, chain, summary, discard)
     return 0
+
+
+def _write_outputs(args, fit, chain, summary, discard):
+    """summary.json, chain.npy, the SN terms' HTML Hubble diagrams and,
+    unless ``--no-plots``, the corner, trace and prediction figures."""
+    import numpy as np
+
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=float)
+    samples = chain.samples.cpu().numpy()
+    np.save(os.path.join(args.out, "chain.npy"), samples[discard:])
+    if not args.no_plots:
+        import matplotlib.pyplot as plt
+
+        from cosmax_torch.report import plots
+
+        names = list(fit.spec.names)
+        flat = samples[discard:].reshape(-1, samples.shape[-1])
+        for fig, name, dpi in ((plots.corner(flat, labels=names), "corner.png", 120),
+                               (plots.trace(samples, labels=names), "trace.png", 100)):
+            fig.savefig(os.path.join(args.out, name), dpi=dpi)
+            plt.close(fig)
+    written = _predictions(fit, summary, args.out, plots=not args.no_plots)
+    print(f"# wrote {args.out}/summary.json, chain.npy"
+          + ("" if args.no_plots else ", corner.png, trace.png")
+          + "".join(f", {w}" for w in written))
+
+
+def _predictions(fit, summary, out_dir, plots=True):
+    """Per-probe predictions at the posterior median: each SN term's
+    interactive Hubble diagram (HTML, numpy only) and, with ``plots``,
+    each SN, BAO and CC term's prediction and residual figure (the
+    reference's plot_predictions / plot_bao_predictions /
+    plot_cc_predictions panels). The theory comes from the terms' hooks
+    on the fit's device. One panel's failure is printed and does not
+    stop the others or the finished fit. Returns the files written."""
+    import numpy as np
+
+    from cosmax_torch.report.html import hubble_diagram_html
+    from cosmax_torch.report.summary import at_medians, residual_theory
+
+    if plots:
+        from cosmax_torch.report import plots as figs
+    medians = np.array([summary["params"][n]["median"] for n in fit.spec.names])
+    p = at_medians(fit, medians)
+    written = []
+    for term in fit.terms:
+        kind = term.meta.get("plot_kind")
+        if kind not in ("sn", "bao", "cc") or (kind != "sn" and not plots):
+            continue
+        title = str(term.meta.get("legend", term.name))
+        z, values, errors = term.meta["z"], term.meta["values"], term.meta["errors"]
+        try:
+            if kind == "sn":
+                order = np.argsort(z)
+                theory = residual_theory(term, p)
+                # the interactive counterpart of the reference's
+                # CheckButtons error-bar toggle (sn/plotting.py:29-40)
+                name = f"predictions_{term.name}.html"
+                hubble_diagram_html(z, values, errors, z[order], theory[order],
+                                    os.path.join(out_dir, name), title=title)
+                written.append(name)
+                if not plots:
+                    continue
+                fig = figs.predictions_sn(z, values, errors, z[order], theory[order], title=title)
+            elif kind == "bao":
+                curve = term.meta["theory_curve"]
+                fig = figs.predictions_bao(
+                    z, values, errors, term.meta["quantity"],
+                    lambda zg, q: curve(p, zg, q)[0].detach().cpu().double().numpy(),
+                    title=title,
+                )
+            else:
+                zg = np.linspace(0.0, float(z.max()) * 1.05, 200)
+                h = term.meta["theory_curve"](p, zg)[0].detach().cpu().double().numpy()
+                fig = figs.predictions_cc(z, values, errors, zg, h, title=title)
+            name = f"predictions_{term.name}.png"
+            fig.savefig(os.path.join(out_dir, name), dpi=120)
+            figs.plt.close(fig)
+            written.append(name)
+        except Exception as e:  # one panel must never kill a finished fit
+            print(f"# prediction plot for {term.name} failed: {e}")
+    return written
 
 
 def _run_hmc(args, fit, n_chains, n_steps, burn_in, seed, on):
@@ -219,7 +300,7 @@ def _run_hmc(args, fit, n_chains, n_steps, burn_in, seed, on):
         initial = map_jitter_init(fit, gen, n_chains)
     except (ValueError, RuntimeError, np.linalg.LinAlgError) as e:
         print(f"# map init failed ({e}); falling back to uniform")
-        initial = uniform_init(gen, fit.spec.bounds, n_chains, fit.dtype).to(fit.device)
+        initial = uniform_init(gen, fit.spec.bounds, n_chains, fit.dtype, "cpu").to(fit.device)
     t0 = time.perf_counter()
     start = 0
     if args.checkpoint:

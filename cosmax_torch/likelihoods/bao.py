@@ -28,10 +28,11 @@ import torch
 from cosmax_torch.constants import C_KM_S
 from cosmax_torch.data.loaders import QTY_DH, QTY_DM, QTY_DV, CovDataset
 from cosmax_torch.interop import constants_from_numpy
-from cosmax_torch.likelihoods.base import Term
+from cosmax_torch.likelihoods.base import Term, grid_like
 from cosmax_torch.likelihoods.fastmode import fast_mode
 from cosmax_torch.models import recombination
 from cosmax_torch.models.distances import (
+    comoving_distance_gl,
     comoving_distance_trapz,
     hubble_distance,
     make_prefix_comoving_integral,
@@ -154,6 +155,7 @@ def build_bao_term(
         values=values,
         errors=np.sqrt(np.diag(dataset.cov)),
         quantity=qty,
+        theory_curve=_theory_curve(model, rd_fn),
     )
     if grid[0] == "emu":
         return _build_emulated_bao(dataset, model, rd_fn, device, dtype, name, meta)
@@ -209,6 +211,23 @@ def build_bao_term(
     return Term(
         name=name, chi2=chi2, elems_per_walker=elems, meta=dict(meta, constants=c),
     )
+
+
+def _theory_curve(model, rd_fn):
+    def theory_curve(p, z_grid, which):
+        """Smooth D_{V,M,H}/r_d curve for plotting and the residual
+        statistics (``which`` a quantity code): [W, len(z_grid)] at the
+        walkers of ``p``, on their device, by GL-64 per point."""
+        zg = grid_like(p, z_grid)
+        dh = hubble_distance(zg, p, model)
+        dm = comoving_distance_gl(zg, p, model, order=64)
+        table = {QTY_DV: volume_distance(zg, dh, dm), QTY_DM: dm, QTY_DH: dh}
+        rd = rd_fn(p)
+        if isinstance(rd, torch.Tensor) and rd.dim() > 0:
+            rd = rd[:, None]
+        return table[int(which)] / rd
+
+    return theory_curve
 
 
 def _build_emulated_bao(dataset, model, rd_fn, device, dtype, name, meta):

@@ -81,6 +81,13 @@ def _identity_derive(p: dict) -> dict:
     return p
 
 
+def grid_like(p: dict, z) -> torch.Tensor:
+    """The redshifts ``z`` as a tensor on the device and in the dtype of
+    the walker parameters ``p`` (a theory hook's evaluation grid)."""
+    ref = next(v for v in p.values() if isinstance(v, torch.Tensor))
+    return torch.as_tensor(np.asarray(z, dtype=np.float64), device=ref.device).to(ref.dtype)
+
+
 def walker_chunk(term: Term, dtype: torch.dtype) -> int:
     """Walkers per chunk so that no temporary of ``term`` exceeds
     ``TEMP_BYTES``."""
@@ -113,20 +120,28 @@ def make_log_prob(
 
     Out-of-box walkers are evaluated like any other (no early exit) and
     masked to -inf, with a NaN guard so that poisoned evaluations (E^2 < 0
-    gives NaN rows) also map to -inf. Each term runs over walker chunks
-    (see ``TEMP_BYTES``); every walker's value is computed from its own
-    row only, so chunking does not change it.
+    gives NaN rows) also map to -inf; with ``utils.debugging``'s NaN
+    checks on, a non-finite term on a walker inside the box raises and
+    names the term instead. Each term runs over walker chunks (see
+    ``TEMP_BYTES``); every walker's value is computed from its own row
+    only, so chunking does not change it.
     """
+    from cosmax_torch.utils.debugging import nan_checks_enabled, raise_on_bad_rows
 
     def log_prob(theta: torch.Tensor) -> torch.Tensor:
         if theta.dim() != 2 or theta.shape[1] != spec.dim:
             raise ValueError(f"theta must be [W, {spec.dim}]; got {tuple(theta.shape)}")
         n = theta.shape[0]
         p = derive(spec.unpack(theta))
+        inside = spec.in_bounds(theta)
+        checks = nan_checks_enabled()
         ll = torch.zeros(n, dtype=theta.dtype, device=theta.device)
         for t in terms:
-            ll = ll + chunked_log_like(t, p, n, theta.dtype)
-        ok = spec.in_bounds(theta) & torch.isfinite(ll)
+            term_ll = chunked_log_like(t, p, n, theta.dtype)
+            if checks:
+                raise_on_bad_rows(term_ll, inside, f"the log-likelihood of term {t.name!r}")
+            ll = ll + term_ll
+        ok = inside & torch.isfinite(ll)
         return torch.where(ok, ll, torch.full_like(ll, -torch.inf))
 
     return log_prob

@@ -24,7 +24,7 @@ import torch
 
 from cosmax_torch.data.loaders import CovDataset
 from cosmax_torch.interop import constants_from_numpy
-from cosmax_torch.likelihoods.base import Term
+from cosmax_torch.likelihoods.base import Term, grid_like
 from cosmax_torch.likelihoods.fastmode import fast_mode
 from cosmax_torch.models.background import e_of_z, expand_params, hubble
 from cosmax_torch.ops.linalg import chi2_from_whitener
@@ -47,8 +47,13 @@ def build_cc_term(
     n = dataset.n
     if convention not in ("divide", "multiply"):
         raise ValueError(convention)
+
+    def theory_curve(p, z_grid):
+        """H(z) [km/s/Mpc] on ``z_grid`` at the walkers of ``p``: [W, N]."""
+        return hubble(grid_like(p, z_grid), expand_params(p, 1), model)
+
     meta = dict(n=n, legend=dataset.legend, plot_kind="cc", z=z, values=h_obs,
-                errors=np.sqrt(np.diag(dataset.cov)))
+                errors=np.sqrt(np.diag(dataset.cov)), theory_curve=theory_curve)
 
     if fast_mode():
         from cosmax_torch.models.linear_chi2 import _hash_arrays, make_linear_chi2

@@ -190,8 +190,8 @@ def _sn_geometry(dataset, mag_param, h0, use_z_hel, cheb_order, cepheids):
 
     u_ref = linv @ d_prime - p_mat @ c_ref  # whitened residual at ref
     return dict(
-        z_nodes=z_nodes, p_mat=p_mat, h0_ref=h0_ref, i_ref=i_ref,
-        offset_ref=offset_ref, u_ref=u_ref,
+        z_nodes=z_nodes, b_tilde=b_tilde, p_mat=p_mat, const=const, h0_ref=h0_ref,
+        i_ref=i_ref, offset_ref=offset_ref, u_ref=u_ref,
     )
 
 
@@ -265,5 +265,29 @@ def _build_emulated_sn(
     return Term(
         name=name,
         chi2=chi2,
-        meta=dict(_sn_meta(dataset, "emulated"), linear_chi2=chi2, gamma=gamma),
+        meta=dict(_sn_meta(dataset, "emulated"), linear_chi2=chi2, gamma=gamma,
+                  theory_mag=_basis_theory_mag(geo, model, mag_param, h0, device, dtype)),
     )
+
+
+def _basis_theory_mag(geo, model, mag_param, h0, device, dtype):
+    """mu(p) [W, N] of the emulated path, off the hot path (plots and the
+    residual statistics): the compressed representation, 6-node GL panels
+    between the Chebyshev nodes and the basis expansion
+    const + B~ [g(z_k), mag]."""
+    from cosmax_torch.models.distances import make_prefix_comoving_integral
+
+    prefix_integral = make_prefix_comoving_integral(geo["z_nodes"], model, device, dtype, order=6)
+    c = constants_from_numpy(dict(b_tilde=geo["b_tilde"], const=geo["const"]), device, dtype)
+
+    def theory_mag(p):
+        integral = prefix_integral(p)
+        if h0 is None:
+            g = 5.0 * torch.log10(C_KM_S * integral)
+        else:
+            h0_val = p[h0][:, None] if isinstance(h0, str) else h0
+            g = 5.0 * torch.log10((C_KM_S / h0_val) * integral)
+        coef = torch.cat([g, p[mag_param][:, None]], dim=-1)
+        return c["const"] + coef @ c["b_tilde"].T
+
+    return theory_mag

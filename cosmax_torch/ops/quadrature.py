@@ -88,3 +88,19 @@ def interp_apply(fp: torch.Tensor, idx: torch.Tensor, t: torch.Tensor) -> torch.
     ``interp_weights``: two gathers and one FMA per point."""
     lo = fp[..., idx - 1]
     return lo + t * (fp[..., idx] - lo)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation of ``fp`` on the ascending grid ``xp`` at the
+    points ``x`` (1-D tensors), the torch counterpart of ``jnp.interp`` /
+    ``np.interp``: ``i = clip(searchsorted(xp, x, 'right'), 1, len-1)``,
+    an interval of zero width (|dx| at most the spacing of eps) takes its
+    left value, and points outside the grid clamp to its end values."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, xp.shape[0] - 1)
+    x0, f0 = xp[i - 1], fp[i - 1]
+    dx = xp[i] - x0
+    flat = torch.abs(dx) <= np.spacing(torch.finfo(xp.dtype).eps)
+    f = torch.where(flat, f0, f0 + ((x - x0) / torch.where(flat, torch.ones_like(dx), dx))
+                    * (fp[i] - f0))
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)

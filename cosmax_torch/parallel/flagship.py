@@ -27,7 +27,10 @@ def _sharded_terms(fit, mesh, big_n_threshold):
         values, theory_mag = term.meta["constants"]["values"], term.meta["theory_mag"]
         return replace(term, chi2=lambda p: chi2(values - theory_mag(p)))
 
-    big = [t for t in fit.terms if "theory_mag" in t.meta and t.meta["n"] > big_n_threshold]
+    # the dense SN terms (an emulated one has a theory_mag hook too, for
+    # plots, but no whitener)
+    big = [t for t in fit.terms if t.meta.get("method") == "dense" and "theory_mag" in t.meta
+           and t.meta["n"] > big_n_threshold]
     if not big:
         return None
     return [shard(t) if t in big else t for t in fit.terms]

@@ -30,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from cosmax_torch.device import resolve
 from cosmax_torch.samplers.ensemble import ChainState
 from cosmax_torch.samplers.hmc import AdaptState, HMCState, retry_seed
 from cosmax_torch.utils.io import atomic_savez
@@ -82,6 +83,7 @@ def _tensor(a, device):
     return torch.as_tensor(np.array(a), device=device)
 
 
+
 def _write(sampler, write):
     """``write()`` on the one writer (rank 0 of a sampler's mesh; the
     process itself without one); every rank waits for it."""
@@ -106,7 +108,10 @@ def save_state(path: str, state: ChainState, metadata: dict = None):
     )
 
 
-def load_state(path: str, device="cpu") -> ChainState:
+def load_state(path: str, device="cuda") -> ChainState:
+    """The ensemble state in ``path``, on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve(device)[0]
     with np.load(path) as z:
         _check_kind(z, path, "ensemble")
         return ChainState(
@@ -145,8 +150,10 @@ def save_hmc_state(path: str, state: HMCState, step_size, inv_mass, n_recorded: 
     )
 
 
-def load_hmc_state(path: str, device="cpu"):
-    """Returns ``(state, step_size, inv_mass, n_recorded, metadata)``."""
+def load_hmc_state(path: str, device="cuda"):
+    """Returns ``(state, step_size, inv_mass, n_recorded, metadata)``, the
+    state on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve(device)[0]
     with np.load(path) as z:
         _check_kind(z, path, "hmc")
         return (_hmc_state(z, device), np.array(z["step_size"]), np.array(z["inv_mass"]),
@@ -161,8 +168,10 @@ def save_hmc_warmup_state(path: str, state: HMCState, adapt: AdaptState, done: i
     _save_fields(path, "hmc_warmup", state.seed, fields, metadata)
 
 
-def load_hmc_warmup_state(path: str, device="cpu"):
-    """Returns ``(state, adapt, done, n_warmup, metadata)``."""
+def load_hmc_warmup_state(path: str, device="cuda"):
+    """Returns ``(state, adapt, done, n_warmup, metadata)`` on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve(device)[0]
     with np.load(path) as z:
         _check_kind(z, path, "hmc_warmup")
         adapt = AdaptState(**{k: _tensor(z[f"ad_{k}"], device) for k in AdaptState._fields})
@@ -189,13 +198,19 @@ def run_with_checkpoints(sampler, seed: int, initial, n_steps: int, path: str,
     already completed (callers offset burn-in discards by ``start_step //
     thin``). ``every`` is rounded up to a multiple of ``thin`` so the
     recorded stride equals a single uninterrupted thinned run's.
+    ``initial`` is a tensor on the sampler's device: a resumed state is
+    loaded onto that device.
     """
     if every < 1:
         raise ValueError(f"checkpoint interval must be >= 1 (got {every})")
+    if not isinstance(initial, torch.Tensor):
+        raise TypeError(
+            f"initial must be a tensor on the sampler's device (got {type(initial).__name__}): "
+            "its device is the one a resumed state is loaded onto"
+        )
     every = -(-every // thin) * thin
     if os.path.exists(path):
-        device = initial.device if isinstance(initial, torch.Tensor) else "cpu"
-        state = load_state(path, device)
+        state = load_state(path, initial.device)
         _check_shape(path, state.walkers.shape, (sampler.n_walkers, sampler.ndim), "walker")
         state = sampler.shard_state(state)
         start = state.step

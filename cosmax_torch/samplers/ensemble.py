@@ -394,8 +394,12 @@ class EnsembleSampler:
         return self.run_from_state(self.init_state(initial, seed), n_steps, thin)
 
 
-def uniform_init(gen: torch.Generator, bounds, n_walkers: int, dtype=torch.float32, device="cpu"):
-    """Uniform-in-bounds initial walker positions."""
+def uniform_init(gen: torch.Generator, bounds, n_walkers: int, dtype=None, device="cuda"):
+    """Uniform-in-bounds initial walker positions, drawn from ``gen`` on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    from cosmax_torch.device import resolve
+
+    device, dtype = resolve(device, dtype)
     bounds = np.asarray(bounds, dtype=np.float64)
     u = torch.rand((n_walkers, bounds.shape[0]), generator=gen, dtype=dtype, device=device)
     lo = torch.as_tensor(bounds[:, 0], device=device).to(dtype)

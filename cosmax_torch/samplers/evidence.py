@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from cosmax_torch.device import resolve
 from cosmax_torch.samplers.ensemble import _step_seeds
 from cosmax_torch.samplers.hmc import BoxTransform, _finite, _salted
 
@@ -95,25 +96,24 @@ class SteppingStone:
         max_leapfrog: int = 16,
         target_accept: float = 0.8,
         schedule_gamma: float = 3.0,
-        dtype=torch.float32,
-        device="cpu",
+        dtype=None,
+        device="cuda",
         mesh=None,
     ):
-        self.dtype = dtype
         self.mesh = mesh
         if mesh is not None:
             from cosmax_torch.parallel.mesh import mesh_device
 
             device = mesh_device(mesh)
-        self.device = torch.device(device)
+        self.device, self.dtype = resolve(device, dtype)
         self.n_rungs = int(n_rungs)
         self.n_chains = int(n_chains)
         self.ndim = int(np.asarray(bounds).shape[0])
         self.max_leapfrog = int(max_leapfrog)
         self.target_accept = float(target_accept)
-        self.transform = BoxTransform.from_bounds(bounds, dtype, self.device)
+        self.transform = BoxTransform.from_bounds(bounds, self.dtype, self.device)
         ks = np.arange(self.n_rungs + 1) / self.n_rungs
-        self.betas = torch.as_tensor(ks**schedule_gamma, device=self.device).to(dtype)
+        self.betas = torch.as_tensor(ks**schedule_gamma, device=self.device).to(self.dtype)
         self._vg_x = value_and_grad
         self._host_gen = torch.Generator()
         self._dev_gen = torch.Generator(device=self.device)

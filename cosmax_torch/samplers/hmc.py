@@ -50,6 +50,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from cosmax_torch.device import resolve
 from cosmax_torch.samplers.ensemble import _step_seeds
 
 # salts of the seeds of the draws that are not a step's own
@@ -104,7 +105,9 @@ class BoxTransform(NamedTuple):
     width: torch.Tensor
 
     @classmethod
-    def from_bounds(cls, bounds, dtype=torch.float32, device="cpu"):
+    def from_bounds(cls, bounds, dtype=None, device="cuda"):
+        """On the card unless ``device`` says otherwise (``resolve``)."""
+        device, dtype = resolve(device, dtype)
         b = np.asarray(bounds, dtype=np.float64)
         return cls(
             torch.as_tensor(b[:, 0], device=device).to(dtype),
@@ -224,11 +227,10 @@ class HMCSampler:
         max_leapfrog: int = 32,
         target_accept: float = 0.8,
         dense_mass: bool = True,
-        dtype=torch.float32,
-        device="cpu",
+        dtype=None,
+        device="cuda",
         mesh=None,
     ):
-        self.dtype = dtype
         self.mesh = mesh
         self.n_chains = int(n_chains)
         if mesh is not None:
@@ -236,14 +238,14 @@ class HMCSampler:
 
             device = mesh_device(mesh)
             (self._rows,) = local_rows(mesh, self.n_chains)
-        self.device = torch.device(device)
+        self.device, self.dtype = resolve(device, dtype)
         self.dense_mass = bool(dense_mass)
         self.ndim = int(np.asarray(bounds).shape[0])
         self.max_leapfrog = int(max_leapfrog)
         self.target_accept = float(target_accept)
         # reject (don't just count) trajectories with |dH| beyond this
         self.max_energy_error = 50.0
-        self.transform = BoxTransform.from_bounds(bounds, dtype, self.device)
+        self.transform = BoxTransform.from_bounds(bounds, self.dtype, self.device)
         self._vg_x = value_and_grad
         self._host_gen = torch.Generator()
         self._dev_gen = torch.Generator(device=self.device)

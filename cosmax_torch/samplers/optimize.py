@@ -16,6 +16,17 @@ the card).
 import numpy as np
 import torch
 
+from cosmax_torch.device import resolve
+
+
+def _placement(device, dtype):
+    """(device, dtype) of a point fit: the card unless the caller asks for
+    the CPU (``resolve`` raises where CUDA is absent); dtype float32 on the
+    card and, by default, float64 on the CPU."""
+    if dtype is None and torch.device(device).type == "cpu":
+        dtype = torch.float64
+    return resolve(device, dtype)
+
 
 def adam_minimize(loss_fn, x0, iters: int = 1000, lr: float = 1e-2):
     """``iters`` Adam steps on ``loss_fn(x [D]) -> scalar`` from ``x0``;
@@ -53,8 +64,8 @@ def minimize_chi2(
     iters: int = 100,
     lam0: float = 1e-3,
     tol: float = 1e-10,
-    device="cpu",
-    dtype=torch.float64,
+    device="cuda",
+    dtype=None,
 ):
     """Levenberg-damped Newton on a scalar chi^2.
 
@@ -63,6 +74,7 @@ def minimize_chi2(
     clipping. Returns (x_best, chi2_best, info). The trust-region
     damping loop runs on the host in f64.
     """
+    device, dtype = _placement(device, dtype)
 
     def at(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device).to(dtype)
@@ -143,13 +155,15 @@ def map_fit(fit, x0=None, **kwargs):
     return {name: float(v) for name, v in zip(fit.spec.names, x)}, f, info
 
 
-def laplace(log_prob_fn, x_map, device="cpu", dtype=torch.float64):
+def laplace(log_prob_fn, x_map, device="cuda", dtype=None):
     """Gaussian (Laplace/Fisher) approximation around a mode.
 
     ``log_prob_fn``: differentiable ``theta [D] -> scalar``. covariance =
     inverse Hessian of -log_prob at ``x_map`` (exact double backward, no
     finite differences). Returns ``(cov [D,D], sigma [D], corr [D,D])``.
+    ``device`` and ``dtype`` as for ``minimize_chi2``.
     """
+    device, dtype = _placement(device, dtype)
     x = torch.as_tensor(np.asarray(x_map, dtype=np.float64), device=device).to(dtype)
     _, h = _derivatives(lambda t: -log_prob_fn(t), x)
     h = np.asarray(h.cpu(), dtype=np.float64)

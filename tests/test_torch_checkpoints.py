@@ -54,7 +54,7 @@ def _sampler(n_walkers=32):
 
 
 def _hmc(n_chains=16, bounds=BOUNDS):
-    return HMCSampler(autograd_value_and_grad(gauss_lp), bounds, n_chains, max_leapfrog=8)
+    return HMCSampler(autograd_value_and_grad(gauss_lp), bounds, n_chains, max_leapfrog=8, device="cpu")
 
 
 def _eq(a, b):
@@ -66,7 +66,7 @@ def test_save_load_state_roundtrip(tmp_path):
     state, _ = s.run(torch.zeros((32, 2)), 10, seed=5)
     path = str(tmp_path / "ckpt.npz")
     save_state(path, state, metadata={"n_steps": 10})
-    loaded = load_state(path)
+    loaded = load_state(path, device="cpu")
     _eq(loaded.walkers, state.walkers)
     _eq(loaded.log_probs, state.log_probs)
     assert (loaded.seed, loaded.step) == (state.seed, 10)
@@ -152,7 +152,7 @@ def test_hmc_state_roundtrip(tmp_path):
     state, eps, im = s.warmup(3, 100)
     path = str(tmp_path / "h.npz")
     save_hmc_state(path, state, eps, im, 42, {"warmup_retries": 1})
-    loaded, eps2, im2, n_rec, meta = load_hmc_state(path)
+    loaded, eps2, im2, n_rec, meta = load_hmc_state(path, device="cpu")
     for a, b in zip(loaded[:3], state[:3]):  # y, logp, grad
         _eq(a, b)
     assert (loaded.seed, loaded.step) == (state.seed, state.step)
@@ -204,12 +204,12 @@ def test_checkpoint_kind_mismatch_rejected(tmp_path):
     path = str(tmp_path / "e.npz")
     save_state(path, state)
     with pytest.raises(ValueError, match="ensemble"):
-        load_hmc_state(path)
+        load_hmc_state(path, device="cpu")
     hstate, eps, im = _hmc().warmup(0, 50)
     hpath = str(tmp_path / "h.npz")
     save_hmc_state(hpath, hstate, eps, im, 0)
     with pytest.raises(ValueError, match="hmc"):
-        load_state(hpath)
+        load_state(hpath, device="cpu")
 
 
 def test_jax_checkpoint_refused(tmp_path):
@@ -220,9 +220,26 @@ def test_jax_checkpoint_refused(tmp_path):
     path = str(tmp_path / "jax.npz")
     jax_save_state(path, jstate)
     with pytest.raises(ValueError, match="threefry"):
-        load_state(path)
+        load_state(path, device="cpu")
     with pytest.raises(ValueError, match="threefry"):
         run_with_checkpoints(_sampler(16), 0, torch.zeros((16, 2)), 4, path, every=2)
+
+
+def test_numpy_initial_refused_fresh_and_on_resume(tmp_path):
+    """The device of a resumed state is the device of ``initial``: a numpy
+    ``initial`` has none, so it is refused, on a fresh run and on resume
+    alike, instead of loading the state onto a device the sampler may not
+    run on."""
+    path = str(tmp_path / "ck.npz")
+    init = np.zeros((16, 2), dtype=np.float32)
+    with pytest.raises(TypeError, match="tensor on the sampler's device"):
+        run_with_checkpoints(_sampler(16), 0, init, 8, path, every=4)
+    run_with_checkpoints(_sampler(16), 0, torch.as_tensor(init), 4, path, every=4)
+    with pytest.raises(TypeError, match="tensor on the sampler's device"):
+        run_with_checkpoints(_sampler(16), 0, init, 8, path, every=4)
+    state, chain, start = run_with_checkpoints(_sampler(16), 0, torch.as_tensor(init), 8, path,
+                                               every=4)
+    assert start == 4 and state.walkers.device.type == "cpu" and chain.samples.shape[0] == 4
 
 
 def test_resume_shape_mismatch_rejected(tmp_path):
@@ -284,7 +301,7 @@ def test_hmc_mid_warmup_resume_equals_straight_run(tmp_path):
     pathb = str(tmp_path / "b.npz")
     save_hmc_warmup_state(pathb, st, ad, 15, n_warmup, dict(warmup_retries=0))
     assert peek_kind(pathb) == "hmc_warmup"
-    st2, _, done, n_wu, _ = load_hmc_warmup_state(pathb)
+    st2, _, done, n_wu, _ = load_hmc_warmup_state(pathb, device="cpu")
     assert (done, n_wu) == (15, n_warmup)
     _eq(st2.y, st.y)
     _, resumed, start = run_hmc_with_checkpoints(sb, 9, n_samples, pathb, every=1000,

@@ -39,7 +39,7 @@ def _gauss_vg():
 
 
 def test_beta_schedule_matches_jax():
-    ss = SteppingStone(_gauss_vg(), np.array([[0.0, 1.0]]), n_rungs=16)
+    ss = SteppingStone(_gauss_vg(), np.array([[0.0, 1.0]]), n_rungs=16, device="cpu")
     b = ss.betas.numpy()
     with jax.enable_x64(True):
         want = np.asarray(JaxSteppingStone(lambda x: 0.0, np.array([[0.0, 1.0]]), n_rungs=16).betas)
@@ -49,7 +49,7 @@ def test_beta_schedule_matches_jax():
 
 def test_gaussian_evidence_analytic():
     res = stepping_stone_log_evidence(_gauss_vg(), BOUNDS, seed=0, n_rungs=24, n_chains=64,
-                                      n_warmup=300, n_samples=300)
+                                      n_warmup=300, n_samples=300, device="cpu")
     assert res.log_evidence == pytest.approx(LN_Z_TRUE, abs=0.05)
     assert res.error < 0.05
     assert 0.5 < res.acceptance < 0.95
@@ -60,7 +60,7 @@ def test_gaussian_evidence_analytic():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_replicated_error_covers_analytic_truth(seed):
     res = stepping_stone_log_evidence(_gauss_vg(), BOUNDS, seed=seed, n_rungs=16, n_chains=32,
-                                      n_warmup=200, n_samples=200, n_replicates=4)
+                                      n_warmup=200, n_samples=200, n_replicates=4, device="cpu")
     assert res.per_replicate.shape == (4,)
     assert len(set(np.round(res.per_replicate, 12))) == 4  # independent ladders
     assert res.error > 0.0
@@ -70,7 +70,7 @@ def test_replicated_error_covers_analytic_truth(seed):
 
 def test_rung_rhat_diagnostic():
     res = stepping_stone_log_evidence(_gauss_vg(), BOUNDS, seed=0, n_rungs=16, n_chains=32,
-                                      n_warmup=200, n_samples=200, n_replicates=2)
+                                      n_warmup=200, n_samples=200, n_replicates=2, device="cpu")
     assert res.rung_rhat.shape == (16,)
     assert np.all(np.isfinite(res.rung_rhat))
     assert float(np.max(res.rung_rhat)) < 1.2
@@ -80,6 +80,6 @@ def test_rung_rhat_diagnostic():
 def test_until_stable_exhausted_flag():
     vg = autograd_value_and_grad(lambda x: -0.5 * ((x / 0.3) ** 2).sum(-1))
     res = stepping_stone_log_evidence(vg, BOUNDS, seed=0, n_rungs=8, n_chains=16, n_warmup=50,
-                                      n_samples=50, until_stable=1e-6, max_doublings=0)
+                                      n_samples=50, until_stable=1e-6, max_doublings=0, device="cpu")
     assert res.converged is False
     assert len(res.history) == 1

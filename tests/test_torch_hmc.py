@@ -91,7 +91,7 @@ def test_box_transform_matches_jax():
         want = dict(to_x=jt.to_x(y), to_y=jt.to_y(x), log_jac=jt.log_jac(y),
                     grad=jax.vmap(jax.grad(jt.log_jac))(jnp.asarray(y)),
                     dx=jax.vmap(lambda v: jnp.diag(jax.jacobian(jt.to_x)(v)))(jnp.asarray(y)))
-    tt = th.BoxTransform.from_bounds(BOUNDS, F64)
+    tt = th.BoxTransform.from_bounds(BOUNDS, F64, device="cpu")
     ty, tx = torch.as_tensor(y), torch.as_tensor(x)
     _close(tt.to_x(ty), want["to_x"])
     _close(tt.to_y(tx), want["to_y"])
@@ -131,7 +131,7 @@ def test_welford_update_matches_jax(dense, trim):
 
 def test_warmup_schedule_matches_jax():
     js = jh.HMCSampler(_jax_gauss, BOUNDS, 4)
-    ts = th.HMCSampler(autograd_value_and_grad(_gauss()), BOUNDS, 4, dtype=F64)
+    ts = th.HMCSampler(autograd_value_and_grad(_gauss()), BOUNDS, 4, dtype=F64, device="cpu")
     for n in (1, 2, 7, 10, 60, 100, 333, 500, 1000):
         assert ts._warmup_schedule(n) == js._warmup_schedule(n), n
 
@@ -154,7 +154,7 @@ def test_one_trajectory_with_injected_momenta_matches_jax():
         u = np.array(jax.random.uniform(k_acc, (c,), dtype=jnp.float64))
         jnew, jacc, jprob, jdiv = js._step(jstate, jnp.asarray(eps), jnp.asarray(inv_mass),
                                            n_leap)
-    ts = th.HMCSampler(autograd_value_and_grad(_gauss()), BOUNDS, c, max_leapfrog=8, dtype=F64)
+    ts = th.HMCSampler(autograd_value_and_grad(_gauss()), BOUNDS, c, max_leapfrog=8, dtype=F64, device="cpu")
     tstate = ts.init_state(0, torch.as_tensor(x0))
     for a, b in zip(tstate[:3], jstate[:3]):
         _close(a, b)
@@ -176,7 +176,7 @@ def test_hmc_gaussian_recovery():
     chains), which puts the 0.25 limit ~2 sigma out; 128 chains halve
     the variance."""
     s = th.HMCSampler(autograd_value_and_grad(_gauss(torch.float32)), np.array([[-8.0, 8.0]] * 3),
-                      n_chains=128, max_leapfrog=24)
+                      n_chains=128, max_leapfrog=24, device="cpu")
     _, ch = s.run(0, 500, n_warmup=600)
     flat = ch.flat().numpy()
     assert 0.6 < ch.acceptance_fraction < 0.95
@@ -223,7 +223,7 @@ def test_hmc_matches_exact_grid_posterior():
     spec, log_prob = _bao_setup()
     (h_lo, h_med, h_hi), (o_lo, o_med, o_hi) = _grid_marginals(log_prob, spec)
     s = th.HMCSampler(autograd_value_and_grad(log_prob), spec.bounds, n_chains=32,
-                      max_leapfrog=12, dtype=F64)
+                      max_leapfrog=12, dtype=F64, device="cpu")
     _, chain = s.run(5, 400, n_warmup=300)
     flat = chain.flat().numpy()
     h_sig, o_sig = 0.5 * (h_hi - h_lo), 0.5 * (o_hi - o_lo)
@@ -242,8 +242,8 @@ def test_hmc_bit_reproducible():
     bounds = np.array([[-5.0, 5.0]] * 2)
     gen = torch.Generator()
     gen.manual_seed(1)
-    init = uniform_init(gen, bounds, 16)
-    s = th.HMCSampler(_std_normal_vg(), bounds, n_chains=16, max_leapfrog=8)
+    init = uniform_init(gen, bounds, 16, device="cpu")
+    s = th.HMCSampler(_std_normal_vg(), bounds, n_chains=16, max_leapfrog=8, device="cpu")
     _, c1 = s.run(7, 50, n_warmup=50, initial=init)
     _, c2 = s.run(7, 50, n_warmup=50, initial=init)
     assert torch.equal(c1.samples, c2.samples)
@@ -252,7 +252,7 @@ def test_hmc_bit_reproducible():
 
 
 def test_hmc_rejects_ignored_fixed_params():
-    s = th.HMCSampler(_std_normal_vg(), np.array([[-5.0, 5.0]] * 2), n_chains=4)
+    s = th.HMCSampler(_std_normal_vg(), np.array([[-5.0, 5.0]] * 2), n_chains=4, device="cpu")
     with pytest.raises(ValueError, match="n_warmup=0"):
         s.run(0, 10, n_warmup=10, step_size=0.1)
     with pytest.raises(ValueError, match="n_warmup=0"):
@@ -264,13 +264,13 @@ def test_hmc_rejects_bad_init():
         inside = torch.all(x.abs() < 1, dim=-1)
         return torch.where(inside, torch.zeros_like(x[:, 0]), torch.full_like(x[:, 0], -torch.inf))
 
-    s = th.HMCSampler(autograd_value_and_grad(lp), np.array([[-5.0, 5.0]] * 2), n_chains=4)
+    s = th.HMCSampler(autograd_value_and_grad(lp), np.array([[-5.0, 5.0]] * 2), n_chains=4, device="cpu")
     with pytest.raises(ValueError, match="non-finite"):
         s.run(0, 10, n_warmup=10, initial=np.full((4, 2), 4.0))
 
 
 def test_hmc_rejuvenates_stuck_chains():
-    s = th.HMCSampler(_std_normal_vg(), np.array([[-5.0, 5.0]] * 2), 32)
+    s = th.HMCSampler(_std_normal_vg(), np.array([[-5.0, 5.0]] * 2), 32, device="cpu")
     y = torch.as_tensor(np.concatenate([np.zeros((29, 2)), np.full((3, 2), 3.0)]),
                         dtype=torch.float32)
     state = s.init_state(0, y)

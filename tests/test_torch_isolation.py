@@ -34,6 +34,37 @@ def test_port_imports_without_jax():
     assert int(proc.stdout.strip()) >= 32  # every module of the port was walked
 
 
+_TOOLS_PROBE = """
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["cosmax"] = None
+sys.modules["pandas"] = None
+for name in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(name, "tools/" + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import cosmax_torch.compat, cosmax_torch.field, cosmax_torch.gp.__main__
+import cosmax_torch.data.fetch, cosmax_torch.data.ingest, cosmax_torch.report.plots
+leaked = sorted(
+    m for m, mod in sys.modules.items()
+    if mod is not None and (m in ("jax", "pandas")
+                            or m.startswith(("jax.", "jaxlib", "cosmax.", "pandas.")))
+)
+assert not leaked, leaked
+"""
+
+
+def test_port_tools_import_without_jax():
+    """The port's tools and the modules of its outer layers (the emcee
+    facade, the GP and field CLIs, data preparation, the figures) import
+    with jax, the JAX package and pandas blocked."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOLS_PROBE, "torch_profile_terms", "torch_validate"],
+        cwd=root, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_tf32_stays_off():
     """The port's counterpart of test_all_dots_pin_highest_precision
     (tests/test_likelihood_parity.py): ``device.resolve`` leaves both TF32

@@ -54,14 +54,14 @@ def _one_torch_thread():
 def test_minimize_quadratic():
     a = torch.diag(torch.tensor([1.0, 10.0, 100.0], dtype=F64))
     target = torch.tensor([1.0, -2.0, 0.5], dtype=F64)
-    x, fval, _ = minimize_chi2(lambda x: (x - target) @ a @ (x - target), np.zeros(3))
+    x, fval, _ = minimize_chi2(lambda x: (x - target) @ a @ (x - target), np.zeros(3), device="cpu")
     np.testing.assert_allclose(x, target.numpy(), atol=1e-6)
     assert fval < 1e-10
 
 
 def test_minimize_rosenbrock():
     x, _, _ = minimize_chi2(lambda x: (1 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2,
-                            np.array([-1.0, 1.0]), iters=200)
+                            np.array([-1.0, 1.0]), iters=200, device="cpu")
     np.testing.assert_allclose(x, [1.0, 1.0], atol=1e-4)
 
 
@@ -75,7 +75,7 @@ def test_adam_minimize():
 def test_laplace_gaussian_exact():
     cov_true = np.array([[2.0, 0.6], [0.6, 0.5]])
     prec = torch.as_tensor(np.linalg.inv(cov_true))
-    cov, sig, corr = laplace(lambda x: -0.5 * x @ prec @ x, np.zeros(2))
+    cov, sig, corr = laplace(lambda x: -0.5 * x @ prec @ x, np.zeros(2), device="cpu")
     np.testing.assert_allclose(cov, cov_true, rtol=1e-6)
     np.testing.assert_allclose(sig, np.sqrt(np.diag(cov_true)), rtol=1e-6)
     np.testing.assert_allclose(corr[0, 1], 0.6 / np.sqrt(2.0 * 0.5), rtol=1e-6)

@@ -130,7 +130,7 @@ def _checkpoints(world, tmp):
     path = os.path.join(tmp, "c.npz")
     run_with_checkpoints(s, 9, init, 16, path, every=16)
     _, part2, start = run_with_checkpoints(s, 9, init, 32, path, every=16)
-    hmc = HMCSampler(gauss_vg, BOUNDS, 32, max_leapfrog=8, mesh=mesh)
+    hmc = HMCSampler(gauss_vg, BOUNDS, 32, max_leapfrog=8, mesh=mesh, device="cpu")
     _, h_straight = hmc.run(3, 12, n_warmup=30)
     hpath = os.path.join(tmp, "h.npz")
     # warmup snapshots every 20 steps; resumed after 6 draws
@@ -172,7 +172,7 @@ def _hmc(world):
                      ("warmup", dict(n_warmup=60, initial=init))):
         runs = []
         for m in (None, mesh):
-            s = HMCSampler(gauss_vg, BOUNDS, n, max_leapfrog=8, mesh=m)
+            s = HMCSampler(gauss_vg, BOUNDS, n, max_leapfrog=8, mesh=m, device="cpu")
             _, c = s.run(9, 40, **kw)
             runs.append({k: _host(getattr(c, k)) for k in ("samples", "accepted", "log_probs")}
                         | dict(step_size=np.asarray(s.step_size), inv_mass=s.inv_mass,
@@ -186,7 +186,7 @@ def _hmc_recovers(world):
     from cosmax_torch.samplers import HMCSampler
 
     mesh = make_mesh()
-    s = HMCSampler(gauss_vg, BOUNDS, 64, max_leapfrog=16, mesh=mesh)
+    s = HMCSampler(gauss_vg, BOUNDS, 64, max_leapfrog=16, mesh=mesh, device="cpu")
     _, chain = s.run(2, 500, n_warmup=400, initial=gauss_walkers(64, 1))
     return _host(chain.flat())
 
@@ -271,7 +271,7 @@ def _ladder(world):
     for m in (None, mesh):
         # 2 rungs x 16 chains a rank
         ss = SteppingStone(gauss_vg, BOUNDS, n_rungs=world, n_chains=32,
-                           max_leapfrog=4, mesh=m)
+                           max_leapfrog=4, mesh=m, device="cpu")
         lls, accs = ss.ladder(7, 6, 4)
         runs.append(dict(lls=_host(lls), accs=_host(accs)))
     return runs

@@ -83,7 +83,7 @@ def test_gaussian_2d_mean_and_covariance():
 
     sampler = te.EnsembleSampler(log_prob, 64, 2)
     gen = torch.Generator().manual_seed(1)
-    init = te.uniform_init(gen, np.array([[-4.0, 6.0], [-7.0, 3.0]]), 64, torch.float64)
+    init = te.uniform_init(gen, np.array([[-4.0, 6.0], [-7.0, 3.0]]), 64, torch.float64, device="cpu")
     _, chain = sampler.run(init, 500, seed=2)
     flat = chain.flat(discard=100).numpy()
     assert 0.2 < chain.acceptance_fraction < 0.9
@@ -97,7 +97,7 @@ def test_chain_state_round_trip_and_resume():
 
     sampler = te.EnsembleSampler(log_prob, 16, 3)
     gen = torch.Generator().manual_seed(0)
-    init = te.uniform_init(gen, np.array([[-1.0, 1.0]] * 3), 16, torch.float64)
+    init = te.uniform_init(gen, np.array([[-1.0, 1.0]] * 3), 16, torch.float64, device="cpu")
     straight, chain = sampler.run(init, 6, seed=9)
     assert chain.samples.shape == (6, 16, 3)
     half, _ = sampler.run(init, 3, seed=9)
@@ -141,9 +141,9 @@ def test_cli_short_fit(tmp_path, capsys):
     assert set(summary["chi2"]) == {"bao", "cmb_desi", "sn"}
 
 
-# --fast, --sampler hmc and --checkpoint are ported: their cases run (the
-# fast one, fs8.fs8 in w0wacdm, on the reduced split grid of
-# test_torch_w0wa_joint.py); plots under --out still raise
+# --fast, --sampler hmc, --checkpoint and the figures under --out are
+# ported: their cases run (the fast one, fs8.fs8 in w0wacdm, on the reduced
+# split grid of test_torch_w0wa_joint.py)
 @pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"],
                                   ["--fast", "--model", "w0wacdm", "--preset", "fs8.fs8"],
                                   ["--out", "x"]])
@@ -182,8 +182,16 @@ def test_cli_unported_flags_raise(flag, tmp_path, capsys):
         assert rc == 0 and "fast path" in capsys.readouterr().out
         assert np.all(np.isfinite(np.load(tmp_path / "chain.npy")))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit_cli.main(argv)
+    # --out without --no-plots writes the JAX package's set of files
+    argv[-1] = str(tmp_path / "x")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert tfit_cli.main([*argv, "--steps", "6", "--walkers", "8"]) == 0
+    finally:
+        torch.set_num_threads(n)
+    assert sorted(p.name for p in (tmp_path / "x").iterdir()) == [
+        "chain.npy", "corner.png", "predictions_bao.png", "summary.json", "trace.png"]
 
 
 def test_cli_fast_w0wacdm_on_the_cpu(tmp_path, capsys):
