@@ -87,14 +87,13 @@ raising on failure (non-zero exit):
    dropped) must fail; the kernel built with NCOL = 16 (the column passes
    of bonds wider than NCOL) against its plain version; a planted swap of
    the halves' select that must fail; 64 walkers over both halves
-   against the port's f64 CPU fast path; ``bao.desi``,
-   ``bao.desi_cmb_union3`` and ``bao.desi_cmb_pantheon`` in w0wacdm at
+   against the port's f64 CPU fast path; ``bao.desi`` in w0wacdm at
    4,096 walkers (bench and uniform draws); kernel and plain times with
    the bound (the sweep's products at the TF32 tensor-core peak, the rest
    at the f32 peak; the bound with every operation at the f32 peak beside it);
    ``fit.log_prob()`` end to end with its launch count; and the
-   CLI with ``--fast --model w0wacdm``, 150 walkers x 20 steps, a finite
-   (150, 7) chain;
+   CLI with ``--fast --model w0wacdm --synthetic-sys`` (the build of this
+   phase), 150 walkers x 20 steps, a finite (150, 7) chain;
 13. the fast w0wacdm multiprobe joint (``joint.multiprobe``/w0wacdm,
    ``fast=True``, the dense synthetic SN covariance), every form kind of
    the split instance (linear BAO, SN and CC, the quasar lift, the fs8
@@ -273,7 +272,29 @@ raising on failure (non-zero exit):
    and the parity flagship at 4,096 (each term's ms, both kernels'
    launches); (f) ``timed_evals`` of ``fit.log_prob()`` against CUDA events
    over the same calls (within 10%) and a ``profile_trace`` file.
+20. the last tools (``phase_tools``, cut to the phase's time): (a)
+   ``tools/torch_evidence_convergence.py`` on the fast flagship in lcdm (2
+   replicate ladders, base budget 6 + 6, one doubling, golden x2): each
+   stage's ln Z +- error, the worst rung's split R-hat, seconds and fused
+   launches, a finite ln Z and at least one fused launch a stage; (b)
+   ``tools/torch_warmup_sweep.py``, one seed at 128 chains and 30 warmup
+   steps on the same fit: rejuvenated, retries, divergent, gradient
+   evaluations a second, at least one fused launch a gradient evaluation;
+   (c) ``tools/torch_precheck_rows.py`` on ``bao.desi``, ``cc.cc`` and
+   ``bao.desi_union3_omh2`` (its dM profiled out) in lcdm, rows that the
+   JAX precheck passes: chi^2 at the published medians (f64 on the host)
+   finite and within the tool's flag (0.6) of the published chi^2; (d)
+   ``cc.cc_pantheon`` in w0wacdm, fast, at 4,096 walkers (bench and uniform
+   draws, seeded out-of-box and NaN rows): the kernel against its plain
+   version within 1e-4 of max|logp|, whole and each term alone, and 64
+   walkers (half 1's among them) against the f64 CPU fast path within
+   1e-4.
 
+Phase 12 was cut for phase 20's time: ``bao.desi_cmb_union3`` and
+``bao.desi_cmb_pantheon`` in w0wacdm left it (builds of ~19 s each; their
+forms, an SN form with dM or with M and H0 beside the BAO and the CMB,
+are the w0wacdm flagship's and ``sn.pantheon_shoes``'s), and its CLI run
+takes ``--synthetic-sys``, the build the phase made (~17 s).
 Phases 13, 16 and 17 were cut for phase 18's time: ``fs8.fs8``,
 ``cc.cc_union3`` and ``cc.cc_des5y`` in w0wacdm left phase 13 (fs8.fs8's
 ~190 s growth-ODE build; their kernel branches are the w0wacdm
@@ -318,7 +339,7 @@ BIG_WALKERS = 262144  # the flagship size of bench.py
 MP_WALKERS = 131072  # the multiprobe size of bench.py
 MP_PARITY_WALKERS = 4096
 NEW_FAST = ("joint.multiprobe", "fs8.fs8", "cc.cc_union3", "cc.cc_des5y")
-W0WA_OTHERS = ("bao.desi", "bao.desi_cmb_union3", "bao.desi_cmb_pantheon")
+W0WA_OTHERS = ("bao.desi",)
 # the card's peaks for the bound: H100 SXM f32 non-tensor FLOP/s, dense
 # TF32 tensor-core FLOP/s and HBM3 bytes/s; and the f64 tensor cores'
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
@@ -3424,6 +3445,117 @@ def phase_outer(card):
     return out
 
 
+# phase 20: the last tools of the JAX package on the card (ROADMAP item 15),
+# cut to fit the phase: the evidence convergence on the fast flagship in
+# lcdm (2 replicate ladders, base budget 6 + 6, one doubling, golden x2),
+# one seed of the warmup sweep (128 chains, 30 warmup steps), the row
+# precheck on three rows that the JAX precheck passes (bao.desi_union3_omh2
+# with its dM profiled out); and cc.cc_pantheon in w0wacdm, the one preset
+# x model of the port no earlier run had taken to the card (ROADMAP 10c)
+TOOLS_FIT = ("bao.desi_cmb_des5y", "lcdm")
+EVIDENCE_ARGV = ("--replicates", "2", "--base-warmup", "6", "--base-samples", "6",
+                 "--max-doublings", "1", "--golden-mult", "2")
+SWEEP_CHAINS, SWEEP_WARMUP, SWEEP_SAMPLES = 128, 30, 8
+PRECHECK_ROWS = ("bao.desi[lcdm]", "cc.cc[lcdm]", "bao.desi_union3_omh2[lcdm]")
+NEVER_RAN = ("cc.cc_pantheon", "w0wacdm")
+
+
+def phase_tools(card):
+    """Phase 20: (a) ``tools/torch_evidence_convergence.py`` on the fast
+    flagship in lcdm at EVIDENCE_ARGV's budget: each stage's ln Z and error,
+    the worst rung's split R-hat, seconds and fused launches (a non-finite
+    ln Z, or a stage with no fused launch, fails); (b)
+    ``tools/torch_warmup_sweep.py``, one seed on the same fit: rejuvenated,
+    retries, divergent, gradient evaluations a second, and at least one
+    fused launch a gradient evaluation; (c) ``tools/torch_precheck_rows.py``
+    on PRECHECK_ROWS (f64 on the host): a non-finite chi^2 or a row beyond
+    the tool's FLAG fails; (d) NEVER_RAN fast at FAMILY_WALKERS (bench and
+    uniform draws, seeded bad rows): the kernel against its plain version
+    within FUSED_RTOL of max|logp|, whole and each term alone, and the f32
+    card against the f64 CPU fast path within LOGP_RTOL."""
+    import numpy as np
+    import torch
+
+    from cosmax_torch.configs import get_preset
+    from cosmax_torch.ops.kernels import fused_log_prob as fl
+
+    out, t_phase = {}, time.perf_counter()
+    preset, model = TOOLS_FIT
+
+    # (a) the evidence ladder's three stages
+    tool = _tool("torch_evidence_convergence")
+    records = tool.run(["--preset", preset, "--model", model, *EVIDENCE_ARGV])
+    stages, summary = records[:3], records[3]
+    for r in stages:
+        print(f"phase 20: evidence {r['stage']} on {card}: ln Z {r['log_evidence']:.4f} +- "
+              f"{r['error']:.4f}, max rung R-hat {r['max_rung_rhat']:.4f}, acceptance "
+              f"{r['acceptance']:.3f}, {r['wall_s']:.1f}s, {r['fused_launches']} fused launches")
+        if not np.isfinite(r["log_evidence"]) or r["fused_launches"] == 0:
+            raise AssertionError(f"phase 20: evidence stage {r['stage']}: ln Z "
+                                 f"{r['log_evidence']}, {r['fused_launches']} fused launches")
+    print(f"phase 20: evidence summary ({' '.join(EVIDENCE_ARGV)}): {json.dumps(summary)}")
+    out["evidence"] = dict(stages=stages, summary=summary)
+
+    # (b) one seed of the warmup sweep
+    tool = _tool("torch_warmup_sweep")
+    before = fl.LAUNCHES
+    sweep = tool.sweep(preset, model, 1, SWEEP_CHAINS, SWEEP_WARMUP, SWEEP_SAMPLES,
+                       device="cuda")
+    launches = fl.LAUNCHES - before
+    (seed,) = sweep.pop("per_seed")
+    print(f"phase 20: warmup sweep {preset}/{model} on {card}: {SWEEP_CHAINS} chains, warmup "
+          f"{SWEEP_WARMUP}: rejuvenated {seed['rejuvenated']}, retries {seed['retries']}, "
+          f"divergent {seed['divergent']}, {seed['gradient_evals']} gradient evaluations in "
+          f"{seed['seconds']:.1f}s ({sweep['gradient_evals_per_s']:.1f}/s), {launches} fused "
+          f"launches over the sweep (its MAP start too)")
+    if launches < seed["gradient_evals"] or seed["gradient_evals"] == 0:
+        raise AssertionError(f"phase 20: the warmup sweep launched the fused kernel {launches} "
+                             f"times for {seed['gradient_evals']} gradient evaluations")
+    out["warmup_sweep"] = dict(sweep, **seed, launches=launches)
+
+    # (c) the row precheck on the host
+    tool = _tool("torch_precheck_rows")
+    rows = {}
+    for label in PRECHECK_ROWS:
+        (row,) = [r for r in tool.precheck(only=label) if r["label"] == label]
+        if row["flagged"] or not np.isfinite(row.get("chi2", np.nan)):
+            raise AssertionError(f"phase 20: precheck {label}: {row}")
+        rows[label] = row
+    print(f"phase 20: precheck (f64 on the host) chi2 at the published medians against the "
+          f"published chi2 (flag at |d| >= {tool.FLAG}): "
+          + "; ".join(f"{k} {r['chi2']:.4f} vs {r['chi2_pub']} (d {r['delta']:+.4f}"
+                      + (f", profiled {r['profiled']})" if r["profiled"] else ")")
+                      for k, r in rows.items()))
+    out["precheck"] = rows
+
+    # (d) the preset x model never run on the card
+    name, model = NEVER_RAN
+    t0 = time.perf_counter()
+    fit = get_preset(name, model, fast=True, synthetic_sys=True, device="cuda")
+    packed = _pack(fl, fit)
+    build_s = time.perf_counter() - t0
+    names = [t.name for t in fit.terms if fl._emulated(t) is not None]
+    checks, worst = [], dict(fused=0.0, alone=0.0)
+    for dlabel, walkers in (("bench", _flagship_walkers(fit, FAMILY_WALKERS, seed=60)),
+                            ("uniform", _box_walkers(fit, FAMILY_WALKERS, seed=61))):
+        walkers = _bad_rows(fit, walkers)
+        rel = _check_fused(fl, packed, walkers, f"phase 20 {name}/{model} {dlabel}")
+        alone, w = _each_term(fl, packed, torch.as_tensor(walkers, device="cuda"), names,
+                              f"phase 20 {name}/{model} {dlabel}")
+        worst["fused"], worst["alone"] = max(worst["fused"], rel), max(worst["alone"], w)
+        checks.append(f"{dlabel} {rel:.3e}, each term alone: {', '.join(alone)}")
+    gap = _gap_to_f64(fit, seed=62)
+    if not gap <= LOGP_RTOL:
+        raise AssertionError(f"phase 20 {name}/{model}: f32 card vs f64 CPU fast {gap:.3e}")
+    print(f"phase 20: {name}/{model} fast, built and packed in {build_s:.2f}s; fused kernel vs "
+          f"plain at W={FAMILY_WALKERS} (of max|logp|): {'; '.join(checks)}; f32 card vs f64 CPU "
+          f"fast path on 64 walkers (half 1's among them) {gap:.3e}")
+    out["never_ran"] = dict(preset=f"{name}/{model}", build_s=build_s, f32_vs_f64=gap, **worst)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['seconds']:.1f}s on {card}")
+    return out
+
+
 def main():
     import torch
 
@@ -3486,7 +3618,7 @@ def main():
     stamp("11")
     w0wa = phase_w0wa_fast(card, ptxas_split, variants)
     w0wa_cli_launches = phase_cli(card, "phase 12", walkers=150, dim=7, fast=True,
-                                  model="w0wacdm")
+                                  model="w0wacdm", synthetic_sys=True)
     stamp("12")
     w0wa_mp, cc_cc = phase_w0wa_multiprobe(card, ptxas_split, variants)
     w0wa_mp_cli_launches = phase_cli(card, "phase 13", "joint.multiprobe", 256, 12, fast=True,
@@ -3511,7 +3643,9 @@ def main():
     stamp("18")
     outer = phase_outer(card)
     stamp("19")
-    print(f"phases 2-19 took {time.perf_counter() - t_start:.1f}s on {card}; by phase: "
+    tools = phase_tools(card)
+    stamp("20")
+    print(f"phases 2-20 took {time.perf_counter() - t_start:.1f}s on {card}; by phase: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in stamps.items()))
 
     print(json.dumps({"kernels": [
@@ -3549,7 +3683,8 @@ def main():
          "fit_out_launches": outer["fit_out"]["fast flagship"]["launches"],
          "profile_terms_launches": outer["profile_terms"]["fast"]["launches"]["fused_log_prob"],
          "outer_layers": {k: outer[k] for k in ("gp", "field", "compat", "profile_terms",
-                                                "debugging")}},
+                                                "debugging")},
+         "tools": tools},
     ]}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

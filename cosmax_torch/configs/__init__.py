@@ -1,5 +1,5 @@
 """Preset registry."""
 
-from cosmax_torch.configs.presets import FitSpec, get_preset, list_presets
+from cosmax_torch.configs.presets import PRESETS, FitSpec, get_preset, list_presets
 
-__all__ = ["FitSpec", "get_preset", "list_presets"]
+__all__ = ["PRESETS", "FitSpec", "get_preset", "list_presets"]

@@ -79,6 +79,7 @@ from cosmax_torch.likelihoods.fastmode import use_fast_mode
 from cosmax_torch.models.linear_chi2 import set_scope_domains
 from cosmax_torch.samplers.ensemble import MoveSpec, default_moves, stretch_only
 
+DE_PARAMS = ("w0", "wa", "exp_w0")  # the dark-energy parameters a model adds
 WA_BOUNDS = (-3.0, 2.0)
 W0_PARAMS = ("w0", "exp_w0")  # exp_w0: bao.desi_pantheon samples w0 as exp(w0)
 
@@ -681,6 +682,7 @@ def _cc_plain(model, device, dtype):
 
 
 ORH2_CHEN = cmb_mod.COMPRESSIONS["chen"].omega_r_h2()
+ORH2_ACT = cmb_mod.COMPRESSIONS["act"].omega_r_h2()
 ORH2_UNION3 = cmb_mod.COMPRESSIONS["union3"].omega_r_h2()
 
 

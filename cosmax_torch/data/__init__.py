@@ -7,10 +7,11 @@ from cosmax_torch.data.loaders import (
     load_fs8,
     load_quasars,
     load_sn,
+    store_path,
     use_synthetic_sys,
 )
 
 __all__ = [
     "CovDataset", "load_bao", "load_cc", "load_fs8", "load_quasars", "load_sn",
-    "use_synthetic_sys",
+    "store_path", "use_synthetic_sys",
 ]

@@ -34,6 +34,10 @@ _SYNTHETIC_SYS = contextvars.ContextVar("cosmax_torch_synthetic_sys", default=Fa
 QTY_DV, QTY_DM, QTY_DH = 0, 1, 2
 
 
+def synthetic_sys_enabled() -> bool:
+    return _SYNTHETIC_SYS.get()
+
+
 @contextmanager
 def use_synthetic_sys(on: bool = True):
     token = _SYNTHETIC_SYS.set(on)
@@ -41,6 +45,10 @@ def use_synthetic_sys(on: bool = True):
         yield
     finally:
         _SYNTHETIC_SYS.reset(token)
+
+
+def store_path() -> str:
+    return _STORE
 
 
 @lru_cache(maxsize=None)

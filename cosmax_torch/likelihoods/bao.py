@@ -29,7 +29,7 @@ from cosmax_torch.constants import C_KM_S
 from cosmax_torch.data.loaders import QTY_DH, QTY_DM, QTY_DV, CovDataset
 from cosmax_torch.interop import constants_from_numpy
 from cosmax_torch.likelihoods.base import Term, grid_like
-from cosmax_torch.likelihoods.fastmode import fast_mode
+from cosmax_torch.likelihoods.fastmode import GL_ORDER, fast_mode
 from cosmax_torch.models import recombination
 from cosmax_torch.models.distances import (
     comoving_distance_gl,
@@ -135,7 +135,7 @@ def build_bao_term(
     rd_fn: Callable,
     device,
     dtype=torch.float32,
-    grid: tuple = ("gl", 64),
+    grid: tuple = ("gl", GL_ORDER),
     name: str = "bao",
 ) -> Term:
     """grid: ('dyn_trapz', n_base) or ('fixed_trapz', n) — the parity

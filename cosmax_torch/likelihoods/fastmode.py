@@ -13,6 +13,8 @@ import contextvars
 from contextlib import contextmanager
 
 _FAST = contextvars.ContextVar("cosmax_torch_fast_mode", default=False)
+# the GL order of the BAO term's default parity grid (``bao.build_bao_term``)
+GL_ORDER = 64
 
 
 def fast_mode() -> bool:

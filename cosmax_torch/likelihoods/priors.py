@@ -21,6 +21,7 @@ BBN_PRIORS = {
     "shonberg": (0.02218, 0.00055),
 }
 OMH2_PLANCK = (0.1430, 0.0011)
+THETA_100_PLANCK = (1.04110, 0.00031)
 
 
 def gaussian_prior_term(fn, mean: float, sigma: float, name: str, meta=None) -> Term:

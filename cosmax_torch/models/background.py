@@ -77,3 +77,11 @@ def e_of_z(z, params, model: str):
 def hubble(z, params, model: str):
     """H(z) in km/s/Mpc; params must carry 'H0'."""
     return params["H0"] * e_of_z(z, params, model)
+
+
+def omega_r_of(h, om):
+    """Matter-radiation-equality parameterisation of Omega_r used by the
+    reference's CMB scripts (cmb/data_chen_compression.py:35-41):
+    z_eq = 24077.44 Om h^2, Or = Om / (1 + z_eq)."""
+    z_eq = 24077.44 * om * h**2
+    return om / (1.0 + z_eq)

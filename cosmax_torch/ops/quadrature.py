@@ -25,6 +25,20 @@ def gl_nodes_01(order: int):
     return 0.5 * (x + 1.0), 0.5 * w
 
 
+def gl_integrate_01(f, order: int, dtype=None, device="cuda"):
+    """integral_0^1 f(t) dt with an order-``order`` GL rule, the nodes a
+    ``dtype`` tensor on ``device`` (float32 on the card by default).
+    ``f`` takes the nodes [order]; for parameter batches, close over the
+    batch and let the integrand broadcast (nodes on the last axis)."""
+    from cosmax_torch.device import resolve
+
+    device, dtype = resolve(device, dtype)
+    t, w = gl_nodes_01(order)
+    t = torch.as_tensor(t, device=device).to(dtype)
+    w = torch.as_tensor(w, device=device).to(dtype)
+    return torch.sum(f(t) * w, dim=-1)
+
+
 def cumtrapz(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Cumulative trapezoid along the last axis with initial=0, matching
     ``scipy.integrate.cumulative_trapezoid(y, x, initial=0)``; one

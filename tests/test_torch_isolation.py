@@ -54,12 +54,15 @@ assert not leaked, leaked
 
 
 def test_port_tools_import_without_jax():
-    """The port's tools and the modules of its outer layers (the emcee
-    facade, the GP and field CLIs, data preparation, the figures) import
-    with jax, the JAX package and pandas blocked."""
+    """The port's tools (the ablation, the validation sweep, the row
+    precheck, the warmup sweep, the evidence convergence) and the modules
+    of its outer layers (the emcee facade, the GP and field CLIs, data
+    preparation, the figures) import with jax, the JAX package and pandas
+    blocked."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
-        [sys.executable, "-c", _TOOLS_PROBE, "torch_profile_terms", "torch_validate"],
+        [sys.executable, "-c", _TOOLS_PROBE, "torch_profile_terms", "torch_validate",
+         "torch_precheck_rows", "torch_warmup_sweep", "torch_evidence_convergence"],
         cwd=root, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr

@@ -147,7 +147,7 @@ def test_cli_short_fit(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--sampler", "hmc"], ["--checkpoint", "c.npz"],
                                   ["--fast", "--model", "w0wacdm", "--preset", "fs8.fs8"],
                                   ["--out", "x"]])
-def test_cli_unported_flags_raise(flag, tmp_path, capsys):
+def test_cli_ported_flags_run(flag, tmp_path, capsys):
     argv = ["--preset", "bao.desi", "--device", "cpu", *flag]
     if "--sampler" in flag or "--checkpoint" in flag:
         if "--checkpoint" in flag:
