@@ -8,12 +8,13 @@ without a card it raises before printing any result. Phases, each
 raising on failure (non-zero exit):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both CUDA kernels from ``cosmax_torch/csrc`` (with the shared
-   header ``tf32.cuh``), twelve variants of the fused one's source for
-   phases 7, 9, 12, 14 and 16 and two of the chi^2 kernel's for phases 3
-   and 15 (one nvcc each, all in parallel) and print each ptxas report
-   (the fused kernel's three instances: Tucker, split, split with the f64
-   sweep);
+2. build the three CUDA sources from ``cosmax_torch/csrc`` (with the
+   shared header ``tf32.cuh``): the chi^2 kernel, its row-block kernel and
+   the fused kernel; twelve variants of the fused one's source for phases
+   7, 9, 12, 14 and 16, two of the chi^2 kernel's for phases 3 and 15 and
+   three of the row-block kernel's for phase 18 (one nvcc each, all in
+   parallel) and print each ptxas report (the fused kernel's three
+   instances: Tucker, split, split with the f64 sweep);
 3. the chi^2 kernel (3xTF32 on the tensor cores) against its plain PyTorch
    version at the flagship shape (65,536 walkers x N = 1829) and at ragged
    shapes, rtol 5e-5, with a NaN row kept to its own row; on realistic
@@ -225,17 +226,21 @@ raising on failure (non-zero exit):
    flagship's at 4,096 with the chi^2 forward kernel and the backward's
    matmuls, gradient evaluations per second of each HMC run, each part's
    seconds and the phase's.
-18. the multi-GPU path: (a) the chi^2 kernel's row-block entry (the rows
-   [r0, r1) of L^-1 from the slab L^-1[r0:r1, :r1]) at (65,536, 1829) on
-   realistic residuals of DES-SN5YR's covariance, for d = 2 and d = 4
-   blocks by equal work (boundaries N sqrt(k/d) on the row tile): each
-   block against its plain version (rtol 5e-5), its f64 plain version
-   (RTOL_CHI2_F64) and on a ragged batch, the blocks' sum against the
-   square kernel (1e-6 a walker), the square entry against the row-block
-   entry at (0, N) bit for bit, a planted fault (a block's diagonal skip
-   from its local row 0) that must fail, each block's time beside the
-   square kernel's and its 3xTF32 bound, the slowest block's share of the
-   square time; (b) the port of ``dryrun_multichip``
+18. the multi-GPU path: (a) the chi^2 kernel's row-block kernel (the
+   rows [r0, r1) of L^-1 from the slab L^-1[r0:r1, :r1], split once into
+   TF32 halves; ``csrc/whitened_chi2_rows.cu``, wgmma on TMA tiles) at
+   (65,536, 1829) on realistic residuals of DES-SN5YR's covariance, for d
+   = 2 and d = 4 blocks by equal work (boundaries N sqrt(k/d) rounded to
+   8 rows): each block against its plain version (rtol 5e-5), its f64
+   plain version (RTOL_CHI2_F64) and on a ragged batch, one launch a call
+   (the launch counts), a repeat launch equal bit for bit, the blocks' sum
+   against the square kernel (1e-6 a walker), three planted faults that
+   must fail (a block's diagonal skip from its local row 0; the trailing
+   tile's rows past its last multiple of 8 dropped; the lo terms dropped,
+   one TF32 pass), each block's time (its split kept, and split at every
+   call) beside the square kernel's, its 3xTF32 bound and cuBLAS's, the
+   slowest block's share of the square time, and the row-block kernel at
+   (0, N) beside the square kernel, for the record; (b) the port of ``dryrun_multichip``
    (``cosmax_torch.dryrun``) under NCCL at world size 1 in this process:
    the parity flagship's sharded log-prob (the SN rows through the
    row-block entry) at 65,536 walkers against ``fit.log_prob()`` within
@@ -246,7 +251,7 @@ raising on failure (non-zero exit):
    steps (the sharded potential) and their checkpoint resume, a step of
    each fast fit, the stepping-stone ladder, every kernel launched; (c)
    the same on a gloo pair, both ranks on cuda:0, mesh w = 1 x d = 2 (each
-   rank launches the row-block entry on its own rows and the fused kernel
+   rank launches the row-block kernel on its own rows and the fused kernel
    on its walkers), spawned with a ``file://`` rendezvous: its results
    against world size 1 (the parity log-prob and the chains' log-probs
    within 1e-6 of max|logp|, the chain's walkers and the fast calls bit
@@ -319,6 +324,7 @@ import time
 
 REPLACES = "cosmax/ops/pallas/chi2.py:52"
 SOURCE = "cosmax_torch/csrc/whitened_chi2.cu"
+ROWS_SOURCE = "cosmax_torch/csrc/whitened_chi2_rows.cu"
 FUSED_REPLACES = "cosmax/ops/pallas/megakernel.py:99"
 FUSED_SOURCE = "cosmax_torch/csrc/fused_log_prob.cu"
 RTOL_KERNEL = 5e-5  # as tests/test_pallas_ops.py for the TPU kernel
@@ -374,14 +380,24 @@ CHI2_PLANTED = {
         ("fold(acc, part);", "if (last) fold(acc, part);"),),
 }
 CHI2_PLANTED_AT = (580, 1829)
-# phase 18: the chi^2 kernel's row-block entry, its blocks by equal work
-# over d ranks, and a planted fault (built in phase 2) that the check of a
-# block not at row 0 must catch: the diagonal skip counted from the block's
-# local row 0
+# phase 18: the chi^2 kernel's row-block kernel, its blocks by equal work
+# over d ranks, and planted faults of its source (built in phase 2) that
+# the f64 check of d = 2's second block must catch: the diagonal skip
+# counted from the block's local row 0; the trailing tile's rows past its
+# last multiple of 8 dropped (the tensor map's rows rounded down, so that
+# the TMA reads them as zeros); the lo terms dropped, which leaves one TF32
+# pass
 ROWS_PARTS = (2, 4)
 CHI2_ROWS_PLANTED = {
     "a block's diagonal skip from its local row 0": (
-        ("  const long long row0 = BLOCK ? sh.ld - sh.rows : 0;", "  const long long row0 = 0;"),),
+        ("  const long long g1 = sh.row0 + min(", "  const long long g1 = min("),),
+    "the trailing tile's rows past a multiple of 8 dropped": (
+        ("static_cast<cuuint64_t>(rows), 2};", "static_cast<cuuint64_t>(rows / 8 * 8), 2};"),),
+    "the lo terms dropped (one TF32 pass)": (
+        ("wgmma_n128(part, alo[kk], bhi + 2 * kk, kk > 0);", "(void)0;"),
+        ("wgmma_n128(part, ahi[kk], blo + 2 * kk, 1);", "(void)0;"),
+        ("wgmma_n128(part, ahi[kk], bhi + 2 * kk, 1);",
+         "wgmma_n128(part, ahi[kk], bhi + 2 * kk, kk > 0);")),
 }
 # the dry run (cosmax_torch/dryrun.py; its chains take max(4 x world size,
 # 8) walkers, 8 at world sizes 1 and 2, so both runs take the same chains):
@@ -511,7 +527,7 @@ def _reset_counts():
     """Zero the launch count of every kernel wrapper."""
     from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
 
-    fused_log_prob.LAUNCHES = whitened_chi2.LAUNCHES = 0
+    fused_log_prob.LAUNCHES = whitened_chi2.LAUNCHES = whitened_chi2.ROWS_LAUNCHES = 0
 
 
 def _spd_linv(rng, n):
@@ -1303,8 +1319,8 @@ def _ptxas_of(log, marker):
 def _start_variants():
     """Write each variant of the fused kernel's source (PLANTED,
     TUCKER_PLANTED, NCOL set to NARROW_NCOL, BAO_PLANTED, QSR_PLANTED, the f64
-    sweep forced off) and of the chi^2 kernel's (CHI2_PLANTED,
-    CHI2_ROWS_PLANTED) under
+    sweep forced off), of the chi^2 kernel's (CHI2_PLANTED) and of its
+    row-block kernel's (CHI2_ROWS_PLANTED) under
     ``build/chip_smoke_variants/`` and start one nvcc for each. Returns
     {name: (process, library path)}."""
     from cosmax_torch.ops.kernels import build
@@ -1317,8 +1333,8 @@ def _start_variants():
         **{name: edits for name, (edits, _, _, _) in QSR_PLANTED.items()},
         **{F64_SWEEP_OFF: F64_SWEEP_OFF_EDITS})
     variants = [(name, FUSED_SOURCE, edits) for name, edits in fused.items()]
-    variants += [(name, SOURCE, edits) for name, edits in
-                 dict(CHI2_PLANTED, **CHI2_ROWS_PLANTED).items()]
+    variants += [(name, SOURCE, edits) for name, edits in CHI2_PLANTED.items()]
+    variants += [(name, ROWS_SOURCE, edits) for name, edits in CHI2_ROWS_PLANTED.items()]
     out_dir = build.BUILD_DIR.parent / "chip_smoke_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -2967,42 +2983,52 @@ def phase_grad(card):
     return out
 
 
-def _rows_launch(lib, slab, delta):
-    """A row block's share from a library's row-block C entry, launched
-    straight (the wrapper's launch count stays as it is)."""
+def _rows_launch(lib, block, tensor_map, delta):
+    """A row block's share from a library's row-block C entry (this
+    source's, or a planted variant's), launched straight on the split
+    slab's tensor map (the wrappers' launch counts stay as they are)."""
     import torch
 
     from cosmax_torch.ops.kernels import whitened_chi2 as kmod
 
-    rows, ld = slab.shape
     out = torch.empty(delta.shape[0], dtype=torch.float32, device=delta.device)
-    err = kmod._rows_entry(lib)(slab.data_ptr(), delta.data_ptr(), out.data_ptr(),
-                                delta.shape[0], delta.shape[1], ld - rows, rows,
-                                torch.cuda.current_stream().cuda_stream)
+    err = kmod._rows_entry(lib)(tensor_map, delta.data_ptr(), out.data_ptr(),
+                                delta.shape[0], delta.shape[1], block.ld - block.rows,
+                                block.rows, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"chi^2 row-block entry failed: cudaError {err}")
+        raise RuntimeError(f"chi^2 row-block kernel failed: cudaError {err}")
     return out
 
 
-def phase_rows(card, variants):
-    """Phase 18 (a): the chi^2 kernel's row-block entry at (65,536, 1829) on
-    realistic residuals of DES-SN5YR's covariance, for d = 2 and d = 4
-    blocks by equal work: each block against its plain version (f32, rtol
-    5e-5) and its f64 plain version (RTOL_CHI2_F64), the blocks' sum against
-    the square kernel (1e-6 a walker), a ragged batch, the planted fault (a
-    block's diagonal skip from its local row 0) that must fail, the square
-    entry against the row-block entry at (0, N) bit for bit; each block's
-    time beside the square kernel's, the block's 3xTF32 bound and its plain
-    version's (the one cuBLAS product, f32, the library call of the square
-    entry too)."""
+def _rel(got, want):
+    """max |got - want| / |want| per walker, in f64."""
+    return float(((got.double() - want.double()).abs() / want.double().abs()).max())
+
+
+def phase_rows(card, variants, ptxas_rows):
+    """Phase 18 (a): the chi^2 kernel's row-block kernel at (65,536, 1829)
+    on realistic residuals of DES-SN5YR's covariance, for d = 2 and d = 4
+    blocks by equal work: each block through ``whitened_chi2_rows`` with its
+    split kept (as the sharded path keeps it), one launch a call, against
+    its plain version (f32, rtol 5e-5) and its f64 plain version
+    (RTOL_CHI2_F64), a ragged batch, a repeat launch bit for bit; the
+    blocks' sum against the square kernel (1e-6 a walker); the planted
+    faults (CHI2_ROWS_PLANTED) on d = 2's second block, each of which must
+    fail the f64 check; each block's time beside the square kernel's, the
+    block's 3xTF32 bound and its plain version's (one cuBLAS product, f32:
+    the library call too), and with the slab split at every call; the
+    row-block kernel at (0, N) beside the square kernel, for the record."""
     import numpy as np
     import torch
 
     from cosmax_torch.data.loaders import load_sn, use_synthetic_sys
+    from cosmax_torch.ops.kernels import whitened_chi2 as kmod
     from cosmax_torch.ops.kernels.build import load_kernel
     from cosmax_torch.ops.kernels.whitened_chi2 import (
         row_blocks,
+        split_rows,
         whitened_chi2,
+        whitened_chi2_reference,
         whitened_chi2_rows,
         whitened_chi2_rows_reference,
     )
@@ -3018,16 +3044,26 @@ def phase_rows(card, variants):
     delta = (z @ chol.T).float()
     del z, chol
     linv = torch.as_tensor(np.ascontiguousarray(sn.linv), device="cuda").float()
-    lib = load_kernel("whitened_chi2").lib
+    lib = load_kernel("whitened_chi2_rows").lib
     square = whitened_chi2(linv, delta)
-    whole = _rows_launch(lib, linv, delta)
-    torch.cuda.synchronize()
-    if not torch.equal(square, whole):
-        raise AssertionError("phase 18: the square entry and the row-block entry at (0, N) differ")
     square_ms = _median_ms(lambda: whitened_chi2(linv, delta))
-    print(f"phase 18: the square entry equals the row-block entry at (row0 0, rows {n}) bit "
-          f"for bit at (W={w}, N={n}); square kernel {square_ms:.4f} ms on {card}")
-    out = dict(square_ms=square_ms, square_equals_rows_entry=True, parts={})
+    # the row-block kernel over all N rows: not a route of the port (the
+    # wrapper sends a slab of N rows to the square kernel), timed beside it
+    full = split_rows(linv)
+    full_map = kmod.encode_tensor_map(lib, full)
+    whole = _rows_launch(lib, full, full_map, delta)
+    whole_rel64 = _rel(whole, whitened_chi2_reference(linv.double(), delta.double()))
+    whole_ms = _median_ms(lambda: _rows_launch(lib, full, full_map, delta))
+    if not whole_rel64 <= RTOL_CHI2_F64:
+        raise AssertionError(f"phase 18: the row-block kernel at (0, {n}) vs f64 plain: "
+                             f"{whole_rel64:.3e}")
+    del full, full_map
+    print(f"phase 18: on {card}, ptxas whitened_chi2_rows_kernel {ptxas_rows}; square kernel "
+          f"{square_ms:.4f} ms at (W={w}, N={n}); the row-block kernel over rows [0, {n}) "
+          f"{whole_ms:.4f} ms ({whole_ms / square_ms:.3f}x the square's; not a route of the "
+          f"port), vs f64 plain {whole_rel64:.3e}")
+    out = dict(square_ms=square_ms, rows_kernel_at_0_n=dict(ms=whole_ms, max_rel_err_f64=whole_rel64),
+               ptxas=ptxas_rows, parts={})
     ragged = delta[: w // 2 + 37]
     for parts in ROWS_PARTS:
         cuts = row_blocks(n, parts)
@@ -3035,33 +3071,45 @@ def phase_rows(card, variants):
         blocks = []
         for r0, r1 in zip(cuts, cuts[1:]):
             slab = linv[r0:r1, :r1].contiguous()
-            got = whitened_chi2_rows(slab, delta)
+            block = split_rows(slab)
+            before = (kmod.LAUNCHES, kmod.ROWS_LAUNCHES)
+            got = whitened_chi2_rows(block, delta)
+            if (kmod.LAUNCHES - before[0], kmod.ROWS_LAUNCHES - before[1]) != (1, 1):
+                raise AssertionError(f"phase 18: rows [{r0}, {r1}): one call made "
+                                     f"{kmod.LAUNCHES - before[0]} launches "
+                                     f"({kmod.ROWS_LAUNCHES - before[1]} of the row-block kernel)")
+            again = whitened_chi2_rows(block, delta)
             plain = whitened_chi2_rows_reference(slab, delta)
             want64 = whitened_chi2_rows_reference(slab.double(), delta.double())
-            part_rag = whitened_chi2_rows(slab, ragged)
+            part_rag = whitened_chi2_rows(block, ragged)
             torch.cuda.synchronize()
-            rel = float(((got - plain).abs() / plain.abs()).max())
-            rel64 = float(((got.double() - want64).abs() / want64.abs()).max())
+            rel, rel64 = _rel(got, plain), _rel(got, want64)
             rel_rag = float((part_rag - got[: ragged.shape[0]]).abs().max() / got.abs().max())
+            repeat = torch.equal(got, again)
             if not (rel <= RTOL_KERNEL and rel64 <= RTOL_CHI2_F64 and rel_rag <= RTOL_KERNEL
-                    and bool(torch.isfinite(got).all())):
+                    and repeat and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"phase 18: rows [{r0}, {r1}) of {n}: kernel vs plain "
-                                     f"{rel:.3e}, vs f64 plain {rel64:.3e}, ragged {rel_rag:.3e}")
+                                     f"{rel:.3e}, vs f64 plain {rel64:.3e}, ragged {rel_rag:.3e}, "
+                                     f"repeat bit for bit {repeat}")
             total += got.double()
-            ms = _median_ms(lambda: whitened_chi2_rows(slab, delta))
+            ms = _median_ms(lambda: whitened_chi2_rows(block, delta))
+            split_ms = _median_ms(lambda: whitened_chi2_rows(slab, delta))
             plain_ms = _median_ms(lambda: whitened_chi2_rows_reference(slab, delta))
             flop = w * (r1 * (r1 + 1) - r0 * (r0 + 1))  # the block's triangle
             tc_ms = 1e3 * 3 * flop / PEAK_TF32_FLOPS
             bytes_ms = 1e3 * 4.0 * (w * r1 + (r1 - r0) * r1 + w) / PEAK_BYTES
-            blocks.append(dict(rows=[r0, r1], max_rel_err=rel, max_rel_err_f64=rel64, ms=ms,
-                               plain_ms=plain_ms, library_ms=plain_ms,
-                               bound_ms=max(tc_ms, bytes_ms),
+            bound = max(tc_ms, bytes_ms)
+            blocks.append(dict(rows=[r0, r1], max_rel_err=rel, max_rel_err_f64=rel64,
+                               max_abs_err=float((got - plain).abs().max()), ms=ms,
+                               ms_split_each_call=split_ms, plain_ms=plain_ms,
+                               library_ms=plain_ms, bound_ms=bound,
                                bound_by="operations" if tc_ms >= bytes_ms else "bytes"))
             print(f"phase 18: d={parts} rows [{r0}, {r1}): kernel vs plain {rel:.3e} (limit "
                   f"{RTOL_KERNEL:g}), vs f64 plain {rel64:.3e} (limit {RTOL_CHI2_F64:g}), ragged "
-                  f"batch {rel_rag:.3e}; {ms:.4f} ms, plain (cuBLAS, f32) {plain_ms:.4f} ms "
-                  f"({plain_ms / ms:.2f}x the kernel's), bound {max(tc_ms, bytes_ms):.4f} ms "
-                  f"(3xTF32 {tc_ms:.4f}, bytes {bytes_ms:.4f}), {ms / max(tc_ms, bytes_ms):.2f}x")
+                  f"batch {rel_rag:.3e}, repeat bit for bit; {ms:.4f} ms ({split_ms:.4f} split "
+                  f"at each call), plain (cuBLAS, f32) {plain_ms:.4f} ms ({plain_ms / ms:.2f}x "
+                  f"the kernel's), bound {bound:.4f} ms (3xTF32 {tc_ms:.4f}, bytes "
+                  f"{bytes_ms:.4f}), {ms / bound:.2f}x")
         gap = float(((total - square.double()).abs() / square.double().abs()).max())
         if gap > 1e-6:
             raise AssertionError(f"phase 18: d={parts}: the blocks' sum vs the square kernel: "
@@ -3073,20 +3121,22 @@ def phase_rows(card, variants):
               f"kernel {gap:.3e} a walker (limit 1e-6); slowest block {slowest:.4f} ms = "
               f"{slowest / square_ms:.3f} of the square kernel's {square_ms:.4f} (1/d = "
               f"{1 / parts:.3f})")
-    # the planted fault: d = 2's second block, rows [1280, 1829)
+    # the planted faults: d = 2's second block, rows [1296, 1829) (its
+    # trailing tile of 21 rows)
     r0, r1 = row_blocks(n, 2)[1:]
-    slab = linv[r0:r1, :r1].contiguous()
-    want64 = whitened_chi2_rows_reference(slab.double(), delta.double())
-    name, = CHI2_ROWS_PLANTED
-    bad = _rows_launch(variants[name][0], slab, delta)
-    torch.cuda.synchronize()
-    caught = float(((bad.double() - want64).abs() / want64.abs()).max())
-    if not caught > RTOL_CHI2_F64:
-        raise AssertionError(f"phase 18: the row-block check missed the planted fault {name!r}: "
-                             f"{caught:.3e}")
-    print(f"phase 18: planted fault ({name}) on rows [{r0}, {r1}): {caught:.3e} against the f64 "
-          f"plain version: caught")
-    out.update(planted={name: caught}, walkers=w, n=n, seconds=time.perf_counter() - t_phase)
+    block = split_rows(linv[r0:r1, :r1].contiguous())
+    want64 = whitened_chi2_rows_reference(block.unsplit().double(), delta.double())
+    caught = {}
+    for name in CHI2_ROWS_PLANTED:
+        lib_v = variants[name][0]
+        got_v = _rows_launch(lib_v, block, kmod.encode_tensor_map(lib_v, block), delta)
+        caught[name] = _rel(got_v, want64)
+        if not caught[name] > RTOL_CHI2_F64:
+            raise AssertionError(f"phase 18: the row-block check missed the planted fault "
+                                 f"{name!r}: {caught[name]:.3e}")
+    print(f"phase 18: planted faults on rows [{r0}, {r1}) against the f64 plain version: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in caught.items()) + ": all caught")
+    out.update(planted=caught, walkers=w, n=n, seconds=time.perf_counter() - t_phase)
     return out
 
 
@@ -3151,6 +3201,8 @@ def phase_dryrun(card):
                                  f"{got['launches']}")
         if got["parity flagship"]["launches"]["whitened_chi2"] == 0:
             raise AssertionError(f"phase 18: gloo rank {rank} launched no row block")
+        if got["row_block_launches"] == 0:
+            raise AssertionError(f"phase 18: gloo rank {rank} never launched the row-block kernel")
         if got["device"] != "cuda:0":
             raise AssertionError(f"phase 18: gloo rank {rank} ran on {got['device']}")
         for label in ("fast flagship wzcdm", "fast flagship w0wacdm", "fast multiprobe lcdm"):
@@ -3179,7 +3231,8 @@ def phase_dryrun(card):
     print(f"phase 18: dry run on a gloo pair (both ranks on cuda:0, mesh w=1 x d=2) on {card}: "
           f"{pair_s:.1f}s; against world size 1 (of max|logp|): "
           + ", ".join(f"{k} {v:.3e}" for k, v in checks.items())
-          + f"; launches rank 0 {pair[0]['launches']}, rank 1 {pair[1]['launches']}")
+          + f"; launches rank 0 {pair[0]['launches']}, rank 1 {pair[1]['launches']} (of the "
+          f"row-block kernel {pair[0]['row_block_launches']}, {pair[1]['row_block_launches']})")
     offsets = {k: one[k].get("offset_bitwise") for k in one
                if isinstance(one[k], dict) and "offset_bitwise" in one[k]}
     print(f"phase 18: a walker's fused log-prob from its own row alone (a block from walker "
@@ -3196,7 +3249,8 @@ def phase_dryrun(card):
 
     return dict(nccl_world_1=dict(summary(one), seconds=one_s, launches=launches),
                 gloo_world_2=dict(summary(pair[0]), seconds=pair_s,
-                                  launches=[r["launches"] for r in pair]),
+                                  launches=[r["launches"] for r in pair],
+                                  row_block_launches=[r["row_block_launches"] for r in pair]),
                 against_world_1=checks, offset_bitwise=offsets)
 
 
@@ -3573,20 +3627,26 @@ def main():
     t_start = time.perf_counter()
     jobs = _start_variants()
     try:
-        built = load_kernels(["whitened_chi2", "fused_log_prob"])
+        built = load_kernels(["whitened_chi2", "fused_log_prob", "whitened_chi2_rows"])
     except BaseException:
         _stop(jobs)
         raise
     variants = _finish_variants(jobs)
-    print(f"phase 2: built both kernels and {len(variants)} variants of their sources in "
+    print(f"phase 2: built the three kernel sources and {len(variants)} variants in "
           f"{time.perf_counter() - t_start:.2f}s (in parallel)")
-    for src, b in zip((SOURCE, FUSED_SOURCE), built):
+    for src, b in zip((SOURCE, FUSED_SOURCE, ROWS_SOURCE), built):
         ptxas = [ln.strip() for ln in b.log.splitlines() if "Used" in ln or "spill" in ln]
         print(f"phase 2: {src} in {b.seconds:.2f}s; {'; '.join(ptxas)}")
     ptxas_split = _ptxas_of(built[1].log, "split_kernel") or "ptxas report not found"
     ptxas_tucker = _ptxas_of(built[1].log, "fused_log_prob_kernel") or "ptxas report not found"
     ptxas_f64 = _ptxas_of(built[1].log, "split_f64_kernel") or "ptxas report not found"
     ptxas_chi2 = _ptxas_of(built[0].log, "whitened_chi2_kernel") or "ptxas report not found"
+    ptxas_rows = _ptxas_of(built[2].log, "whitened_chi2_rows_kernel") or "ptxas report not found"
+    # ptxas's notes on the wgmma pipeline (a serialized wgmma is one it
+    # could not prove safe to overlap)
+    rows_notes = [ln.strip() for ln in built[2].log.splitlines() if "wgmma" in ln.lower()]
+    print(f"phase 2: ptxas: whitened_chi2_rows_kernel {ptxas_rows}; its wgmma notes: "
+          f"{rows_notes or 'none'}")
     print(f"phase 2: ptxas: whitened_chi2_kernel {ptxas_chi2}; fused_log_prob_kernel "
           f"{ptxas_tucker}; fused_log_prob_split_kernel {ptxas_split}; "
           f"fused_log_prob_split_f64_kernel {ptxas_f64}")
@@ -3638,13 +3698,16 @@ def main():
     stamp("16")
     grad = phase_grad(card)
     stamp("17")
-    rows = phase_rows(card, variants)
+    rows = phase_rows(card, variants, ptxas_rows)
     dry = phase_dryrun(card)
     stamp("18")
     outer = phase_outer(card)
     stamp("19")
     tools = phase_tools(card)
     stamp("20")
+    # the row-block kernel's line: d = 4's slowest block, which sets the
+    # sharded chi^2's time
+    rows_slowest = max(rows["parts"][str(max(ROWS_PARTS))]["blocks"], key=lambda b: b["ms"])
     print(f"phases 2-20 took {time.perf_counter() - t_start:.1f}s on {card}; by phase: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in stamps.items()))
 
@@ -3656,7 +3719,6 @@ def main():
                            cli_launches=sn_parity_cli_launches),
          "autograd_function": grad["chi2_function"],
          "hmc_parity": {k: v for k, v in grad["hmc"].items() if "parity" in k},
-         "rows_entry": rows,
          "dryrun": {"nccl_world_1_launches": dry["nccl_world_1"]["launches"]["whitened_chi2"],
                     "gloo_world_2_launches": [r["whitened_chi2"]
                                               for r in dry["gloo_world_2"]["launches"]],
@@ -3665,6 +3727,13 @@ def main():
          "fit_out_launches": {k: v["launches"] for k, v in outer["fit_out"].items()
                               if "pantheon" in k},
          "profile_terms_launches": outer["profile_terms"]["parity"]["launches"]["whitened_chi2"]},
+        {"name": "whitened_chi2_rows", "route": "cuda", "source": ROWS_SOURCE,
+         "replaces": REPLACES,
+         "launches": sum(dry["gloo_world_2"]["row_block_launches"]),
+         **{k: rows_slowest[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "rows")},
+         "phase_18": rows,
+         "gloo_world_2_launches": dry["gloo_world_2"]["row_block_launches"]},
         {"name": "fused_log_prob", "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES, "launches": fused_launches, **fused,
          "multiprobe": dict(mp_fused, walkers=MP_WALKERS, cli_launches=mp_cli_launches),

@@ -2,20 +2,8 @@
 //
 //     chi2[w] = || Linv @ delta[w] ||^2,   delta [W, N] f32, Linv [N, N] f32
 //
-// and its row-block entry, the share of rows [row0, row0 + rows) of Linv,
-//
-//     chi2_b[w] = sum_{r in [row0, row0 + rows)} (Linv[r, :] . delta[w])^2,
-//
-// which reads only the slab Linv[row0 : row0 + rows, : row0 + rows] (a
-// lower-triangular row's values past its diagonal are zeros), stored
-// row-major with the row stride ld = row0 + rows: each rank of a mesh
-// that splits Linv's rows keeps its own slab, and the blocks' sums add up
-// to chi2 (the data-sharded chi^2 of cosmax_torch/parallel/mesh.py). The
-// square entry is the block row0 = 0, rows = N, compiled as its own
-// instance (BLOCK = false) in which the block's row0, rows and stride fold
-// to 0, N and N: the square kernel's code and arithmetic stay as they were
-// (the general instance took 239 registers against 232 and ran the square
-// 1-6% slower, N = 1829-580).
+// A row block of Linv's share of it (the data-sharded chi^2) is
+// whitened_chi2_rows.cu's kernel.
 //
 // Replaces the TPU kernel cosmax/ops/pallas/chi2.py::whitened_chi2_pallas
 // (the hot op of every dense Gaussian likelihood on the parity path:
@@ -72,11 +60,9 @@
 //   up once per row tile: 4-byte copies, or 16-byte ones with their
 //   addresses recomputed per stage, took more of the instruction stream.
 // * Linv is lower-triangular (an inverted Cholesky factor), so a row tile
-//   at global row g0 reads k < min(g0 + BR, ld) only: the stages wholly
-//   above the diagonal are skipped; inside a stage the columns past the
-//   diagonal multiply Linv's exact zeros. In a row block the tile's global
-//   row is row0 + its local row: the skip counted from the block's own row
-//   0 would drop the columns its rows hold past that point.
+//   at row r0 reads k < min(r0 + BR, N) only: the stages wholly above the
+//   diagonal are skipped; inside a stage the columns past the diagonal
+//   multiply Linv's exact zeros.
 // * Against delta's passes: successive row tiles run their stages in
 //   opposite orders (k up, then k down), so the stages a row tile reads
 //   first are the ones its block read last, while they are still in L2:
@@ -141,24 +127,21 @@ __device__ __forceinline__ void fold(float (&acc)[MT][NT][4], float (&part)[MT][
       }
 }
 
-// The operands' shapes: delta [W, N]; the block's slab of Linv, `rows`
-// rows of `ld` values from global row row0 = ld - rows (the square entry:
-// rows = ld = N; the BLOCK = false instance reads N for both)
+// The operands' shapes: delta [W, N], Linv [N, N]
 struct Shape {
-  long long W, N, rows, ld;
+  long long W, N;
 };
 
-// where row `row` of a stage (delta's walker w0 + row, or the slab's row r0
-// + row - BW) starts, as a flat float index from its operand's pointer
+// where row `row` of a stage (delta's walker w0 + row, or Linv's row r0 +
+// row - BW) starts, as a flat float index from its operand's pointer
 // rounded down to 16 bytes, its length, and whether the row exists
 struct StageRow {
   const float* base;  // the operand's pointer rounded down to 16 bytes
   long long start;    // the flat index of (row, k = 0)
-  long long len;      // the row's values: N for delta, ld for the slab
+  long long len;      // the row's values: N
   bool ok;
 };
 
-template <bool BLOCK>
 __device__ __forceinline__ StageRow stage_row(int row, const float* __restrict__ delta,
                                               const float* __restrict__ linv, const Shape& sh,
                                               long long w0, long long r0) {
@@ -166,14 +149,13 @@ __device__ __forceinline__ StageRow stage_row(int row, const float* __restrict__
   const float* p = is_a ? delta : linv;
   const int p0 = static_cast<int>((reinterpret_cast<unsigned long long>(p) >> 2) & 3);
   const long long r = is_a ? w0 + row : r0 + row - BW;
-  const long long len = is_a || !BLOCK ? sh.N : sh.ld;
-  return StageRow{p - p0, p0 + r * len, len, r < (is_a ? sh.W : BLOCK ? sh.rows : sh.N)};
+  return StageRow{p - p0, p0 + r * sh.N, sh.N, r < (is_a ? sh.W : sh.N)};
 }
 
 // A thread's share of staging, set once per row tile: chunk lane % 8 of
 // rows 32 warp + 4 j + lane / 8 (j < 8: a row's first 128 bytes from 8
 // lanes together) and chunk 8 of row 32 warp + lane (warps 0-3 delta's rows,
-// 4-7 the slab's), each row's aligned chunks counted from the one below its
+// 4-7 Linv's), each row's aligned chunks counted from the one below its
 // k = 0. Rows 4 apart lie 4 len floats apart, so the 8 rows share their
 // offset into the first chunk. A stage at k0 copies from src + k0, the
 // bytes past a row's len-th value (and a missing row's) zero-filled.
@@ -185,7 +167,6 @@ struct Copies {
   int rows;           // how many of the 8 rows exist
 };
 
-template <bool BLOCK>
 __device__ __forceinline__ Copies prepare_copies(const float* __restrict__ delta,
                                                  const float* __restrict__ linv, const Shape& sh,
                                                  long long w0, long long r0) {
@@ -193,10 +174,10 @@ __device__ __forceinline__ Copies prepare_copies(const float* __restrict__ delta
   const int lane = threadIdx.x & 31;
   const int q = lane & 7;
   const int row = 32 * warp + (lane >> 3);
-  const StageRow sr = stage_row<BLOCK>(row, delta, linv, sh, w0, r0);
-  const StageRow s8 = stage_row<BLOCK>(32 * warp + lane, delta, linv, sh, w0, r0);
+  const StageRow sr = stage_row(row, delta, linv, sh, w0, r0);
+  const StageRow s8 = stage_row(32 * warp + lane, delta, linv, sh, w0, r0);
   const long long first = row < BW ? w0 + row : r0 + row - BW;
-  const long long last = row < BW ? sh.W : BLOCK ? sh.rows : sh.N;
+  const long long last = row < BW ? sh.W : sh.N;
   const long long rows = min(max((last - first + 3) / 4, 0LL), 8LL);
   // N < 2^31 values a row
   return Copies{sr.base + (sr.start & ~3LL) + 4 * q, s8.base + (s8.start & ~3LL) + 4 * (CHUNKS - 1),
@@ -220,22 +201,17 @@ __device__ __forceinline__ void issue_stage(float* slot, const Copies& c, int k0
              b8);
 }
 
-// the stages of the block's row tile i, at global rows from row0 + i BR:
-// k < min(row0 + (i + 1) BR, ld)
-template <bool BLOCK>
+// the stages of row tile i, at rows from i BR: k < min((i + 1) BR, N)
 __device__ __forceinline__ int tile_stages(int i, const Shape& sh) {
-  const long long row0 = BLOCK ? sh.ld - sh.rows : 0;
-  const long long k_end = min(row0 + static_cast<long long>(i + 1) * BR, BLOCK ? sh.ld : sh.N);
+  const long long k_end = min(static_cast<long long>(i + 1) * BR, sh.N);
   return static_cast<int>((k_end + BK - 1) / BK);
 }
 
 // row tile i's s-th stage in its order (k up in even tiles, down in odd ones)
-template <bool BLOCK>
 __device__ __forceinline__ int stage_k0(int i, int s, const Shape& sh) {
-  return ((i & 1) ? tile_stages<BLOCK>(i, sh) - 1 - s : s) * BK;
+  return ((i & 1) ? tile_stages(i, sh) - 1 - s : s) * BK;
 }
 
-template <bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 1)
 whitened_chi2_kernel(const float* __restrict__ linv, const float* __restrict__ delta,
                      float* __restrict__ out, const Shape sh) {
@@ -250,12 +226,12 @@ whitened_chi2_kernel(const float* __restrict__ linv, const float* __restrict__ d
   const int wm0 = (warp & 1) * WM;   // the warp's walkers in the block
   const int wn0 = (warp >> 1) * WN;  // its rows in the row tile
   const long long w0 = static_cast<long long>(blockIdx.x) * BW;
-  const int n_tiles = static_cast<int>(((BLOCK ? sh.rows : sh.N) + BR - 1) / BR);
+  const int n_tiles = static_cast<int>((sh.N + BR - 1) / BR);
   // where this lane's fragment rows start in a slot, with their k0's offset
   // into the first chunk: A's rows g and g + 8 of each m-tile (delta's: the
   // same in every stage), B's row g of each n-tile (Linv's: set per tile)
   auto offset = [&](int row, long long r0) {
-    return row * LDS + static_cast<int>(stage_row<BLOCK>(row, delta, linv, sh, w0, r0).start & 3) + t;
+    return row * LDS + static_cast<int>(stage_row(row, delta, linv, sh, w0, r0).start & 3) + t;
   };
   int a_at[MT][2], b_at[NT];
 #pragma unroll
@@ -269,9 +245,9 @@ whitened_chi2_kernel(const float* __restrict__ linv, const float* __restrict__ d
   auto load_next = [&](int slot) {
     if (p_tile < n_tiles) {
       if (p_s == 0)
-        copies = prepare_copies<BLOCK>(delta, linv, sh, w0, static_cast<long long>(p_tile) * BR);
-      issue_stage(ring + slot * SLOT_FLOATS, copies, stage_k0<BLOCK>(p_tile, p_s, sh));
-      if (++p_s == tile_stages<BLOCK>(p_tile, sh)) {
+        copies = prepare_copies(delta, linv, sh, w0, static_cast<long long>(p_tile) * BR);
+      issue_stage(ring + slot * SLOT_FLOATS, copies, stage_k0(p_tile, p_s, sh));
+      if (++p_s == tile_stages(p_tile, sh)) {
         ++p_tile;
         p_s = 0;
       }
@@ -293,7 +269,7 @@ whitened_chi2_kernel(const float* __restrict__ linv, const float* __restrict__ d
 
   int slot = 0;
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int ns = tile_stages<BLOCK>(tile, sh);
+    const int ns = tile_stages(tile, sh);
 #pragma unroll
     for (int n = 0; n < NT; ++n) b_at[n] = offset(BW + wn0 + 8 * n + g, static_cast<long long>(tile) * BR);
     for (int s = 0; s < ns; ++s) {
@@ -337,7 +313,7 @@ whitened_chi2_kernel(const float* __restrict__ linv, const float* __restrict__ d
   const bool last = s == ns - 1;
       fold(acc, part);
       if (last) {
-        // the row tile's Y squared into the walkers' sums; rows past the block are 0
+        // the row tile's Y squared into the walkers' sums; rows past N are 0
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -380,35 +356,21 @@ constexpr size_t SMEM_BYTES = STAGES * SLOT_FLOATS * sizeof(float);
 static_assert((BR / WN) * BW <= STAGES * SLOT_FLOATS, "the reduction reuses the ring");
 
 
-template <bool BLOCK>
-int launch(const float* linv, const float* delta, float* out, const Shape& sh, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      whitened_chi2_kernel<BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (sh.W + BW - 1) / BW;
-  whitened_chi2_kernel<BLOCK><<<static_cast<unsigned int>(blocks), THREADS, SMEM_BYTES,
-                                static_cast<cudaStream_t>(stream)>>>(linv, delta, out, sh);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Plain C entry points for ctypes. Pointers are device pointers; `stream`
-// is a cudaStream_t. Each returns cudaGetLastError() after the launch (0 on
-// success). The caller guarantees W >= 1, N >= 1 (the row block: rows >= 1,
-// row0 >= 0, row0 + rows <= N), contiguous f32 inputs.
+// Plain C entry point for ctypes. Pointers are device pointers; `stream`
+// is a cudaStream_t. Returns cudaGetLastError() after the launch (0 on
+// success). The caller guarantees W >= 1, N >= 1, contiguous f32 inputs.
 extern "C" int cosmax_whitened_chi2_f32(const float* linv, const float* delta,
                                         float* out, long long W, long long N,
                                         void* stream) {
-  return launch<false>(linv, delta, out, Shape{W, N, N, N}, stream);
-}
-
-// The row block [row0, row0 + rows) of Linv: `linv_rows` is the slab
-// Linv[row0 : row0 + rows, : row0 + rows], row-major with row stride
-// row0 + rows; out[w] is its rows' share of chi2[w].
-extern "C" int cosmax_whitened_chi2_rows_f32(const float* linv_rows, const float* delta,
-                                             float* out, long long W, long long N,
-                                             long long row0, long long rows, void* stream) {
-  return launch<true>(linv_rows, delta, out, Shape{W, N, rows, row0 + rows}, stream);
+  const Shape sh{W, N};
+  const cudaError_t err = cudaFuncSetAttribute(
+      whitened_chi2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (sh.W + BW - 1) / BW;
+  whitened_chi2_kernel<<<static_cast<unsigned int>(blocks), THREADS, SMEM_BYTES,
+                         static_cast<cudaStream_t>(stream)>>>(linv, delta, out, sh);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -34,7 +34,8 @@ walkers within 1e-6 of max|logp|, the fast flagships at 4 E and the
 multiprobe at 2 E bit for bit (and a block of the walkers that starts
 inside a kernel block, against the same walkers of the whole call).
 Returns a dict of what it checked (the global arrays on every rank) and
-the kernels' launches of the sharded calls.
+the kernels' launches of the sharded calls (``row_block_launches``: the
+chi^2's row-block kernel's alone, which a rank of 'd' > 1 launches).
 """
 
 import argparse
@@ -83,6 +84,12 @@ def _launches():
     from cosmax_torch.ops.kernels import fused_log_prob, whitened_chi2
 
     return {"whitened_chi2": whitened_chi2.LAUNCHES, "fused_log_prob": fused_log_prob.LAUNCHES}
+
+
+def _row_block_launches():
+    from cosmax_torch.ops.kernels import whitened_chi2
+
+    return whitened_chi2.ROWS_LAUNCHES
 
 
 def _since(before):
@@ -183,6 +190,7 @@ def run(opts: dict = None) -> dict:
     out = {"mesh": {k: mesh.size(i) for i, k in enumerate(mesh.mesh_dim_names)},
            "device": str(device), "world_size": n}
     start = _launches()
+    rows_start = _row_block_launches()
 
     fit = _rank0_first(mesh, lambda: get_preset(FLAGSHIP, "wzcdm", device=device, **sys_opt))
     batched = build_sharded_log_prob(fit, mesh)
@@ -290,6 +298,7 @@ def run(opts: dict = None) -> dict:
          f"over {walker_axes(mesh)}, chains over 'd', mean acceptance "
          f"{out['ladder']['acceptance']:.2f})")
     out["launches"] = _since(start)
+    out["row_block_launches"] = _row_block_launches() - rows_start
     return out
 
 

@@ -33,6 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from cosmax_torch.ops.kernels.whitened_chi2 import (
+    RowBlock,
     row_blocks,
     whitened_chi2_grad,
     whitened_chi2_rows,
@@ -235,17 +236,18 @@ class _ShardedChi2(torch.autograd.Function):
     differentiable one would count the gradient |d| times."""
 
     @staticmethod
-    def forward(ctx, slab, delta, group):
-        ctx.save_for_backward(slab, delta)
-        ctx.group = group
-        out = whitened_chi2_rows(slab, delta) if slab.shape[0] else delta.new_zeros(delta.shape[0])
+    def forward(ctx, block, delta, group):
+        ctx.save_for_backward(delta)
+        ctx.block, ctx.group = block, group
+        out = (whitened_chi2_rows(block, delta) if block.rows
+               else delta.new_zeros(delta.shape[0]))
         dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        slab, delta = ctx.saved_tensors
-        grad = (whitened_chi2_grad(slab, delta, g) if slab.shape[0]
+        (delta,) = ctx.saved_tensors
+        grad = (whitened_chi2_grad(ctx.block.slab, delta, g) if ctx.block.rows
                 else torch.zeros_like(delta))
         dist.all_reduce(grad, group=ctx.group)
         return None, grad, None
@@ -256,7 +258,9 @@ def data_sharded_chi2(linv, mesh, dtype=torch.float32):
     rank keeps only its slab L^-1[r0:r1, :r1] on its device and forms its
     rows' share; the shares are summed over 'd'. The blocks split the
     triangle by equal work (``row_blocks``), not by equal rows, so that no
-    rank waits on another; the sum is the same chi^2.
+    rank waits on another; the sum is the same chi^2. The slab is kept as a
+    ``RowBlock``, so that the row-block kernel splits it into its TF32
+    halves once, at its first launch, and not at every call.
 
     ``linv`` [N, N] lower-triangular (numpy or tensor); returns
     ``chi2(delta [W_local, N]) -> [W_local]``, differentiable in delta.
@@ -266,11 +270,11 @@ def data_sharded_chi2(linv, mesh, dtype=torch.float32):
     cuts = row_blocks(linv.shape[0], count)
     r0, r1 = cuts[index], cuts[index + 1]
     slab = torch.as_tensor(np.ascontiguousarray(linv[r0:r1, :r1]), device=mesh_device(mesh))
-    slab = slab.to(dtype)
+    block = RowBlock(slab.to(dtype))
     group = mesh.get_group(DATA)
 
     def chi2(delta: torch.Tensor) -> torch.Tensor:
-        return _ShardedChi2.apply(slab, delta, group)
+        return _ShardedChi2.apply(block, delta, group)
 
     chi2.rows = (r0, r1)
     return chi2

@@ -25,7 +25,7 @@ from cosmax.parallel import make_multislice_mesh as jax_make_multislice_mesh
 from cosmax.parallel import sharded_batched_log_prob as jax_sharded_batched_log_prob
 from cosmax.parallel.flagship import build_sharded_log_prob as jax_build_sharded_log_prob
 from cosmax_torch.ops.kernels.whitened_chi2 import (
-    ROW_TILE,
+    ROW_STEP,
     row_blocks,
     whitened_chi2_grad,
     whitened_chi2_reference,
@@ -133,8 +133,8 @@ CHI2_CASES = [(w, *case) for w in WORLDS for case in checks.chi2_cases(w)]
                          ids=[f"{c[0]}-{c[1]}" for c in CHI2_CASES])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_data_sharded_chi2_matches_jax(ranks, world, name, shape, n, w, seed, dtype):
-    """rtol 5e-5 in f32 (as test_parallel.py), 1e-12 in f64; N = 37 and 23
-    lie in one block of the kernel's row tile, N = 300 is split."""
+    """rtol 5e-5 in f32 (as test_parallel.py), 1e-12 in f64; every N is
+    split over 'd' (N = 23 at d = 4 with an empty block)."""
     got = ranks[world]["chi2"][name][f"torch.{dtype}"]
     want = _jax_chi2(shape, n, w, seed, dtype)[0]
     assert got.dtype == np.dtype(dtype)
@@ -268,8 +268,7 @@ def test_sharded_ladder(ranks, world):
 @pytest.mark.parametrize("n", [37, 300, 1829])
 @pytest.mark.parametrize("parts", [1, 2, 3, 4])
 def test_row_blocks_sum_to_square(n, parts):
-    """The blocks' shares add up to chi^2 (N = 37 lies in one block of the
-    row tile, empty blocks beside it); f64, rtol 1e-12."""
+    """The blocks' shares add up to chi^2; f64, rtol 1e-12."""
     linv, delta = checks.chi2_inputs(n, 16, 3)
     linv, delta = torch.as_tensor(linv), torch.as_tensor(delta)
     want = whitened_chi2_reference(linv, delta)
@@ -280,22 +279,23 @@ def test_row_blocks_sum_to_square(n, parts):
 
 
 @pytest.mark.parametrize("n,parts,want", [
-    (1829, 2, [0, 1280, 1829]),
-    (1829, 4, [0, 896, 1280, 1536, 1829]),
+    (1829, 2, [0, 1296, 1829]),
+    (1829, 4, [0, 912, 1296, 1584, 1829]),
     (1829, 1, [0, 1829]),
-    (37, 4, [0, 0, 0, 0, 37]),
-    (4096, 4, [0, 2048, 2944, 3584, 4096]),
+    (37, 4, [0, 16, 24, 32, 37]),
+    (4096, 4, [0, 2048, 2896, 3544, 4096]),
 ])
 def test_row_blocks_round_to_the_tile(n, parts, want):
-    """b_k = N sqrt(k / d) rounded to the kernel's row tile of 128: the
-    triangle's work r1^2 - r0^2 split evenly (equal rows would give the
-    last of two blocks 3/4 of it)."""
+    """b_k = N sqrt(k / d) rounded to ROW_STEP, 8 rows (the row-block
+    kernel takes any rows): the triangle's work r1^2 - r0^2 split evenly
+    (equal rows would give the last of two blocks 3/4 of it), each block
+    within 5% of the mean from N = 1024 on."""
     cuts = row_blocks(n, parts)
     assert cuts == want
-    assert all(c % ROW_TILE == 0 for c in cuts[:-1])
+    assert all(c % ROW_STEP == 0 for c in cuts[:-1])
     work = np.diff(np.square(np.asarray(cuts, dtype=float)))
     if n >= 1024:
-        assert work.max() <= 1.3 * n * n / parts
+        assert work.max() <= 1.05 * n * n / parts
 
 
 @pytest.mark.parametrize("r0,r1", [(0, 37), (0, 16), (16, 37), (8, 24)])

@@ -59,11 +59,13 @@ def chi2_inputs(n, w, seed):
 def chi2_cases(world):
     """(name, mesh (slices, walkers, data), n, walkers, seed) of the
     data-sharded chi^2 at world size ``world``: test_parallel.py's N = 37
-    and 23, which lie in one block of the kernel's row tile of 128, and N =
-    300, which the blocks split (d = 2: [0, 256, 300]; d = 4: [0, 128,
-    256, 256, 300], an empty block among them)."""
+    and 23 and N = 300, the blocks cut on multiples of 8 rows (N = 37, d =
+    2: [0, 24, 37]; d = 4: [0, 16, 24, 32, 37]; N = 300, d = 2: [0, 216,
+    300]; d = 4: [0, 152, 216, 256, 300]), and N = 23 at d = 4, [0, 8, 16,
+    16, 23], an empty block among them."""
     if world == 8:
         meshes = [("2x4", (None, 2, 4), 37, 16, 0), ("2x4", (None, 2, 4), 300, 16, 2),
+                  ("2x4", (None, 2, 4), 23, 16, 4),
                   ("2x2x2", (2, 2, 2), 23, 8, 1), ("2x2x2", (2, 2, 2), 300, 8, 3)]
     else:
         meshes = [("2x2", (None, 2, 2), 37, 16, 0), ("2x2", (None, 2, 2), 300, 16, 2)]
